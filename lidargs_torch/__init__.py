@@ -1,0 +1,20 @@
+"""lidargs_torch — the PyTorch/CUDA port of lidargs_tpu for one NVIDIA H100.
+
+The same LiDAR range-view Gaussian splatting, module for module beside the
+JAX package (which stays the reference): plain tensor code in PyTorch, and
+each Pallas kernel of the JAX package as a CUDA kernel written by hand for
+Hopper, under `csrc/`, built with nvcc at its first use on a card.
+
+Ported so far: the forward render path (config, beams and frames,
+projection, binning and compositing with kernel K1, the anchor field and its
+MLP heads, evaluation metrics, `measure_fps` and `run_eval`).
+
+Matrix products stay in full float32 (no TF32), as the JAX package computes
+its geometry at `Precision.HIGHEST`.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,98 @@
+"""Dataclass configuration of the render path.
+
+The counterpart of `lidargs_tpu/config.py`: the same field names and
+defaults, so a configuration means the same thing in both packages. The
+Pallas-only knobs (`pallas_chunk`, `pallas_tiles_per_block` and the
+`backend` switch) have no counterpart here: a composite call runs the CUDA
+kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor.
+`OptConfig` and the training configs arrive with the training step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class RasterConfig:
+    """Static configuration of the range-view rasterizer.
+
+    The capacities bound the work per frame: `max_visible` gaussians are
+    kept after culling, each touches at most `max_tiles_per_gaussian`
+    tiles, and each tile composites its nearest `tile_capacity` instances.
+    Overflow is counted and reported, never silently wrong for the
+    survivors."""
+
+    channels: int = 2                       # intensity + raydrop
+    tile_h: int = 1                         # pixel rows per physical tile
+    tile_w: int = 128                       # pixel cols per physical tile
+    ref_block_x: int = 16                   # reference's virtual tiling, used for
+    ref_block_y: int = 1                    # bit-parity pixel-rect masking
+    ray_divergence_angle: float = 0.002
+    near: float = 0.0
+    far: float = 80.0
+    # surfel (2DGS) variant; read once the surfel renderer is ported
+    surfel_ray_divergence_angle: float = 0.006
+    surfel_near: float = 0.2
+    surfel_far: float = 80.0
+    filter_inv_square: float = 2.0
+    alpha_min: float = 1.0 / 255.0
+    transmittance_min: float = 1e-4
+    alpha_clamp: float = 0.99
+    lowpass: float = 0.01                   # added to cov2d diagonal pre 1/d^2
+    # compact the prefiltered anchors to this many rows before the decode
+    # (render/eval path only; 0 = off). Anchors beyond the cap are counted
+    # into n_dropped.
+    visible_anchor_cap: int = 0
+    max_visible: int = 2 ** 18              # gaussians after cull-compaction
+    max_tiles_per_gaussian: int = 32        # per-gaussian tile rect cap
+    tile_capacity: int = 512                # sorted instances composited / tile
+    chunk: int = 16                         # instances per plain-scan step
+    # binning key budget: 0/-1 = the exact dense [V, cap] grid; a positive
+    # budget emits that many (gaussian, tile) slots by rank search and
+    # counts the instances beyond it into n_overflow
+    instance_capacity: int = 0
+    # per-tile windows of one sorted buffer instead of the [T, K, F]
+    # gather; arrives with its kernel, so it must stay False for now
+    fused_gather: bool = False
+    # training-only projection knobs, read once the backward is ported
+    remat_projection: bool = False
+    projection_hand_vjp: bool = True
+
+    def grid_shape(self, H: int, W: int) -> Tuple[int, int]:
+        return (-(-H // self.tile_h), -(-W // self.tile_w))
+
+    def num_tiles(self, H: int, W: int) -> int:
+        gy, gx = self.grid_shape(H, W)
+        return gy * gx
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Neural Gaussian Field hyper-parameters."""
+
+    feat_dim: int = 32
+    n_offsets: int = 6
+    color_channel: int = 2                  # intensity + raydrop
+    voxel_size: float = 0.0                 # <=0: median 3-NN distance
+    update_depth: int = 3
+    update_init_factor: int = 16
+    update_hierachy_factor: int = 4
+    use_feat_bank: bool = False
+    appearance_dim: int = 0
+    ratio: int = 1
+    add_opacity_dist: bool = True
+    add_cov_dist: bool = True
+    add_color_dist: bool = True
+    mlp_hidden: int = 32
+    # anchor arrays are padded to this static capacity
+    anchor_capacity: int = 2 ** 17
+    max_anchors: int = 1_200_000
+    grow_src_cap: int = 2 ** 16
+    grow_cap_per_level: int = 2 ** 13
+
+
+def replace(cfg, **kw):
+    """Functional update helper for frozen config dataclasses."""
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,251 @@
+"""Neural Gaussian Field: Scaffold-GS anchors decoded by view-conditioned
+MLP heads, and the forward render path.
+
+Counterpart of `lidargs_tpu/models/field.py`. Anchor arrays are padded to a
+static capacity with a `valid` mask, as in the JAX package, so parameters
+carry across unchanged (`utils/params.py`). The decode is anchor-major
+[C, k, ...] and is flattened once, at the projection, so `visible` and every
+per-gaussian row line up with the JAX package's.
+
+Not ported yet: `init_field_from_points` (needs the 3-NN and the voxel
+dedup), the surfel render and the densification proxy of the training step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import ModelConfig, RasterConfig
+from ..lidar.frames import LidarFrame
+from ..ops.projection import preprocess_gaussians, visible_filter
+from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
+from ..utils.device import resolve_device
+from .mlp import apply_mlp, init_mlp
+
+
+class AnchorField(NamedTuple):
+    """Static-capacity anchor state. `params` entries are trainable."""
+
+    params: dict                 # anchor/offset/feat/scaling/rotation/opacity + mlp_*
+    valid: torch.Tensor          # [C] bool anchor liveness
+    voxel_size: float
+
+
+def mlp_input_dims(cfg: ModelConfig, num_cameras: int = 0) -> dict:
+    """Head input widths. The appearance rows exist only when an appearance
+    embedding is created (appearance_dim > 0 and there are cameras)."""
+    d_op = cfg.feat_dim + 3 + (1 if cfg.add_opacity_dist else 0)
+    d_cov = cfg.feat_dim + 3 + (1 if cfg.add_cov_dist else 0)
+    app = cfg.appearance_dim if (cfg.appearance_dim > 0 and num_cameras > 0) else 0
+    d_col = cfg.feat_dim + 3 + (1 if cfg.add_color_dist else 0) + app
+    return {"opacity": d_op, "cov": d_cov, "color": d_col, "raydrop": d_col}
+
+
+def init_field_params(cfg: ModelConfig, num_cameras: int = 0,
+                      generator: Optional[torch.Generator] = None,
+                      device="cuda") -> dict:
+    """MLP heads + empty anchor arrays at capacity. Random draws come from
+    `generator` (a CPU generator; seed 0 when omitted) and are then moved to
+    `device`."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    C = cfg.anchor_capacity
+    dims = mlp_input_dims(cfg, num_cameras)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rotation = torch.zeros((C, 4), **f32)
+    rotation[:, 0] = 1.0
+    params = {
+        "anchor": torch.zeros((C, 3), **f32),
+        "offset": torch.zeros((C, cfg.n_offsets, 3), **f32),
+        "feat": torch.zeros((C, cfg.feat_dim), **f32),
+        "scaling": torch.zeros((C, 6), **f32),          # log-scale
+        "rotation": rotation,
+        "opacity": torch.zeros((C, 1), **f32),          # frozen (inverse-sigmoid)
+        "mlp_opacity": init_mlp(gen, dims["opacity"], cfg.mlp_hidden, cfg.n_offsets, dev),
+        "mlp_cov": init_mlp(gen, dims["cov"], cfg.mlp_hidden, 7 * cfg.n_offsets, dev),
+        "mlp_color": init_mlp(gen, dims["color"], cfg.mlp_hidden,
+                              (cfg.color_channel - 1) * cfg.n_offsets, dev),
+        "mlp_raydrop": init_mlp(gen, dims["color"], cfg.mlp_hidden, cfg.n_offsets, dev),
+    }
+    if cfg.use_feat_bank:
+        params["mlp_featbank"] = init_mlp(gen, 4, cfg.mlp_hidden, 3, dev)
+    if cfg.appearance_dim > 0 and num_cameras > 0:
+        # torch nn.Embedding's default init: N(0, 1)
+        for name in ("appearance", "appearance_rd"):
+            params[name] = torch.randn((num_cameras, cfg.appearance_dim),
+                                       generator=gen).to(dev)
+    return params
+
+
+class NeuralGaussians(NamedTuple):
+    """Decoded per-view gaussians, anchor-major [C, k, ...]."""
+
+    xyz: torch.Tensor            # [C, k, 3]
+    feat: torch.Tensor           # [C, k, channels] (intensity..., raydrop)
+    opacity: torch.Tensor        # [C, k] raw tanh output (rasterizer opacity)
+    scaling: torch.Tensor        # [C, k, 3] cov scales (activated)
+    rot: torch.Tensor            # [C, k, 4] normalized
+    mask: torch.Tensor           # [C, k] anchor-valid & visible & opacity>0
+    neural_opacity: torch.Tensor  # [C, k] pre-mask
+    sel_mask: torch.Tensor       # [C, k] opacity>0 & visible
+
+
+def generate_neural_gaussians(
+    params: dict,
+    valid: torch.Tensor,
+    anchor_visible: torch.Tensor,   # [C] prefilter mask
+    cam_center: torch.Tensor,       # [3]
+    cfg: ModelConfig,
+    cam_uid: Optional[torch.Tensor] = None,
+) -> NeuralGaussians:
+    """Decode every anchor's k neural gaussians for this view, masked
+    instead of compacted."""
+    k = cfg.n_offsets
+    anchor = params["anchor"]
+    Cap = anchor.shape[0]
+
+    ob_view = anchor - cam_center
+    # padded anchors can coincide with the sensor origin: guard the norm
+    d2 = (ob_view * ob_view).sum(1, keepdim=True)
+    ok = d2 > 0.0
+    ob_dist = torch.sqrt(torch.where(ok, d2, torch.ones_like(d2)))
+    ob_view = torch.where(ok, ob_view, torch.zeros_like(ob_view)) / ob_dist
+
+    feat = params["feat"]
+    if cfg.use_feat_bank:
+        bank_w = apply_mlp(params["mlp_featbank"], torch.cat([ob_view, ob_dist], 1),
+                           final_act=lambda y: torch.softmax(y, dim=1))
+        # multi-resolution mixing
+        feat = (feat[:, ::4].repeat(1, 4) * bank_w[:, :1]
+                + feat[:, ::2].repeat(1, 2) * bank_w[:, 1:2]
+                + feat * bank_w[:, 2:])
+
+    cat = torch.cat([feat, ob_view, ob_dist], 1)
+    cat_nodist = torch.cat([feat, ob_view], 1)
+
+    heads_fusable = (
+        cfg.add_opacity_dist == cfg.add_color_dist == cfg.add_cov_dist
+        and not (cfg.appearance_dim > 0 and "appearance" in params)
+    )
+    if heads_fusable:
+        # all four heads read the same input: their first layers run as one
+        # product of the concatenated weights, their second layers per head
+        x = cat if cfg.add_opacity_dist else cat_nodist
+        names = ("mlp_opacity", "mlp_color", "mlp_raydrop", "mlp_cov")
+        w1 = torch.cat([params[n]["l1"]["w"] for n in names], 1)
+        b1 = torch.cat([params[n]["l1"]["b"] for n in names])
+        h = torch.relu(x @ w1 + b1)
+        Hd = params["mlp_opacity"]["l1"]["w"].shape[1]
+        outs = [h[:, i * Hd:(i + 1) * Hd] @ params[n]["l2"]["w"] + params[n]["l2"]["b"]
+                for i, n in enumerate(names)]
+        neural_op = torch.tanh(outs[0])                            # [C,k]
+        intensity = torch.sigmoid(outs[1])
+        raydrop = torch.sigmoid(outs[2])
+        scale_rot = outs[3].reshape(Cap, k, 7)
+    else:
+        op_in = cat if cfg.add_opacity_dist else cat_nodist
+        neural_op = apply_mlp(params["mlp_opacity"], op_in, final_act=torch.tanh)
+
+        col_in = cat if cfg.add_color_dist else cat_nodist
+        if cfg.appearance_dim > 0 and "appearance" in params:
+            app = params["appearance"][cam_uid].expand(Cap, cfg.appearance_dim)
+            app_rd = params["appearance_rd"][cam_uid].expand(Cap, cfg.appearance_dim)
+            col_in_c = torch.cat([col_in, app], 1)
+            col_in_r = torch.cat([col_in, app_rd], 1)
+        else:
+            col_in_c = col_in_r = col_in
+        intensity = apply_mlp(params["mlp_color"], col_in_c, final_act=torch.sigmoid)
+        raydrop = apply_mlp(params["mlp_raydrop"], col_in_r, final_act=torch.sigmoid)
+
+        cov_in = cat if cfg.add_cov_dist else cat_nodist
+        scale_rot = apply_mlp(params["mlp_cov"], cov_in).reshape(Cap, k, 7)
+    color = torch.cat([intensity.reshape(Cap, k, cfg.color_channel - 1),
+                       raydrop.reshape(Cap, k, 1)], -1)
+
+    # anchor-major epilogue: [C, 1, x] broadcasts instead of [C*k, x] repeats
+    scaling_all = torch.exp(params["scaling"])                     # [C,6]
+    scaling = scaling_all[:, None, 3:] * torch.sigmoid(scale_rot[..., :3])
+    q = scale_rot[..., 3:7]
+    qn2 = (q * q).sum(-1, keepdim=True)
+    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    rot = torch.where(qn2 > 0, q, unit) / torch.sqrt(
+        torch.where(qn2 > 0, qn2, torch.ones_like(qn2)))
+
+    xyz = anchor[:, None, :] + params["offset"] * scaling_all[:, None, :3]
+
+    vis = (valid & anchor_visible)[:, None]                        # [C,1]
+    sel = neural_op > 0.0                                          # [C,k]
+    return NeuralGaussians(
+        xyz=xyz,
+        feat=color,
+        opacity=neural_op,
+        scaling=scaling,
+        rot=rot,
+        mask=vis & sel,
+        neural_opacity=neural_op,
+        sel_mask=sel & vis,
+    )
+
+
+def prefilter_anchors(field_params: dict, valid: torch.Tensor,
+                      frame: LidarFrame, rcfg: RasterConfig) -> torch.Tensor:
+    """Project the raw anchors with their offset scales (scaling[:, :3]) and
+    keep those with radii > 0."""
+    scales = torch.exp(field_params["scaling"][:, :3])
+    q = field_params["rotation"]
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True).clamp_min(1e-12)
+    return visible_filter(field_params["anchor"], scales, q, valid,
+                          frame.w2s_rot, frame.w2s_trans, frame.beams, frame.W, rcfg)
+
+
+def field_splats(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                 mcfg: ModelConfig, rcfg: RasterConfig):
+    """The front half of `render_field`: prefilter -> decode -> project.
+    Returns (Splats, NeuralGaussians, anchor_visible, n_anchor_drop), where
+    n_anchor_drop counts the visible anchors beyond `visible_anchor_cap`
+    (None when the cap is off).
+
+    With `rcfg.visible_anchor_cap > 0` the prefiltered anchors are compacted
+    to that many rows before the decode (visible anchors first, in their
+    order, by one stable sort)."""
+    anchor_visible = prefilter_anchors(params, valid, frame, rcfg)
+    Ca = rcfg.visible_anchor_cap
+    n_anchor_drop = None
+    if Ca and Ca > 0:
+        C = params["anchor"].shape[0]
+        Ca = min(Ca, C)
+        vis = valid & anchor_visible
+        order = torch.sort((~vis).to(torch.int32), stable=True).indices
+        n_vis = vis.sum()
+        n_anchor_drop = (n_vis - Ca).clamp_min(0)
+        sub = dict(params)
+        for name in ("anchor", "offset", "feat", "scaling", "rotation", "opacity"):
+            sub[name] = permutation_rows(params[name], order, Ca)
+        sub_on = torch.arange(Ca, device=vis.device) < n_vis.clamp_max(Ca)
+        params, valid, anchor_visible = sub, sub_on, sub_on
+    ng = generate_neural_gaussians(params, valid, anchor_visible, frame.center,
+                                   mcfg, cam_uid=frame.uid)
+
+    # flatten the anchor-major decode once, at the projection boundary
+    flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+    splats = preprocess_gaussians(
+        flat(ng.xyz), flat(ng.scaling), flat(ng.rot), flat(ng.opacity),
+        flat(ng.feat), flat(ng.mask),
+        frame.w2s_rot, frame.w2s_trans, frame.beams, frame.W, rcfg,
+    )
+    return splats, ng, anchor_visible, n_anchor_drop
+
+
+def render_field(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                 mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor):
+    """Full forward render: prefilter -> decode -> project -> tiled splat.
+    Returns (RenderOut, NeuralGaussians, anchor_visible). Visible anchors
+    beyond `visible_anchor_cap` are counted into n_dropped, k gaussians
+    each."""
+    splats, ng, anchor_visible, n_anchor_drop = field_splats(
+        params, valid, frame, mcfg, rcfg)
+    out: RenderOut = render_tiled(splats, frame.beams, frame.W, bg, rcfg)
+    if n_anchor_drop is not None:
+        out = out._replace(n_dropped=out.n_dropped + n_anchor_drop * mcfg.n_offsets)
+    return out, ng, anchor_visible

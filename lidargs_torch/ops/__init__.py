@@ -1,0 +1,12 @@
+from .projection import (
+    PackedCols,
+    Splats,
+    build_cov3d,
+    pack_splats,
+    preprocess_gaussians,
+    quat_to_rotmat,
+)
+from .composite import CompositeOut, composite_depth_ordered, composite_packed
+from .composite_kernel import composite_tiles, composite_tiles_plain
+from .reference import render_reference
+from .rasterize import RenderOut, render_tiled

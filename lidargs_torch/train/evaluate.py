@@ -1,0 +1,109 @@
+"""Render-only entry points: frame rate and the evaluation sweep.
+
+Counterparts of `measure_fps` and `run_eval` in `lidargs_tpu/train/cli.py`,
+taking the field (params + anchor mask) and the frames directly, since the
+trainer and the scene loaders are not ported yet. Each renders through
+`render_field` (the beam variant), on the card unless the caller passes
+`device="cpu"`.
+
+Left out here: the ray-drop refiner, LPIPS, TensorBoard images and the
+chamfer/F-score depth metrics (they wait for their own modules).
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Dict, List, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig, RasterConfig
+from ..lidar.frames import LidarFrame
+from ..models.field import render_field
+from ..ops.rasterize import RenderOut
+from ..utils.device import resolve_device
+from .metrics import evaluate_frame, mean_metrics
+
+log = logging.getLogger(__name__)
+
+
+def _params_to(params: dict, dev: torch.device) -> dict:
+    return {k: _params_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in params.items()}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class FpsResult(NamedTuple):
+    fps: float                 # mean of 1/t over the frames after warmup
+    seconds: List[float]       # per-frame wall clock, warmup frames included
+    outputs: List[RenderOut]   # each frame's render, in order
+
+
+def measure_fps(params: dict, valid: torch.Tensor, frames: List[LidarFrame],
+                mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
+                warmup: int = 5, device="cuda") -> FpsResult:
+    """Per-frame wall clock of the render, each frame ending in a device
+    synchronize; the rate is the mean of 1/t over the frames after the
+    first `warmup`."""
+    if len(frames) <= warmup:
+        raise ValueError(f"{len(frames)} frames leave none after {warmup} warmup frames")
+    dev = resolve_device(device)
+    params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
+    frames = [fr.to(dev) for fr in frames]
+    ts, outs = [], []
+    for fr in frames:
+        t0 = time.perf_counter()
+        out = render_field(params, valid, fr, mcfg, rcfg, bg)[0]
+        _sync(dev)
+        ts.append(time.perf_counter() - t0)
+        outs.append(out)
+    fps = float(np.mean([1.0 / t for t in ts[warmup:]]))
+    log.info("[fps] %.2f frames/s over %d frames", fps, len(ts) - warmup)
+    return FpsResult(fps=fps, seconds=ts, outputs=outs)
+
+
+def run_eval(params: dict, valid: torch.Tensor,
+             splits: Dict[str, List[LidarFrame]], mcfg: ModelConfig,
+             rcfg: RasterConfig, bg: torch.Tensor, model_path: str,
+             depth_min: float = 5.0, depth_max: float = 80.0,
+             device="cuda") -> dict:
+    """Render every frame of each split (e.g. {"test": [...], "train":
+    [...]}), score it with `evaluate_frame`, and write the per-split means to
+    `<model_path>/results.json` and the per-frame metrics to
+    `<model_path>/per_view.json`. Returns both in one dict."""
+    dev = resolve_device(device)
+    params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
+    results = {}
+    for name, frames in splits.items():
+        if not frames:
+            log.info("[eval %s] no frames, skipped", name)
+            continue
+        per = []
+        for fr in frames:
+            fr = fr.to(dev)
+            out = render_field(params, valid, fr, mcfg, rcfg, bg)[0]
+            pv = evaluate_frame(out.color, out.depth, fr.gt_image, fr.beams,
+                                depth_min=depth_min, depth_max=depth_max)
+            pv["visible_count"] = float(out.visible.sum())
+            per.append(pv)
+        m = mean_metrics(per)
+        results[name] = m
+        results[f"per_view_{name}"] = {f"{i:05d}": pv for i, pv in enumerate(per)}
+        log.info("[eval %s] psnr=%.3f ssim=%.4f rd_acc=%.4f d_rmse=%.4f d_medae=%.4f",
+                 name, m["intensity_psnr"], m["intensity_ssim"], m["raydrop_acc"],
+                 m["depth_rmse"], m["depth_medae"])
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "results.json"), "w") as f:
+        json.dump({k: v for k, v in results.items() if not k.startswith("per_view_")},
+                  f, indent=2)
+    with open(os.path.join(model_path, "per_view.json"), "w") as f:
+        json.dump({k: v for k, v in results.items() if k.startswith("per_view_")},
+                  f, indent=2)
+    return results

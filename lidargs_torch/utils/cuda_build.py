@@ -1,0 +1,88 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exports a plain C interface and is compiled on its
+own into `build/lidargs_torch/lib<name>-<hash>.so` beside the package, for
+Hopper (`sm_90a`). The hash covers the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing is built
+at import: the first CUDA call of a kernel's wrapper builds it, and
+`build()` builds several at once, one nvcc process per source, all started
+together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidargs_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names) -> dict[str, Path]:
+    """Compile every named source that is not built yet, one nvcc process
+    per source, all at once. Writes each compiler log (registers, shared
+    memory, spills) beside its library as `<lib>.log`. Raises on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: library_path(n) for n in names}
+    procs = []
+    for n, lib in out.items():
+        if lib.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        procs.append((n, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for n, lib, tmp, p in procs:
+        log, _ = p.communicate()
+        lib.with_suffix(".log").write_text(log)
+        if p.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
+        else:
+            os.replace(tmp, lib)          # atomic: a concurrent build of the same source is harmless
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _loaded[name] = lib
+    return lib

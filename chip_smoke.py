@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the render path from `lidargs_torch/csrc/`
-(nvcc, sm_90a, into `build/lidargs_torch/`), then:
+It builds every CUDA kernel of the port from `lidargs_torch/csrc/` (nvcc,
+sm_90a, one process per source, all at once, into `build/lidargs_torch/`),
+then:
 
   1. renders the full-width benchmark scene (64x2650 range view, 60,000
      anchors on a synthetic street shell, k=6 -> 393,216 gaussians, random
@@ -22,21 +23,46 @@ It builds every CUDA kernel of the render path from `lidargs_torch/csrc/`
      path gave it for one frame;
   5. times the render, K1 and the plain version with CUDA events, and
      computes K1's bound from this run's inputs;
-  6. lists the render's costliest device kernels from torch.profiler.
+  6. lists the render's costliest device kernels from torch.profiler;
+  7. trains: N_STEPS `Trainer.step`s of the same scene against random GT
+     images (as the JAX package's train-step benchmark draws them) from
+     sensor poses, with the counts set to 0 just before and read just after,
+     requiring one K1 and one K2 launch per step, finite losses and
+     parameters that changed, and statistics that accumulate; then one
+     `Trainer.densify`, whose anchor count must be the count before plus
+     grown minus pruned;
+  8. holds K2 against its plain PyTorch version on the inputs one step gave
+     it, and the parameter gradients of one step through K1/K2 against
+     those through the plain versions, and reports the difference between
+     two identical steps (PyTorch does not promise that the `[T, K, F]`
+     gather's backward, an accumulating index_put, is deterministic on CUDA);
+  9. times the train step, K2 and the plain backward with CUDA events,
+     computes K2's bound from this run's inputs, and profiles a few steps.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
 the last line, `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line; without a CUDA device it exits non-zero at once.
 
-Tolerances, K1 against plain PyTorch on identical inputs: the kernel
-multiplies the transmittance in sequence where the plain version takes a
+Tolerances, kernel against plain PyTorch on identical inputs: the kernels
+multiply the transmittance in sequence where the plain versions take a
 chunked cumprod, so a pixel whose T*(1-alpha) sits at the 1e-4 threshold can
-stop one instance earlier or later. Features and final T: mean |d| <= 1e-5,
-max |d| <= 2e-2; depth (metres): mean |d| <= 1e-3, max |d| <= 2.0.
+stop one instance earlier or later.
+  * K1: features and final T: mean |d| <= 1e-5, max |d| <= 2e-2; depth
+    (metres): mean |d| <= 1e-3, max |d| <= 2.0.
+  * K2: each dinst column scaled by its largest magnitude: mean |d| <= 1e-5,
+    at most 64 elements beyond 2e-5 (the 16 columns of four rows whose
+    instance sits at a flipped pixel), max <= 1e-3. On the smoke scene the
+    H100 read a mean of 3.9e-9, a max of 8.2e-7 and no element beyond 2e-5
+    over 183,125 touched rows: the max allows ~1000 times that, and a flip
+    whose pixel carries more than 0.1% of its column's largest gradient
+    fails.
+  * Gradients of one step, kernels against plain versions, per parameter
+    leaf: |g_k - g_p| / |g_p| <= 1e-2 and cosine >= 0.999.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -56,8 +82,18 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_OPS_PER_S = 67e12    # H100 SXM FP32, outside the tensor cores
 OPS_IN_RECT = 35               # per pixel-instance pair inside the parity rect
 OPS_OUT_RECT = 4               # the rect test alone
+OPS_APPLIED_BWD = 80           # K2 per applied pair: the forward recompute and the backward
+#                                chain, plus one add per gradient column (14 + C) for the
+#                                reduction; K2's other in-rect pairs cost the forward's count
+N_STEPS = 8                    # training steps of the main path
+TRAIN_TIMED = 20               # steps timed after warm-up
+VOXEL = 0.1                    # densify voxel size (m)
+# statistics from the first step on, one densify after the last step
+OPT = dict(start_stat=0, update_from=0, update_interval=N_STEPS, update_until=10 ** 6)
 
 TOL = {"feat_mean": 1e-5, "feat_max": 2e-2, "depth_mean": 1e-3, "depth_max": 2.0}
+K2_TOL = {"mean": 1e-5, "atol": 2e-5, "far_count": 64, "max": 1e-3}
+GRAD_TOL = {"rel_norm": 1e-2, "cos": 0.999}
 
 
 def fail(msg: str) -> None:
@@ -114,9 +150,11 @@ def time_ms(fn, iters: int, warmup: int) -> list:
 def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-instance pairs that K1's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
-    crossing), split into those inside the instance's parity rect, which
-    take the full alpha and blend arithmetic, and those outside, which take
-    the rect test alone."""
+    crossing), as (applied, other in rect, out of rect): the pairs that pass
+    and are blended (K2 runs its backward chain and reduction on these
+    alone), the other pairs inside the instance's parity rect (the alpha
+    arithmetic, then a failed test or the crossing), and the pairs outside
+    it (the rect test alone)."""
     import torch
 
     from lidargs_torch.ops.projection import PackedCols as PC
@@ -124,7 +162,7 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     T, K, _ = inst.shape
     rc = PC.rect(C).start
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_in = n_out = 0
+    n_app = n_in = n_out = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -141,9 +179,75 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         t_incl = torch.cumprod(torch.where(passed, 1.0 - alpha, 1.0), dim=1)
         cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
         visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
+        n_app += int((visited & passed & (cross == 0)).sum())
         n_in += int((visited & in_rect).sum())
         n_out += int((visited & ~in_rect).sum())
-    return n_in, n_out
+    return n_app, n_in - n_app, n_out
+
+
+def check_dinst(got, want, C: int) -> dict:
+    """K2's dinst against the plain version's, each column scaled by its
+    largest magnitude; fails out of K2_TOL."""
+    import torch
+
+    nv = 14 + C
+    if not bool(torch.isfinite(got).all()):
+        fail("K2: non-finite dinst")
+    if bool((got[..., nv:] != 0).any()):
+        fail("K2: nonzero rect/center/valid/pad columns")
+    scale = want[..., :nv].abs().amax(dim=(0, 1)).clamp_min(1e-30)
+    d = (got[..., :nv] - want[..., :nv]).abs() / scale
+    err = {"mean": float(d.mean()), "max": float(d.max()),
+           "far_count": int((d > K2_TOL["atol"]).sum()),
+           "max_abs": float((got - want).abs().max()),
+           "mean_abs": float((got - want).abs().mean()),
+           "rows_touched": int((want[..., :nv].abs().amax(-1) > 0).sum())}
+    for k in ("mean", "far_count", "max"):
+        if not err[k] <= K2_TOL[k]:
+            fail(f"K2 vs plain: {k} = {err[k]:.3e} exceeds {K2_TOL[k]:.1e} ({err})")
+    print(f"# K2 vs plain (one step's inputs): {err}", file=sys.stderr)
+    return err
+
+
+def grad_diff(a: dict, b: dict) -> dict:
+    """Per parameter leaf: relative norm of a - b and the cosine of a and b
+    (b is the reference)."""
+    from lidargs_torch.train.optim import tree_leaves
+
+    import torch
+
+    names = []
+
+    def walk(t, path):
+        for k in t:
+            if isinstance(t[k], dict):
+                walk(t[k], f"{path}{k}/")
+            else:
+                names.append(path + k)
+    walk(a, "")
+    out = {}
+    for name, x, y in zip(names, tree_leaves(a), tree_leaves(b)):
+        x, y = x.double().flatten(), y.double().flatten()
+        ny = float(y.norm())
+        out[name] = {
+            "rel_norm": float((x - y).norm()) / ny if ny > 0 else float((x - y).norm()),
+            "cos": float(x @ y) / (float(x.norm()) * ny) if ny > 0 else 1.0,
+            "max_abs": float((x - y).abs().max()), "norm": ny,
+        }
+    return out
+
+
+@contextlib.contextmanager
+def plain_composite(ck):
+    """Route the composite autograd function through the plain PyTorch
+    versions of K1 and K2 (they are looked up at call time), for holding
+    the kernels' gradients against theirs."""
+    saved = ck.composite_tiles, ck.composite_tiles_bwd
+    ck.composite_tiles, ck.composite_tiles_bwd = ck.composite_tiles_plain, ck.composite_tiles_bwd_plain
+    try:
+        yield
+    finally:
+        ck.composite_tiles, ck.composite_tiles_bwd = saved
 
 
 def profile_render(render, frames: int = 3) -> dict:
@@ -213,7 +317,7 @@ def run(dev) -> None:
 
     # --- build every kernel of the path ---
     t0 = time.perf_counter()
-    libs = cuda_build.build(["composite_fwd"])
+    libs = cuda_build.build(["composite_fwd", "composite_bwd"])
     build_s = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text().strip()
@@ -308,13 +412,17 @@ def run(dev) -> None:
         plain_ms = time_ms(lambda: ck.composite_tiles_plain(inst, counts, pix, C, rcfg), 5, 1)
         render = lambda: render_field(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
-        n_in, n_out = walked_pairs(inst, counts, pix, C, rcfg)
+        n_app, n_other, n_out = walked_pairs(inst, counts, pix, C, rcfg)
         prof = profile_render(render)
+    n_in = n_app + n_other
     n_bytes = 4 * (inst.numel() + counts.numel() + pix.numel() + out_k.numel())
     n_ops = OPS_IN_RECT * n_in + OPS_OUT_RECT * n_out
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
     med = lambda xs: float(np.median(xs))
+
+    # --- 7-9. training, K2 against plain, timing ---
+    train, k2 = train_phases(dev, params, valid, mcfg, rcfg, beams)
 
     timing = {
         "card": card_csv,
@@ -326,11 +434,12 @@ def run(dev) -> None:
         "plain_ms_median": med(plain_ms), "plain_samples": len(plain_ms),
         "k1_inputs": shapes,
         "k1_bound": {"bytes": n_bytes, "bytes_ms": t_bytes, "ops": n_ops, "ops_ms": t_ops,
-                     "pairs_in_rect": n_in, "pairs_out_rect": n_out},
+                     "pairs_in_rect": n_in, "pairs_applied": n_app, "pairs_out_rect": n_out},
         "build_s": build_s,
         "main_path": main_path,
         "golden_small_err": err_ref,
         "profile": prof,
+        "train": train,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
@@ -342,6 +451,7 @@ def run(dev) -> None:
             "source": "lidargs_torch/csrc/composite_fwd.cu",
             "replaces": "lidargs_tpu/ops/pallas_composite.py:175",
             "launches": k1_launches,
+            "launches_train": train["k1_launches"],
             "max_abs_err": max(err_k1["feat_max"], err_k1["depth_max"]),
             "mean_abs_err": {"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
             "ms": med(k1_ms),
@@ -349,14 +459,176 @@ def run(dev) -> None:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
-        }],
+        }, k2],
     }
     print(json.dumps({"timing": timing}))
     print(json.dumps(kernels))
     print(card_csv)
+    # the run uses one device
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
+
+
+def train_phases(dev, params, valid, mcfg, rcfg, beams):
+    """Phases 7-9 on the render scene: (summary for the timing line, K2's
+    entry of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import OptConfig
+    from lidargs_torch.lidar import LidarFrame
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
+    from lidargs_torch.train.optim import tree_leaves
+    from lidargs_torch.utils.testing import sensor_poses
+
+    C = mcfg.color_channel
+    med = lambda xs: float(np.median(xs))
+    ocfg = OptConfig(**OPT)
+    bg = torch.zeros(2, device=dev)
+    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg)
+    # GT as the JAX package's train-step benchmark draws it
+    rng = np.random.default_rng(4)
+    frames = []
+    for i, pose in enumerate(sensor_poses(N_STEPS, seed=2)):
+        gt = np.zeros((3, H, W), np.float32)
+        gt[0] = rng.uniform(size=(H, W)) > 0.2
+        gt[1] = rng.uniform(size=(H, W)) * gt[0]
+        gt[2] = rng.uniform(5.0, 70.0, size=(H, W)) * gt[0]
+        frames.append(LidarFrame.from_lidar2world(pose, beams, gt, uid=i, device=dev))
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+
+    # --- 7. the main path: N_STEPS training steps ---
+    state, losses = state0, []
+    ck.launches = ck.bwd_launches = 0
+    for it in range(1, N_STEPS + 1):
+        state, m = trainer.step(state, frames[it - 1], it)
+        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    k1_launches, k2_launches = ck.launches, ck.bwd_launches
+    if k1_launches != N_STEPS or k2_launches != N_STEPS:
+        fail(f"{N_STEPS} steps launched K1 {k1_launches} and K2 {k2_launches} times")
+    if not all(np.isfinite(list(l.values())).all() for l in losses):
+        fail(f"non-finite loss terms: {losses}")
+    moved = 0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(state0.params)):
+        if not bool(torch.isfinite(a).all()):
+            fail("non-finite parameters after training")
+        moved += int((a != b).sum())
+    if moved == 0:
+        fail("training left every parameter as it was")
+    stats = {
+        "anchor_demon_max": float(state.anchor_demon.max()),
+        "offset_denom_sum": float(state.offset_denom.sum()),
+        "offset_grad_accum_sum": float(state.offset_grad_accum.sum()),
+        "opacity_accum_sum": float(state.opacity_accum.sum()),
+    }
+    if not (stats["anchor_demon_max"] == N_STEPS and stats["offset_denom_sum"] > 0
+            and stats["offset_grad_accum_sum"] > 0 and stats["opacity_accum_sum"] > 0):
+        fail(f"densification statistics did not accumulate: {stats}")
+    n_before = int(state.valid.sum())
+    if not trainer.should_densify(n_before, N_STEPS):
+        fail("the densify cadence does not fire after the last step")
+    dense, dstats = trainer.densify(state, torch.Generator(device=dev).manual_seed(0), VOXEL)
+    densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
+               "n_pruned": int(dstats.n_pruned),
+               "n_capacity_dropped": int(dstats.n_capacity_dropped),
+               "n_anchors_after": int(dense.valid.sum())}
+    if densify["n_anchors_after"] != n_before + densify["n_grown"] - densify["n_pruned"]:
+        fail(f"densify: anchor count does not add up: {densify}")
+    print(f"# train: losses {losses}; stats {stats}; densify {densify}", file=sys.stderr)
+
+    # --- 8. K2 against plain on one step's inputs; gradients against plain ---
+    frame = frames[0]
+    grads = lambda: loss_and_grads(state, frame, bg, mcfg, rcfg, ocfg)[1:]
+    captured = []
+    run_k2 = ck.composite_tiles_bwd
+
+    def record(*args):
+        captured.append(args)
+        return run_k2(*args)
+
+    ck.composite_tiles_bwd = record
+    try:
+        g_k, pg_k = grads()
+    finally:
+        ck.composite_tiles_bwd = run_k2
+    g_k2, pg_k2 = grads()
+    with plain_composite(ck):
+        g_p, pg_p = grads()
+    torch.cuda.synchronize()
+    for g in tree_leaves(g_k) + [pg_k]:
+        if not bool(torch.isfinite(g).all()):
+            fail("non-finite gradients")
+    bwd_args = captured[0]
+    with torch.no_grad():
+        d_k = run_k2(*bwd_args)
+        d_p = ck.composite_tiles_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    err_k2 = check_dinst(d_k, d_p, C)
+    vs_plain = grad_diff({**g_k, "proxy": pg_k}, {**g_p, "proxy": pg_p})
+    run_to_run = grad_diff({**g_k2, "proxy": pg_k2}, {**g_k, "proxy": pg_k})
+    for name, e in vs_plain.items():
+        if e["norm"] == 0:
+            continue
+        if not (e["rel_norm"] <= GRAD_TOL["rel_norm"] and e["cos"] >= GRAD_TOL["cos"]):
+            fail(f"gradient of {name}, kernels vs plain: {e}")
+    print(f"# grads vs plain: {vs_plain}\n# grads run to run: {run_to_run}", file=sys.stderr)
+
+    # --- 9. timing: the step, K2, the plain backward; K2's bound; profile ---
+    inst, counts, pix, res, g = bwd_args[:5]
+    held = [state]
+
+    def one_step():
+        held[0], _ = trainer.step(held[0], frame, 1)
+
+    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
+    k2_ms = time_ms(lambda: run_k2(*bwd_args), 50, 5)
+    plain_bwd_ms = time_ms(lambda: ck.composite_tiles_bwd_plain(*bwd_args), 5, 1)
+    n_app, n_other, n_out = walked_pairs(inst, counts, pix, C, rcfg)
+    # profile_render reports per call; a call here is one step
+    prof = profile_render(one_step, frames=3)
+    n_bytes = 4 * (inst.numel() + counts.numel() + pix.numel() + res.numel() + g.numel()
+                   + d_k.numel())
+    n_ops = ((OPS_APPLIED_BWD + 14 + C) * n_app + OPS_IN_RECT * n_other
+             + OPS_OUT_RECT * n_out)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    train = {
+        "steps": N_STEPS, "k1_launches": k1_launches, "k2_launches": k2_launches,
+        "loss_first": losses[0], "loss_last": losses[-1], "stats": stats, "densify": densify,
+        "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_samples": len(step_ms),
+        "k2_ms_median": med(k2_ms), "k2_samples": len(k2_ms),
+        "plain_bwd_ms_median": med(plain_bwd_ms), "plain_bwd_samples": len(plain_bwd_ms),
+        "k2_bound": {"bytes": n_bytes, "bytes_ms": t_bytes, "ops": n_ops, "ops_ms": t_ops,
+                     "pairs_applied": n_app, "pairs_in_rect_other": n_other,
+                     "pairs_out_rect": n_out},
+        "k2_err": err_k2,
+        "grad_vs_plain_worst": max(vs_plain.items(), key=lambda kv: kv[1]["rel_norm"]),
+        "grad_run_to_run_max_rel_norm": max(e["rel_norm"] for e in run_to_run.values()),
+        "grad_run_to_run_max_abs": max(e["max_abs"] for e in run_to_run.values()),
+        "profile": prof,
+    }
+    if isinstance(prof["device_ms_per_frame"], float):
+        train["device_busy_share"] = prof["device_ms_per_frame"] / med(step_ms)
+    k2 = {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "lidargs_torch/csrc/composite_bwd.cu",
+        "replaces": "lidargs_tpu/ops/pallas_composite.py:224",
+        "launches": k2_launches,
+        "max_abs_err": err_k2["max_abs"],
+        "mean_abs_err": err_k2["mean_abs"],
+        "column_scaled_err": {"mean": err_k2["mean"], "max": err_k2["max"],
+                              "far_count": err_k2["far_count"]},
+        "ms": med(k2_ms),
+        "plain_ms": med(plain_bwd_ms),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    return train, k2
 
 
 if __name__ == "__main__":

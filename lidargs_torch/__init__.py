@@ -5,9 +5,11 @@ JAX package (which stays the reference): plain tensor code in PyTorch, and
 each Pallas kernel of the JAX package as a CUDA kernel written by hand for
 Hopper, under `csrc/`, built with nvcc at its first use on a card.
 
-Ported so far: the forward render path (config, beams and frames,
-projection, binning and compositing with kernel K1, the anchor field and its
-MLP heads, evaluation metrics, `measure_fps` and `run_eval`).
+Ported so far: the render path (config, beams and frames, projection,
+binning and compositing with kernel K1, the anchor field and its MLP heads,
+evaluation metrics, `measure_fps` and `run_eval`) and the beam training step
+(the hand projection VJP, the backward composite kernel K2, the 5-term loss,
+Adam, the densification statistics and `densify_step`).
 
 Matrix products stay in full float32 (no TF32), as the JAX package computes
 its geometry at `Precision.HIGHEST`.

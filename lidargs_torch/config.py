@@ -5,12 +5,12 @@ defaults, so a configuration means the same thing in both packages. The
 Pallas-only knobs (`pallas_chunk`, `pallas_tiles_per_block` and the
 `backend` switch) have no counterpart here: a composite call runs the CUDA
 kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor.
-`OptConfig` and the training configs arrive with the training step.
+`DataConfig`, `ParallelConfig` and `TrainConfig` arrive with the CLI.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -91,6 +91,65 @@ class ModelConfig:
     max_anchors: int = 1_200_000
     grow_src_cap: int = 2 ** 16
     grow_cap_per_level: int = 2 ** 13
+
+
+@dataclass(frozen=True)
+class LrSchedule:
+    init: float = 0.0
+    final: float = 0.0
+    delay_steps: int = 0
+    delay_mult: float = 0.01
+    max_steps: int = 10_000
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    """Optimization parameters: learning rates, loss weights and the
+    densification cadence (the JAX package's `OptConfig`, field for field)."""
+
+    iterations: int = 10_000
+    anchor_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.0, 0.0))
+    offset_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.005, 1e-5))
+    feature_lr: float = 0.005
+    opacity_lr: float = 0.02
+    scaling_lr: float = 0.007
+    rotation_lr: float = 0.002
+    mlp_opacity_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.002, 2e-4))
+    mlp_cov_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.004, 4e-4))
+    mlp_color_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.008, 5e-5))
+    mlp_raydrop_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.008, 5e-5))
+    mlp_featurebank_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.001, 1e-5))
+    appearance_lr: LrSchedule = field(default_factory=lambda: LrSchedule(0.05, 5e-5))
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    raydrop_lambda: float = 10.0            # 10 waymo / 1 kitti
+    scale_reg: float = 0.01
+    grad_clip_x: float = 0.01
+    # densification
+    start_stat: int = 500
+    update_from: int = 500
+    update_interval: int = 100
+    update_until: int = 7000
+    min_opacity: float = 0.005
+    success_threshold: float = 0.1
+    densify_grad_threshold: float = 5e-4
+    depth_max: float = 80.0
+    depth_min: float = 5.0                  # kitti 1 / waymo 5
+    adam_eps: float = 1e-15
+    # surfel (2DGS) regularizers; read once the surfel renderer is ported
+    dist_lambda: float = 100.0
+    normal_lambda: float = 0.05
+    dist_from: int = 1000
+    normal_from: int = 2000
+    # keep the prune pass's cov log-scale clamp (min(scaling, 0.05) on the
+    # cov columns) running at the update_interval cadence after
+    # update_until: with a static per-tile budget, unclamped cov scales let
+    # bloated near gaussians take every tile's nearest-K slots
+    scale_clamp_after_until: bool = True
+    # capacity-pressure regularizer: when instances overflow the per-tile
+    # budget, push the decoded set's positive opacities down in proportion
+    # to the overflow (off by default)
+    overflow_lambda: float = 0.0
 
 
 def replace(cfg, **kw):

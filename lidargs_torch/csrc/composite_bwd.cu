@@ -1,0 +1,245 @@
+// Backward range-view composite (kernel K2) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_bwd_kernel` / `_bwd_tile` of
+// lidargs_tpu/ops/pallas_composite.py (reached through `_bwd_call` and the
+// custom VJP of `composite_tiles_pallas`). Same function, the VJP of K1
+// (composite_fwd.cu):
+//
+//   in   inst   [T, K, F] f32     depth-ordered packed instances per tile
+//        counts [T]       i32     live rows per tile
+//        pix    [T, 8, NPIX] f32  rows 0-2 unit ray dir, row 3 column, row 4 row
+//        res    [T, 8, NPIX] f32  K1's output for these inputs
+//        g      [T, 8, NPIX] f32  cotangent of that output
+//   out  dinst  [T, K, F] f32     per row: d mean(3), d u1(3), d u2(3),
+//                                 d conic(3), d opacity, d depth, d feat(C);
+//                                 zero in the rect, center, valid and pad
+//                                 columns and on every row no pixel reached
+//
+// Per pixel, in K1's order: TOT = sum_c gc*totc + gd*totd (from res); for
+// each applied instance, behind = TOT - (running sum of w*direct, this row
+// included), dalpha = P*direct - (behind + gT*Tfin) / (1 - alpha), where P
+// is the transmittance before the instance; only rows with alpha below the
+// clamp (live) carry dalpha into power, the conic, the basis and the mean.
+// As in the TPU kernel there is no /|u|^2 (u1, u2 are unit vectors), so the
+// per-row d u1, d u2 hold a radial part that the projection's normalization
+// removes upstream.
+//
+// What bounds it on an H100. At the training configuration (T = 336 tiles,
+// K = 768, F = 24, NPIX = 512) it reads inst (24.8 MB), pix, res and g
+// (3 x 5.5 MB) and writes dinst (24.8 MB): ~66 MB, ~20 us at 3.35 TB/s. It
+// repeats K1's walk; on the smoke scene's training step that visits ~102 M
+// pixel-instance pairs outside the parity rect (~4 operations, the rect
+// test), ~22 M inside it that fail a test or cross (~35, the forward's
+// arithmetic) and ~7.7 M applied pairs (~80 for the recompute and the chain
+// above, plus 14 + C adds to reduce each row over the tile's pixels): ~1.9 G
+// operations, ~29 us at 67 TFLOP/s. So it is bound by operations.
+//
+// Design, simple and deterministic:
+//   * one block per tile, one thread per pixel; the tile's rows are staged
+//     through shared memory kRows at a time;
+//   * each thread repeats K1's own sequential walk (composite_common.cuh:
+//     the same rect and count tests, the same expf, the same T*(1-alpha)
+//     crossing rule), so it stops exactly where the forward that produced
+//     `res` stopped, and carries the running sum of w*direct for `behind`;
+//   * each row's gradient is a sum over the tile's pixels, reduced without
+//     atomics: a butterfly of warp shuffles (skipped, with a zero partial,
+//     when no lane of the warp touched the row: __any_sync), one partial per
+//     warp in shared memory, a fixed-order sum over the warps, one write per
+//     element. Every run gives the same bits, as the TPU kernel does;
+//   * the block leaves once every pixel is done (__syncthreads_or), and
+//     writes zeros on the rows it never reached.
+#include <cuda_runtime.h>
+
+#include "composite_common.cuh"
+
+using namespace lidargs;
+
+namespace {
+
+constexpr int kRows = 32;      // instance rows staged per shared-memory chunk
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int C>
+__global__ void __launch_bounds__(1024) composite_bwd_kernel(
+    const float* __restrict__ inst, const int* __restrict__ counts,
+    const float* __restrict__ pix, const float* __restrict__ res,
+    const float* __restrict__ g, float* __restrict__ dinst, int K, int F, int npix,
+    float alpha_min, float alpha_clamp, float t_min) {
+  constexpr int NV = kFeat0 + C;      // gradient columns per row
+  constexpr int kRect = kFeat0 + C;
+  extern __shared__ float smem[];
+  float* rows = smem;                 // [kRows][F]
+  float* part = smem + kRows * F;     // [n_warps][kRows][NV]
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const int lane = p & 31, warp = p >> 5, n_warps = blockDim.x >> 5;
+  const bool in = p < npix;           // the block is padded to whole warps
+
+  float dirx = 0.f, diry = 0.f, dirz = 0.f, px = 0.f, py = 0.f;
+  float gc[C], gd = 0.f, gT = 0.f, tot = 0.f, t_fin = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) gc[c] = 0.f;
+  if (in) {
+    const size_t o = (size_t)t * kOutRows * npix + p;
+    dirx = pix[o];
+    diry = pix[o + npix];
+    dirz = pix[o + 2 * npix];
+    px = pix[o + 3 * npix];
+    py = pix[o + 4 * npix];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      gc[c] = g[o + c * npix];
+      tot += gc[c] * res[o + c * npix];
+    }
+    gd = g[o + C * npix];
+    gT = g[o + (C + 1) * npix];
+    tot += gd * res[o + C * npix];
+    t_fin = res[o + (C + 1) * npix];
+  }
+
+  const int count = min(max(counts[t], 0), K);
+  const float* ti = inst + (size_t)t * K * F;
+  float* to = dinst + (size_t)t * K * F;
+  float T = 1.f;
+  float acc_w = 0.f;                  // running sum of w * direct
+  bool done = !in;
+  int reached = 0;                    // rows [0, reached) are written
+
+  for (int base = 0; base < count; base += kRows) {
+    const int n = min(kRows, count - base);
+    __syncthreads();                  // previous chunk's rows and partials consumed
+    for (int i = p; i < n * F; i += blockDim.x) rows[i] = ti[(size_t)base * F + i];
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {     // every lane runs every j: the warp votes below
+      const float* r = rows + j * F;
+      float v[NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) v[k] = 0.f;
+      bool hit = false;
+      PairGeom gm;
+      bool passed = false;
+      if (!done && px >= r[kRect] && px < r[kRect + 1] && py >= r[kRect + 2] &&
+          py < r[kRect + 3]) {
+        pair_power(r, dirx, diry, dirz, gm);
+        if (gm.power <= 0.f) {
+          pair_alpha(r, alpha_clamp, gm);
+          passed = gm.alpha >= alpha_min;
+        }
+      }
+      if (passed) {
+        const float T_next = transmit(T, gm.alpha);
+        if (T_next < t_min) {
+          done = true;                // crossing: not applied, pixel done
+        } else {
+          hit = true;
+          const float P = T;
+          const float w = gm.alpha * P;
+          T = T_next;
+          float direct = gd * r[kDepth];
+#pragma unroll
+          for (int c = 0; c < C; ++c) direct += gc[c] * r[kFeat0 + c];
+          acc_w += w * direct;
+          const float behind = tot - acc_w;
+          if (gm.araw <= alpha_clamp) {      // live: alpha is not clamped
+            const float dalpha = P * direct - (behind + gT * t_fin) / (1.f - gm.alpha);
+            const float dpower = dalpha * gm.araw;
+            const float a = r[kConic], b = r[kConic + 1], cc = r[kConic + 2];
+            const float d_ddx = -dpower * (a * gm.ddx + b * gm.ddy);
+            const float d_ddy = -dpower * (cc * gm.ddy + b * gm.ddx);
+            v[0] = d_ddx * r[kU1] + d_ddy * r[kU2];
+            v[1] = d_ddx * r[kU1 + 1] + d_ddy * r[kU2 + 1];
+            v[2] = d_ddx * r[kU1 + 2] + d_ddy * r[kU2 + 2];
+            v[3] = d_ddx * gm.dx;
+            v[4] = d_ddx * gm.dy;
+            v[5] = d_ddx * gm.dz;
+            v[6] = d_ddy * gm.dx;
+            v[7] = d_ddy * gm.dy;
+            v[8] = d_ddy * gm.dz;
+            v[9] = -0.5f * gm.ddx * gm.ddx * dpower;
+            v[10] = -gm.ddx * gm.ddy * dpower;
+            v[11] = -0.5f * gm.ddy * gm.ddy * dpower;
+            v[12] = dalpha * gm.e;
+          }
+          v[13] = w * gd;
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[kFeat0 + c] = w * gc[c];
+        }
+      }
+      float* pw = part + ((size_t)warp * kRows + j) * NV;
+      if (__any_sync(0xffffffffu, hit)) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          const float s = warp_sum(v[k]);
+          if (lane == 0) pw[k] = s;
+        }
+      } else if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) pw[k] = 0.f;
+      }
+    }
+    __syncthreads();                  // partials of this chunk complete
+    for (int i = p; i < n * F; i += blockDim.x) {
+      const int j = i / F, col = i - j * F;
+      float s = 0.f;
+      if (col < NV)
+        for (int w = 0; w < n_warps; ++w) s += part[((size_t)w * kRows + j) * NV + col];
+      to[(size_t)base * F + i] = s;
+    }
+    reached = base + n;
+    if (!__syncthreads_or(!done)) break;   // every pixel has crossed
+  }
+
+  for (size_t i = (size_t)reached * F + p; i < (size_t)K * F; i += blockDim.x) to[i] = 0.f;
+}
+
+template <int C>
+cudaError_t launch(const float* inst, const int* counts, const float* pix, const float* res,
+                   const float* g, float* dinst, int T, int K, int F, int npix,
+                   float alpha_min, float alpha_clamp, float t_min, cudaStream_t stream) {
+  const int threads = (npix + 31) / 32 * 32;
+  const size_t smem =
+      ((size_t)kRows * F + (size_t)(threads / 32) * kRows * (kFeat0 + C)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  composite_bwd_kernel<C><<<T, threads, smem, stream>>>(inst, counts, pix, res, g, dinst, K,
+                                                         F, npix, alpha_min, alpha_clamp,
+                                                         t_min);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K2 on `stream`; returns the cudaError_t of the launch (0 = ok).
+// The caller has checked shapes, types, contiguity and the device.
+int lidargs_composite_bwd(const float* inst, const int* counts, const float* pix,
+                          const float* res, const float* g, float* dinst, int T, int K,
+                          int F, int npix, int C, float alpha_min, float alpha_clamp,
+                          float t_min, void* stream) {
+  if (T <= 0) return 0;
+  if (npix <= 0 || npix > 1024 || F < kFeat0 + C + 4 || C < 1 || C > kMaxC)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)launch<1>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 2: return (int)launch<2>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 3: return (int)launch<3>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 4: return (int)launch<4>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 5: return (int)launch<5>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    default: return (int)launch<6>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+  }
+}
+
+const char* lidargs_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

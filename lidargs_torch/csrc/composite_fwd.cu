@@ -35,20 +35,20 @@
 //     do not cover the pixel cost a few compares;
 //   * the block stops staging chunks once every pixel has crossed the
 //     transmittance threshold (__syncthreads_or on "not done").
+// The per-pair alpha math and the step rule live in composite_common.cuh,
+// shared with the backward kernel K2, which replays this walk.
 // The TPU kernel's Hillis-Steele prefix over sublanes served the TPU's
 // layout and is not carried over: a thread multiplies T sequentially, as the
 // reference CUDA rasterizer does.
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
+using namespace lidargs;
+
 namespace {
 
 constexpr int kChunk = 64;     // instance rows staged per shared-memory chunk
-constexpr int kOutRows = 8;
-constexpr int kMaxC = 6;       // C + 2 <= kOutRows
-
-// PackedCols columns (lidargs_torch/ops/projection.py)
-constexpr int kMean = 0, kU1 = 3, kU2 = 6, kConic = 9, kOpacity = 12, kDepth = 13,
-              kFeat0 = 14;
 
 template <int C>
 __global__ void __launch_bounds__(1024) composite_fwd_kernel(
@@ -83,27 +83,21 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
         if (!(px >= r[kRect] && px < r[kRect + 1] && py >= r[kRect + 2] &&
               py < r[kRect + 3]))
           continue;
-        const float dx = r[kMean] - dirx, dy = r[kMean + 1] - diry,
-                    dz = r[kMean + 2] - dirz;
-        const float ddx = dx * r[kU1] + dy * r[kU1 + 1] + dz * r[kU1 + 2];
-        const float ddy = dx * r[kU2] + dy * r[kU2 + 1] + dz * r[kU2 + 2];
-        const float power =
-            -0.5f * (r[kConic] * ddx * ddx + r[kConic + 2] * ddy * ddy) -
-            r[kConic + 1] * ddx * ddy;
-        if (!(power <= 0.f)) continue;
-        const float araw = r[kOpacity] * expf(power);
-        const float alpha = araw > alpha_clamp ? alpha_clamp : araw;   // NaN stays NaN
-        if (!(alpha >= alpha_min)) continue;
-        const float test_T = T * (1.f - alpha);
-        if (test_T < t_min) {           // crossing: not applied, pixel done
+        PairGeom g;
+        pair_power(r, dirx, diry, dirz, g);
+        if (!(g.power <= 0.f)) continue;
+        pair_alpha(r, alpha_clamp, g);
+        if (!(g.alpha >= alpha_min)) continue;
+        const float T_next = transmit(T, g.alpha);
+        if (T_next < t_min) {           // crossing: not applied, pixel done
           done = true;
           break;
         }
-        const float w = alpha * T;
+        const float w = g.alpha * T;
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] += w * r[kFeat0 + c];
         dep += w * r[kDepth];
-        T = test_T;
+        T = T_next;
       }
     }
     if (!__syncthreads_or(!done)) break;             // every pixel has crossed

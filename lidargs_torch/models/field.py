@@ -8,17 +8,18 @@ carry across unchanged (`utils/params.py`). The decode is anchor-major
 per-gaussian row line up with the JAX package's.
 
 Not ported yet: `init_field_from_points` (needs the 3-NN and the voxel
-dedup), the surfel render and the densification proxy of the training step.
+dedup) and the surfel render.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..ops.projection import preprocess_gaussians, visible_filter
+from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, visible_filter
 from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
 from ..utils.device import resolve_device
 from .mlp import apply_mlp, init_mlp
@@ -188,10 +189,11 @@ def generate_neural_gaussians(
     )
 
 
+@torch.no_grad()
 def prefilter_anchors(field_params: dict, valid: torch.Tensor,
                       frame: LidarFrame, rcfg: RasterConfig) -> torch.Tensor:
     """Project the raw anchors with their offset scales (scaling[:, :3]) and
-    keep those with radii > 0."""
+    keep those with radii > 0. A mask only, so no gradient is traced."""
     scales = torch.exp(field_params["scaling"][:, :3])
     q = field_params["rotation"]
     q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True).clamp_min(1e-12)
@@ -199,20 +201,48 @@ def prefilter_anchors(field_params: dict, valid: torch.Tensor,
                           frame.w2s_rot, frame.w2s_trans, frame.beams, frame.W, rcfg)
 
 
+def _project(ng: NeuralGaussians, frame: LidarFrame, rcfg: RasterConfig):
+    """Flatten the anchor-major decode once, at the projection boundary, and
+    project it. The projection's backward is the hand VJP when
+    `projection_hand_vjp` (and not `remat_projection`); with
+    `remat_projection` the plain function runs under activation
+    checkpointing (recomputed in the backward); else autograd of the plain
+    function."""
+    flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+    args = (flat(ng.xyz), flat(ng.scaling), flat(ng.rot), flat(ng.opacity),
+            flat(ng.feat), flat(ng.mask),
+            frame.w2s_rot, frame.w2s_trans, frame.beams, frame.W, rcfg)
+    if rcfg.projection_hand_vjp and not rcfg.remat_projection:
+        return preprocess_gaussians_hv(*args)
+    if rcfg.remat_projection:
+        return torch.utils.checkpoint.checkpoint(preprocess_gaussians, *args,
+                                                 use_reentrant=False)
+    return preprocess_gaussians(*args)
+
+
 def field_splats(params: dict, valid: torch.Tensor, frame: LidarFrame,
-                 mcfg: ModelConfig, rcfg: RasterConfig):
+                 mcfg: ModelConfig, rcfg: RasterConfig,
+                 sphere_proxy: Optional[torch.Tensor] = None):
     """The front half of `render_field`: prefilter -> decode -> project.
     Returns (Splats, NeuralGaussians, anchor_visible, n_anchor_drop), where
     n_anchor_drop counts the visible anchors beyond `visible_anchor_cap`
     (None when the cap is off).
 
+    `sphere_proxy` ([C, k, 3], zeros) is added to the unit-sphere means
+    after the projection: its gradient is the densification signal.
+
     With `rcfg.visible_anchor_cap > 0` the prefiltered anchors are compacted
     to that many rows before the decode (visible anchors first, in their
-    order, by one stable sort)."""
+    order, by one stable sort). The densification statistics index the full
+    anchor table, so the cap and the proxy exclude each other."""
     anchor_visible = prefilter_anchors(params, valid, frame, rcfg)
     Ca = rcfg.visible_anchor_cap
     n_anchor_drop = None
     if Ca and Ca > 0:
+        if sphere_proxy is not None:
+            raise ValueError(
+                "visible_anchor_cap is a render/eval-path optimization; the "
+                "training step's densification proxy needs the full table")
         C = params["anchor"].shape[0]
         Ca = min(Ca, C)
         vis = valid & anchor_visible
@@ -226,25 +256,21 @@ def field_splats(params: dict, valid: torch.Tensor, frame: LidarFrame,
         params, valid, anchor_visible = sub, sub_on, sub_on
     ng = generate_neural_gaussians(params, valid, anchor_visible, frame.center,
                                    mcfg, cam_uid=frame.uid)
-
-    # flatten the anchor-major decode once, at the projection boundary
-    flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
-    splats = preprocess_gaussians(
-        flat(ng.xyz), flat(ng.scaling), flat(ng.rot), flat(ng.opacity),
-        flat(ng.feat), flat(ng.mask),
-        frame.w2s_rot, frame.w2s_trans, frame.beams, frame.W, rcfg,
-    )
+    splats = _project(ng, frame, rcfg)
+    if sphere_proxy is not None:
+        splats = splats._replace(sphere_mean=splats.sphere_mean + sphere_proxy.reshape(-1, 3))
     return splats, ng, anchor_visible, n_anchor_drop
 
 
 def render_field(params: dict, valid: torch.Tensor, frame: LidarFrame,
-                 mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor):
-    """Full forward render: prefilter -> decode -> project -> tiled splat.
+                 mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
+                 sphere_proxy: Optional[torch.Tensor] = None):
+    """Full render path: prefilter -> decode -> project -> tiled splat.
     Returns (RenderOut, NeuralGaussians, anchor_visible). Visible anchors
     beyond `visible_anchor_cap` are counted into n_dropped, k gaussians
-    each."""
+    each. `sphere_proxy`: see `field_splats`."""
     splats, ng, anchor_visible, n_anchor_drop = field_splats(
-        params, valid, frame, mcfg, rcfg)
+        params, valid, frame, mcfg, rcfg, sphere_proxy)
     out: RenderOut = render_tiled(splats, frame.beams, frame.W, bg, rcfg)
     if n_anchor_drop is not None:
         out = out._replace(n_dropped=out.n_dropped + n_anchor_drop * mcfg.n_offsets)

@@ -4,9 +4,16 @@ from .projection import (
     build_cov3d,
     pack_splats,
     preprocess_gaussians,
+    preprocess_gaussians_hv,
     quat_to_rotmat,
 )
 from .composite import CompositeOut, composite_depth_ordered, composite_packed
-from .composite_kernel import composite_tiles, composite_tiles_plain
+from .composite_kernel import (
+    CompositeTiles,
+    composite_tiles,
+    composite_tiles_bwd,
+    composite_tiles_bwd_plain,
+    composite_tiles_plain,
+)
 from .reference import render_reference
 from .rasterize import RenderOut, render_tiled

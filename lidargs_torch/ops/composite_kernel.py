@@ -1,13 +1,17 @@
-"""Forward composite over per-tile instance lists: kernel K1 and its plain
-version.
+"""Composite over per-tile instance lists: kernels K1 (forward) and K2
+(backward), their plain versions, and the autograd function that joins them.
 
-`composite_tiles` is the counterpart of `composite_tiles_pallas`
-(`lidargs_tpu/ops/pallas_composite.py`, kernel body `_fwd_kernel`). On a
-CUDA tensor it launches the hand-written kernel of `csrc/composite_fwd.cu`
-(built with nvcc for sm_90a at the first call, loaded with ctypes); on a CPU
-tensor it runs `composite_tiles_plain`, the plain PyTorch version with the
-same signature and output layout. There is no fallback from one to the
-other: a CUDA tensor the kernel cannot take raises.
+`composite_tiles` is the forward of `composite_tiles_pallas`
+(`lidargs_tpu/ops/pallas_composite.py`, kernel body `_fwd_kernel`);
+`composite_tiles_bwd` is its VJP (kernel body `_bwd_tile`). On a CUDA tensor
+each launches its hand-written kernel (`csrc/composite_fwd.cu`,
+`csrc/composite_bwd.cu`, built with nvcc for sm_90a at the first call and
+loaded with ctypes); on a CPU tensor each runs its plain PyTorch version
+(`composite_tiles_plain`, `composite_tiles_bwd_plain`) with the same
+signature and layout. There is no fallback from one to the other: a CUDA
+tensor a kernel cannot take raises. `CompositeTiles` is the
+`torch.autograd.Function` with `composite_tiles` forward and
+`composite_tiles_bwd` backward, as `composite_tiles_pallas` is a custom VJP.
 
 Layout (shared by both):
   inst   [T, K, F] f32   depth-ordered packed instances (PackedCols)
@@ -15,6 +19,10 @@ Layout (shared by both):
   pix    [T, 8, NPIX] f32  rows 0-2 unit ray dir, row 3 column, row 4 row
   out    [T, 8, NPIX] f32  rows 0..C-1 features, row C depth, row C+1 final
                            transmittance, the rest zero
+  dinst  [T, K, F] f32   d loss / d inst: mean(3), u1(3), u2(3), conic(3),
+                         opacity, depth, features(C); zero in the rect,
+                         center, valid and pad columns and on rows no pixel
+                         walked
 """
 from __future__ import annotations
 
@@ -25,30 +33,33 @@ import torch
 from ..config import RasterConfig
 from ..utils import cuda_build
 from .composite import composite_packed
-from .projection import PackedCols
+from .projection import PackedCols as PC
 
 OUT_ROWS = 8
 MAX_NPIX = 1024          # one thread per pixel, one block per tile
 
-# Launches of the CUDA kernel since the last reset (a plain count; the CPU
-# path does not add to it).
+# Launches of the CUDA kernels since the last reset (plain counts; the CPU
+# path does not add to them): K1 and K2.
 launches = 0
+bwd_launches = 0
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = cuda_build.load("composite_fwd")
-        fn = lib.lidargs_composite_fwd
+def _kernel(name: str, symbol: str, n_ptr: int):
+    """(C entry point, error-string function) of `csrc/<name>.cu`: `n_ptr`
+    tensor pointers, then T, K, F, NPIX, C, alpha_min, alpha_clamp,
+    transmittance_min and the stream."""
+    if name not in _fns:
+        lib = cuda_build.load(name)
+        fn = getattr(lib, symbol)
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, Fl, Fl, Fl, P]
+        fn.argtypes = [P] * n_ptr + [I, I, I, I, I, Fl, Fl, Fl, P]
         fn.restype = I
         lib.lidargs_cuda_error_string.argtypes = [I]
         lib.lidargs_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.lidargs_cuda_error_string)
-    return _fn
+        _fns[name] = (fn, lib.lidargs_cuda_error_string)
+    return _fns[name]
 
 
 def composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
@@ -87,7 +98,7 @@ def _check_cuda_inputs(inst, counts, pix, C: int):
                          f"{tuple(counts.shape)}, pix {tuple(pix.shape)}")
     if not 1 <= C <= OUT_ROWS - 2:
         raise ValueError(f"C={C} does not fit {OUT_ROWS} output rows")
-    if Fw < PackedCols.rect(C).stop:
+    if Fw < PC.rect(C).stop:
         raise ValueError(f"row width {Fw} is narrower than PackedCols for C={C}")
     if not 1 <= pix.shape[2] <= MAX_NPIX:
         raise ValueError(f"NPIX={pix.shape[2]} outside 1..{MAX_NPIX}")
@@ -110,7 +121,7 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
     if T == 0:
         return out
-    fn, err_str = _kernel()
+    fn, err_str = _kernel("composite_fwd", "lidargs_composite_fwd", 4)
     with torch.cuda.device(inst.device):
         stream = torch.cuda.current_stream(inst.device).cuda_stream
         err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), out.data_ptr(),
@@ -120,3 +131,159 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
         raise RuntimeError(f"composite_fwd launch failed: {err_str(err).decode()}")
     launches += 1
     return out
+
+
+def composite_tiles_bwd_plain(inst: torch.Tensor, counts: torch.Tensor,
+                              pix: torch.Tensor, res: torch.Tensor, g: torch.Tensor,
+                              C: int, cfg: RasterConfig) -> torch.Tensor:
+    """The plain PyTorch version of K2: the TPU kernel's `_bwd_tile`, one
+    forward-order pass over chunks of `cfg.chunk` rows with its chunk
+    weights rule (`_chunk_weights`), vectorized over tiles.
+
+    It is not autograd of `composite_tiles_plain`: like the kernels it
+    takes the packed u1, u2 as unit vectors and drops the scan's /|u|^2, so
+    its per-row d_u1, d_u2 differ from that route's and agree only after
+    the projection's normalization removes their radial part."""
+    T, K, Fw = inst.shape
+    npix = pix.shape[-1]
+    dev = inst.device
+    CH = min(cfg.chunk, K)
+    n_ch = -(-K // CH)
+    inst_p = torch.nn.functional.pad(inst, (0, 0, 0, n_ch * CH - K))
+    dirx, diry, dirz, px, py = (pix[:, i:i + 1] for i in range(5))      # [T,1,NP]
+    gc, gd, gT = g[:, :C], g[:, C:C + 1], g[:, C + 1:C + 2]
+    totc, totd, Tfin = res[:, :C], res[:, C:C + 1], res[:, C + 1:C + 2]
+    # every suffix ("behind") term is linear in one running prefix of
+    # w * direct: behind = TOT - (inclusive prefix of w * direct)
+    TOT = (gc * totc).sum(1, keepdim=True) + gd * totd
+    cnt = counts.to(torch.int64)[:, None, None]
+    rect = PC.rect(C).start
+
+    Tr = torch.ones((T, 1, npix), dtype=torch.float32, device=dev)
+    done = torch.zeros((T, 1, npix), dtype=torch.bool, device=dev)
+    acc_w = torch.zeros((T, 1, npix), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rows = []
+    for i in range(n_ch):
+        s = inst_p[:, i * CH:(i + 1) * CH]
+        col = lambda j: s[:, :, j, None]                                 # [T,CH,1]
+        dxv, dyv, dzv = col(0) - dirx, col(1) - diry, col(2) - dirz
+        ddx = dxv * col(3) + dyv * col(4) + dzv * col(5)
+        ddy = dxv * col(6) + dyv * col(7) + dzv * col(8)
+        ca, cb, cc = col(9), col(10), col(11)
+        power = -0.5 * (ca * ddx * ddx + cc * ddy * ddy) - cb * ddx * ddy
+        e = torch.exp(power)
+        araw = col(PC.OPACITY) * e
+        alpha = araw.clamp_max(cfg.alpha_clamp)
+        rowi = torch.arange(i * CH, (i + 1) * CH, device=dev)[None, :, None]
+        passed = ((rowi < cnt)
+                  & (px >= col(rect)) & (px < col(rect + 1))
+                  & (py >= col(rect + 2)) & (py < col(rect + 3))
+                  & (power <= 0.0) & (alpha >= cfg.alpha_min))
+        # chunk weights: the prefix product over passed rows agrees with the
+        # sequential transmittance up to the first crossing; a row is dead
+        # once T * incl falls under T_min (incl never increases)
+        one_m = 1.0 - torch.where(passed, alpha, zero)
+        incl = torch.cumprod(one_m, 1)
+        excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1)
+        P = Tr * excl
+        dead = Tr * incl < cfg.transmittance_min
+        applied = passed & ~dead & ~done
+        w = torch.where(applied, alpha * P, zero)
+        t_fac = torch.cumprod(torch.where(dead, 1.0, one_m), 1)[:, -1:]
+        T_new = Tr * torch.where(done, 1.0, t_fac)
+        done = done | dead[:, -1:] | (T_new < cfg.transmittance_min)
+
+        direct = sum(gc[:, c:c + 1] * col(PC.FEAT0 + c) for c in range(C)) + gd * col(PC.DEPTH)
+        wdir = w * direct
+        behind = TOT - acc_w - torch.cumsum(wdir, 1)
+        inv1m = 1.0 / (1.0 - alpha)
+        live = applied & (araw <= cfg.alpha_clamp)
+        dalpha = torch.where(live, P * direct - inv1m * (behind + gT * Tfin), zero)
+        # masked, not multiplied by zero: rows that are not live may hold
+        # large or infinite intermediates
+        on = lambda x: torch.where(live, x, zero)
+        dpower = on(dalpha * araw)
+        d_ddx = on(-dpower * (ca * ddx + cb * ddy))
+        d_ddy = on(-dpower * (cc * ddy + cb * ddx))
+        red = lambda x: x.sum(2)                                         # [T,CH]
+        cols = [
+            red(d_ddx * col(3) + d_ddy * col(6)),
+            red(d_ddx * col(4) + d_ddy * col(7)),
+            red(d_ddx * col(5) + d_ddy * col(8)),
+            red(d_ddx * dxv), red(d_ddx * dyv), red(d_ddx * dzv),
+            red(d_ddy * dxv), red(d_ddy * dyv), red(d_ddy * dzv),
+            red(on(-0.5 * ddx * ddx * dpower)), red(on(-ddx * ddy * dpower)),
+            red(on(-0.5 * ddy * ddy * dpower)),
+            red(on(dalpha * e)),
+            red(w * gd),
+        ] + [red(w * gc[:, c:c + 1]) for c in range(C)]
+        d_s = torch.stack(cols, -1)                                      # [T,CH,14+C]
+        rows.append(torch.nn.functional.pad(d_s, (0, Fw - d_s.shape[-1])))
+        acc_w = acc_w + wdir.sum(1, keepdim=True)
+        Tr = T_new
+    if not rows:
+        return torch.zeros_like(inst)
+    return torch.cat(rows, 1)[:, :K].contiguous()
+
+
+def _check_bwd_inputs(inst, counts, pix, res, g, C: int):
+    _check_cuda_inputs(inst, counts, pix, C)
+    for name, x in (("res", res), ("g", g)):
+        if x.device != inst.device:
+            raise ValueError(f"{name} on {x.device}, inst on {inst.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.shape != pix.shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != pix shape {tuple(pix.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
+                        res: torch.Tensor, g: torch.Tensor, C: int,
+                        cfg: RasterConfig) -> torch.Tensor:
+    """The VJP of `composite_tiles`: [T, K, F] instances, [T] counts,
+    [T, 8, NPIX] pixel blocks, the forward's output `res` and the output
+    cotangent `g` (both [T, 8, NPIX]) -> dinst [T, K, F]. K2 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    global bwd_launches
+    if inst.device.type == "cpu":
+        return composite_tiles_bwd_plain(inst, counts, pix, res, g, C, cfg)
+    if inst.device.type != "cuda":
+        raise ValueError(f"composite_tiles_bwd: unsupported device {inst.device}")
+    _check_bwd_inputs(inst, counts, pix, res, g, C)
+    T, K, Fw = inst.shape
+    npix = pix.shape[2]
+    dinst = torch.empty_like(inst)      # the kernel writes every row, zeros included
+    if T == 0:
+        return dinst
+    fn, err_str = _kernel("composite_bwd", "lidargs_composite_bwd", 6)
+    with torch.cuda.device(inst.device):
+        stream = torch.cuda.current_stream(inst.device).cuda_stream
+        err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), res.data_ptr(),
+                 g.data_ptr(), dinst.data_ptr(), T, K, Fw, npix, C, cfg.alpha_min,
+                 cfg.alpha_clamp, cfg.transmittance_min, stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd launch failed: {err_str(err).decode()}")
+    bwd_launches += 1
+    return dinst
+
+
+class CompositeTiles(torch.autograd.Function):
+    """`composite_tiles` with `composite_tiles_bwd` as its backward (K1 and
+    K2 on the card). Only `inst` gets a gradient, as in the JAX package's
+    custom VJP (zero for the counts and the pixel blocks)."""
+
+    @staticmethod
+    def forward(ctx, inst, counts, pix, C: int, cfg: RasterConfig):
+        out = composite_tiles(inst, counts, pix, C, cfg)
+        ctx.save_for_backward(inst, counts, pix, out)
+        ctx.C, ctx.cfg = C, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        inst, counts, pix, out = ctx.saved_tensors
+        dinst = composite_tiles_bwd(inst, counts, pix, out, g.contiguous(), ctx.C, ctx.cfg)
+        return dinst, None, None, None, None

@@ -1,8 +1,8 @@
 """Per-gaussian range-view projection ("preprocess").
 
-Counterpart of `lidargs_tpu/ops/projection.py` (forward only; the hand VJP
-`preprocess_gaussians_hv` arrives with the training step, and its forward
-is this function). One vectorized function over all gaussians:
+Counterpart of `lidargs_tpu/ops/projection.py`: `preprocess_gaussians`,
+and `preprocess_gaussians_hv`, the same function with a hand-derived
+single-pass VJP. One vectorized function over all gaussians:
 
   * view transform + euclidean range cull
   * micro cross-section basis u1, u2 perpendicular to the ray
@@ -206,6 +206,240 @@ def preprocess_gaussians(
                              torch.zeros_like(pix_rect[..., :2])).to(torch.int32),
         pix_rect=pix_rect.to(torch.int32),
     )
+
+
+class _PreprocessHV(torch.autograd.Function):
+    """`preprocess_gaussians` with the JAX package's hand-derived
+    single-pass VJP (`_pg_hv_bwd`): the forward saves only its inputs, and
+    the backward recomputes the forward chain (every guard and mask
+    included) and accumulates every input cotangent in one pass.
+
+    The cotangents of means, scales, quats, opacities, feat and the pose
+    (w2s_rot, w2s_trans) are exact. The `beams` table gets a ZERO gradient,
+    as in the JAX package: it is a fixed sensor calibration and is never
+    trained (autograd of the plain function would propagate into it).
+    `valid`, `radii_xy` and `pix_rect` are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, quats, opacities, feat, mask,
+                w2s_rot, w2s_trans, beams, W: int, cfg: RasterConfig):
+        out = preprocess_gaussians(means3d, scales, quats, opacities, feat, mask,
+                                   w2s_rot, w2s_trans, beams, W, cfg)
+        ctx.save_for_backward(means3d, scales, quats, opacities, mask,
+                              w2s_rot, w2s_trans, beams)
+        ctx.W, ctx.cfg = W, cfg
+        ctx.mark_non_differentiable(out.valid, out.radii_xy, out.pix_rect)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, _g_valid, g_depth, g_mean, g_u1, g_u2, g_conic, g_opac,
+                 g_feat, g_center, _g_radii, _g_rect):
+        means3d, scales, quats, opacities, mask, w2s_rot, w2s_trans, beams = ctx.saved_tensors
+        W, cfg = ctx.W, ctx.cfg
+        grads = _pg_hv_bwd(means3d, scales, quats, mask, w2s_rot, w2s_trans, beams, W, cfg,
+                           g_depth, g_mean, g_u1, g_u2, g_conic, g_opac, g_center)
+        g_means, g_scales, g_quats, g_opac_in, g_R, g_t = grads
+        return (g_means, g_scales, g_quats, g_opac_in, g_feat, None,
+                g_R, g_t, torch.zeros_like(beams), None, None)
+
+
+def preprocess_gaussians_hv(means3d, scales, quats, opacities, feat, mask,
+                            w2s_rot, w2s_trans, beams, W: int,
+                            cfg: RasterConfig) -> Splats:
+    """`preprocess_gaussians` with the hand-derived single-pass VJP of
+    `_PreprocessHV` (zero gradient for `beams`)."""
+    return Splats(*_PreprocessHV.apply(means3d, scales, quats, opacities, feat, mask,
+                                       w2s_rot, w2s_trans, beams, W, cfg))
+
+
+def _pg_hv_bwd(means3d, scales, quats, mask, w2s_rot, w2s_trans, beams, W: int,
+               cfg: RasterConfig,
+               g_depth, g_mean, g_u1, g_u2, g_conic, g_opac, g_center):
+    """The input cotangents of `preprocess_gaussians` (the JAX package's
+    `_pg_hv_bwd`, line for line), in the inputs' dtype: (means, scales,
+    quats, opacities, w2s_rot, w2s_trans). The feat cotangent passes
+    through unchanged."""
+    H = beams.shape[0]
+    dt = means3d.dtype
+    two_pi = 2.0 * math.pi
+    g_depth, g_mean, g_u1, g_u2, g_conic, g_opac, g_center = (
+        x.to(dt) for x in (g_depth, g_mean, g_u1, g_u2, g_conic, g_opac, g_center))
+    zero = torch.zeros((), dtype=dt, device=means3d.device)
+    one = torch.ones((), dtype=dt, device=means3d.device)
+
+    # ---- recompute the forward chain (every guard and mask included) ----
+    p_view_raw = means3d @ w2s_rot.T + w2s_trans
+    sq = (p_view_raw * p_view_raw).sum(-1)
+    mask2 = mask & (sq > 0.0)
+    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=means3d.device)
+    p_view = torch.where(mask2[..., None], p_view_raw, e_x)
+    dist = torch.sqrt((p_view * p_view).sum(-1))
+    valid = mask2 & (dist < cfg.far) & (dist > cfg.near)
+
+    safe_dist = dist.clamp_min(1e-12)
+    dirn = p_view / safe_dist[..., None]
+    horiz2 = dirn[..., 0] ** 2 + dirn[..., 1] ** 2
+    degenerate = horiz2 <= 0.0
+    valid = valid & ~degenerate
+    u1_raw = torch.stack([dirn[..., 1], -dirn[..., 0], torch.zeros_like(dist)], -1)
+    u1_raw = torch.where(degenerate[..., None], e_x, u1_raw)
+    u1_len = torch.sqrt(torch.where(degenerate, one, horiz2))
+    u1 = u1_raw / u1_len[..., None]
+    u2 = _cross(dirn, u1)
+
+    u1w = u1 @ w2s_rot
+    u2w = u2 @ w2s_rot
+    w1 = quat_rotate_inv(quats, u1w)
+    w2 = quat_rotate_inv(quats, u2w)
+    v1 = w1 * scales
+    v2 = w2 * scales
+    inv_d2 = 1.0 / (dist * dist).clamp_min(1e-20)
+    a = ((v1 * v1).sum(-1) + cfg.lowpass) * inv_d2
+    b = (v1 * v2).sum(-1) * inv_d2
+    c = ((v2 * v2).sum(-1) + cfg.lowpass) * inv_d2
+    det = a * c - b * b
+    validc = valid & (det > 0.0)
+    det_safe = torch.where(det > 0.0, det, one)
+
+    p_flat = torch.where(degenerate[..., None], e_x, p_view)
+    horiz = torch.sqrt(torch.where(degenerate, one, p_flat[..., 0] ** 2 + p_flat[..., 1] ** 2))
+    alpha_el = torch.atan2(p_flat[..., 2], horiz)
+    row, gap, row_ok = _project_rows(alpha_el, beams, cfg.ray_divergence_angle)
+    # the conic/opacity/depth masks use the FINAL valid, which includes the
+    # rect-area test, so the radii chain is recomputed (none of its outputs
+    # is differentiable)
+    validf = validc & row_ok
+    mid = 0.5 * (a + c)
+    lam_max = mid + torch.sqrt((mid * mid - det).clamp_min(1e-9))
+    sigma = torch.sqrt(lam_max.clamp_min(1e-9))
+    beta = math.pi - torch.atan2(p_flat[..., 1], p_flat[..., 0])
+    p_c = beta / (two_pi / W)
+    p_r = H - row - 1.0
+    tan_col = torch.tan(torch.tensor(two_pi / W, dtype=torch.float32, device=means3d.device))
+    r_y = torch.ceil(3.0 * sigma / torch.tan(gap.abs()))
+    r_x = torch.ceil(3.0 * sigma / tan_col.to(dt))
+    bx, by = cfg.ref_block_x, cfg.ref_block_y
+    grid_x = -(-W // bx)
+    rmin_x = torch.floor((p_c - r_x) / bx).clamp(0, grid_x)
+    rmax_x = torch.floor((p_c + r_x + bx - 1) / bx).clamp(0, grid_x)
+    rmin_y = _round_half_away((p_r - r_y) / by).clamp(0, H)
+    rmax_y = torch.maximum(_round_half_away(p_r + r_y / by),
+                           _round_half_away(p_r / by) + 1).clamp(0, H)
+    vf = validf & ((rmax_x - rmin_x) * (rmax_y - rmin_y) > 0)
+    vf3 = vf[..., None]
+
+    # ---- cotangent accumulation (reverse order) ----
+    # conic = [c, -b, a] / det_safe, zero where not valid
+    g_conic = torch.where(vf3, g_conic, zero)
+    g0, g1, g2 = g_conic[..., 0], g_conic[..., 1], g_conic[..., 2]
+    inv_det = 1.0 / det_safe
+    g_a = g2 * inv_det
+    g_b = -g1 * inv_det
+    g_c = g0 * inv_det
+    g_det = -(c * g0 - b * g1 + a * g2) * inv_det * inv_det
+    # det = a c - b^2 (only where det > 0 did the division use det)
+    g_a = g_a + g_det * c
+    g_c = g_c + g_det * a
+    g_b = g_b - 2.0 * b * g_det
+
+    # a, b, c <- v1, v2, inv_d2
+    g_v1 = (2.0 * g_a[..., None] * v1 + g_b[..., None] * v2) * inv_d2[..., None]
+    g_v2 = (2.0 * g_c[..., None] * v2 + g_b[..., None] * v1) * inv_d2[..., None]
+    g_invd2 = (g_a * ((v1 * v1).sum(-1) + cfg.lowpass)
+               + g_b * (v1 * v2).sum(-1)
+               + g_c * ((v2 * v2).sum(-1) + cfg.lowpass))
+    # inv_d2 = 1 / max(d^2, eps): d > near >= 0 where the conic cotangent
+    # is nonzero, so the max is inactive there
+    g_dist = -2.0 * g_invd2 * inv_d2 / dist.clamp_min(1e-12)
+
+    # v = w * s
+    g_w1 = g_v1 * scales
+    g_w2 = g_v2 * scales
+    g_scales = g_v1 * w1 + g_v2 * w2
+
+    # w = R(q)^T u  ->  g_u = R(q) g_w ; g_R(q) = u g_w^T (outer, per row)
+    g_u1w = quat_rotate(quats, g_w1)
+    g_u2w = quat_rotate(quats, g_w2)
+    G = u1w[..., :, None] * g_w1[..., None, :] + u2w[..., :, None] * g_w2[..., None, :]
+    r_, x_, y_, z_ = quats[..., 0], quats[..., 1], quats[..., 2], quats[..., 3]
+    G00, G01, G02 = G[..., 0, 0], G[..., 0, 1], G[..., 0, 2]
+    G10, G11, G12 = G[..., 1, 0], G[..., 1, 1], G[..., 1, 2]
+    G20, G21, G22 = G[..., 2, 0], G[..., 2, 1], G[..., 2, 2]
+    g_qr = 2.0 * (-G01 * z_ + G02 * y_ + G10 * z_ - G12 * x_ - G20 * y_ + G21 * x_)
+    g_qx = 2.0 * (G01 * y_ + G02 * z_ + G10 * y_ - 2 * x_ * G11
+                  - r_ * G12 + G20 * z_ + r_ * G21 - 2 * x_ * G22)
+    g_qy = 2.0 * (-2 * y_ * G00 + x_ * G01 + r_ * G02 + x_ * G10
+                  + z_ * G12 - r_ * G20 + z_ * G21 - 2 * y_ * G22)
+    g_qz = 2.0 * (-2 * z_ * G00 - r_ * G01 + x_ * G02 + r_ * G10
+                  - 2 * z_ * G11 + y_ * G12 + x_ * G20 + y_ * G21)
+    g_quats = torch.stack([g_qr, g_qx, g_qy, g_qz], -1)
+
+    # u1w = u1 @ R -> g_u1 += g_u1w @ R^T
+    g_u1 = g_u1 + g_u1w @ w2s_rot.T
+    g_u2 = g_u2 + g_u2w @ w2s_rot.T
+
+    # u2 = dirn x u1
+    g_dirn = _cross(u1, g_u2)
+    g_u1 = g_u1 + _cross(g_u2, dirn)
+
+    # u1 = u1_raw / u1_len with the degenerate guard (both constant there)
+    live = ~degenerate
+    g_u1m = torch.where(live[..., None], g_u1, zero)
+    g_u1raw = g_u1m / u1_len[..., None]
+    g_u1len = -(g_u1m * u1).sum(-1) / u1_len
+    # u1_len = sqrt(horiz2) on live rows; horiz2 = nx^2 + ny^2
+    g_h2 = torch.where(live, 0.5 * g_u1len / u1_len, zero)
+    # u1_raw = [ny, -nx, 0]
+    g_nx = -g_u1raw[..., 1] + 2.0 * g_h2 * dirn[..., 0]
+    g_ny = g_u1raw[..., 0] + 2.0 * g_h2 * dirn[..., 1]
+    g_dirn = g_dirn + torch.stack([g_nx, g_ny, torch.zeros_like(g_nx)], -1)
+
+    # sphere_mean output
+    g_dirn = g_dirn + g_mean
+
+    # center: p_c = (pi - atan2(py, px)) W / 2pi; p_r = H - row - 1 with
+    # drow/dalpha = 1/gap; alpha = atan2(pz, horiz), horiz = |(px, py)|
+    # (all on p_flat; constant e_x on degenerate rows)
+    g_pc = g_center[..., 0]
+    g_pr = g_center[..., 1]
+    h2f = torch.where(live, p_flat[..., 0] ** 2 + p_flat[..., 1] ** 2, one)
+    d2f = h2f + p_flat[..., 2] ** 2
+    Wc = W / two_pi
+    g_fx = torch.where(live, g_pc * Wc * p_flat[..., 1] / h2f, zero)
+    g_fy = torch.where(live, -g_pc * Wc * p_flat[..., 0] / h2f, zero)
+    g_alpha = -g_pr / gap
+    g_fz = torch.where(live, g_alpha * horiz / d2f, zero)
+    g_hor = torch.where(live, -g_alpha * p_flat[..., 2] / d2f, zero)
+    g_fx = g_fx + torch.where(live, g_hor * p_flat[..., 0] / horiz, zero)
+    g_fy = g_fy + torch.where(live, g_hor * p_flat[..., 1] / horiz, zero)
+    g_pview = torch.stack([g_fx, g_fy, g_fz], -1)
+
+    # depth = where(valid, dist, sentinel)
+    g_dist = g_dist + torch.where(vf, g_depth, zero)
+
+    # dirn = p_view / safe_dist: g_p += (g_dirn - dirn (dirn . g_dirn)) / d
+    gd_dot = (g_dirn * dirn).sum(-1)
+    g_pview = g_pview + (g_dirn - dirn * gd_dot[..., None]) / safe_dist[..., None]
+    # dist = |p_view| (p_view is e_x on masked rows, so dist = 1 there)
+    g_pview = g_pview + g_dist[..., None] * dirn
+
+    # p_view = where(mask2, p_view_raw, e_x)
+    g_praw = torch.where(mask2[..., None], g_pview, zero)
+
+    # p_view_raw = means @ R^T + t
+    g_means = g_praw @ w2s_rot
+    lead = tuple(range(g_praw.dim() - 1))
+    g_t = g_praw.sum(dim=lead)
+    # pose rotation: p = m R^T (R_ji gets m_i g_p_j), plus the u1w/u2w
+    # chains (u1w_j = u1_i R_ij)
+    flat = lambda x: x.reshape(-1, 3)
+    g_R = (flat(g_praw).T @ flat(means3d)
+           + flat(u1).T @ flat(g_u1w)
+           + flat(u2).T @ flat(g_u2w))
+
+    # opacity = where(valid, opacities, 0)
+    g_opacities = torch.where(vf, g_opac, zero)
+    return g_means, g_scales, g_quats, g_opacities, g_R, g_t
 
 
 class PackedCols:

@@ -1,6 +1,6 @@
 """Tiled range-view rasterization — the production render path.
 
-Counterpart of `lidargs_tpu/ops/rasterize.py` (forward, non-fused path):
+Counterpart of `lidargs_tpu/ops/rasterize.py` (non-fused path, with the backward):
 
   1. cull + compact + depth presort in ONE stable sort on depth (invalid
      rows carry the same finite 4*far sentinel, so stability keeps the
@@ -10,8 +10,8 @@ Counterpart of `lidargs_tpu/ops/rasterize.py` (forward, non-fused path):
   3. one sort of fused int32 keys `tile << ceil_log2(V) | gid`;
   4. per-tile ranges by a left searchsorted and a static per-tile
      capacity; overflow drops the farthest instances and is counted;
-  5. compositing: the CUDA kernel K1 on the card, its plain version on the
-     CPU (composite_kernel.py).
+  5. compositing: the CUDA kernels K1 (forward) and K2 (backward) on the
+     card, their plain versions on the CPU (composite_kernel.py).
 
 Physical tiles are tile_h x 128 pixels; parity with the reference's 16x1
 strips is kept through the per-pixel parity-rect mask (projection.py).
@@ -25,16 +25,38 @@ import torch.nn.functional as F
 
 from ..config import RasterConfig
 from .composite import pixel_rays
-from .composite_kernel import composite_tiles
+from .composite_kernel import CompositeTiles
 from .projection import PackedCols, Splats, pack_splats
 
 _I32 = torch.int32
 
 
+class _PermutationRows(torch.autograd.Function):
+    """`pk[sel[:V]]` for a permutation `sel` of pk's rows, with a gather as
+    its backward: the rows of the cotangent go back through the inverse
+    permutation (one integer sort), and rows outside the first V get zero.
+    No scatter-add, so the backward is exact and deterministic."""
+
+    @staticmethod
+    def forward(ctx, pk, sel, V: int):
+        ctx.save_for_backward(sel)
+        ctx.V = V
+        return pk[sel[:V].clamp(0, pk.shape[0] - 1)]
+
+    @staticmethod
+    def backward(ctx, d_pkv):
+        (sel,) = ctx.saved_tensors
+        V = ctx.V
+        inv = torch.argsort(sel)             # inv[r] = position of row r in sel
+        d_rows = d_pkv[inv.clamp_max(V - 1)]
+        keep = (inv < V).reshape((-1,) + (1,) * (d_rows.dim() - 1))
+        return torch.where(keep, d_rows, torch.zeros_like(d_rows)), None, None
+
+
 def permutation_rows(pk: torch.Tensor, sel: torch.Tensor, V: int) -> torch.Tensor:
-    """`pk[sel[:V]]` (a clamped row gather). Forward only: the gather-based
-    VJP of the JAX package arrives with the training step."""
-    return pk[sel[:V].clamp(0, pk.shape[0] - 1)]
+    """`pk[sel[:V]]` (a clamped row gather), where `sel` is a permutation
+    of pk's rows, with the gather VJP of `_PermutationRows`."""
+    return _PermutationRows.apply(pk, sel, V)
 
 
 class RenderOut(NamedTuple):
@@ -199,7 +221,10 @@ def tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int,
     center = pkv[:, PackedCols.center(C)]
 
     ids, counts, n_overflow = bin_instances(rect, center, vvalid, cfg, gx, gy)
-    # one wide row gather materialises the per-tile instance lists
+    # one wide row gather materialises the per-tile instance lists; its
+    # backward is autograd's indexing backward, an accumulating index_put
+    # whose order on CUDA PyTorch does not promise, so two identical steps
+    # may differ in the last bits (chip_smoke.py reports the difference)
     inst = pkv[ids.reshape(-1).clamp(0, V - 1)].reshape(T, K, Fw)
     pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams)
     return inst, counts, _pix_blocks(pix_x, pix_y, dirs), n_overflow
@@ -210,7 +235,7 @@ def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
     """Bin + composite every tile against the packed gaussian set. Returns
     per-tile strips (color [T,C,npix], depth, final_T, overflow)."""
     inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C)
-    out8 = composite_tiles(inst, counts, pix, C, cfg)
+    out8 = CompositeTiles.apply(inst, counts, pix, C, cfg)
     return out8[:, :C], out8[:, C], out8[:, C + 1], n_overflow
 
 

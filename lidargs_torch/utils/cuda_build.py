@@ -41,28 +41,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = csrc / f"{name}.cu"
     h = hashlib.sha1(src.read_bytes())
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    for hdr in sorted(csrc.glob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names) -> dict[str, Path]:
-    """Compile every named source that is not built yet, one nvcc process
-    per source, all at once. Writes each compiler log (registers, shared
-    memory, spills) beside its library as `<lib>.log`. Raises on failure."""
+def build(names, csrc: Path = CSRC) -> dict[str, Path]:
+    """Compile every named source of `csrc` (the package's own by default)
+    that is not built yet, one nvcc process per source, all at once. Writes
+    each compiler log (registers, shared memory, spills) beside its library
+    as `<lib>.log`. Raises on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: library_path(n) for n in names}
+    out = {n: library_path(n, csrc) for n in names}
     procs = []
     for n, lib in out.items():
         if lib.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{n}.cu")]
         procs.append((n, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -32,7 +32,7 @@ def _defaults(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["RasterConfig", "ModelConfig"])
+@pytest.mark.parametrize("name", ["RasterConfig", "ModelConfig", "OptConfig", "LrSchedule"])
 def test_shared_defaults_equal(name):
     j = _defaults(getattr(jcfg, name))
     t = _defaults(getattr(tcfg, name))
@@ -40,7 +40,11 @@ def test_shared_defaults_equal(name):
     assert set(j) - set(t) == dropped
     assert set(t) <= set(j)
     for k, v in t.items():
-        assert v == j[k], f"{name}.{k}: port {v!r} != JAX {j[k]!r}"
+        jv = j[k]
+        if dataclasses.is_dataclass(v):           # an LrSchedule of OptConfig
+            assert type(v).__name__ == type(jv).__name__
+            v, jv = dataclasses.asdict(v), dataclasses.asdict(jv)
+        assert v == jv, f"{name}.{k}: port {v!r} != JAX {jv!r}"
 
 
 def test_grid_shape_and_replace():

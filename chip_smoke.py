@@ -37,7 +37,25 @@ then:
      two identical steps (PyTorch does not promise that the `[T, K, F]`
      gather's backward, an accumulating index_put, is deterministic on CUDA);
   9. times the train step, K2 and the plain backward with CUDA events,
-     computes K2's bound from this run's inputs, and profiles a few steps.
+     computes K2's bound from this run's inputs, and profiles a few steps;
+ 10. renders the same scene from the same poses through the surfel (2DGS)
+     variant, `measure_fps(..., variant="surfel")` at the CLI's surfel
+     defaults (h1/K384/cap32), with the counts set to 0 just before and read
+     just after, requiring one K5 launch per frame, finite outputs on every
+     channel and occupancy > 0;
+ 11. holds the tiled surfel render (K5) against the golden chunk scan
+     (plain PyTorch) on a small scene, and K5 against its plain version on
+     frame 0's main-path inputs, on every output row;
+ 12. trains the surfel variant: N_STEPS `Trainer(variant="surfel").step`s
+     with both regularizers on from the first step (so every row of K6's
+     cotangent is live), one K5 and one K6 launch per step, then one
+     densify;
+ 13. holds K6 against its plain version on one step's inputs, and one step's
+     parameter gradients through K5/K6 against those through the plain
+     versions;
+ 14. times the surfel frame and step, K5, K6 and both plain versions with
+     CUDA events, computes K5's and K6's bounds from this run's inputs and
+     profiles a frame and a step.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -58,7 +76,23 @@ stop one instance earlier or later.
     whose pixel carries more than 0.1% of its column's largest gradient
     fails.
   * Gradients of one step, kernels against plain versions, per parameter
-    leaf: |g_k - g_p| / |g_p| <= 1e-2 and cosine >= 0.999.
+    leaf: |g_k - g_p| / |g_p| <= 1e-2 and cosine >= 0.999 (both variants).
+  * K5 (and the tiled surfel render against the golden one): features, T,
+    normal, M1 and M2 as K1's features; depth (metres) as K1's depth. The
+    median depth and the distortion also flip where a pixel's T-before sits
+    at 0.5, and then the median moves by metres: at most 1% of the pixels
+    beyond 1e-3 m (median) or 1e-5 (distortion), a median within the far
+    plane (80 m) and a distortion within 2e-2 everywhere. On the smoke
+    scene the H100 read a feature mean of 4.7e-9 and max of 3.0e-7, a depth
+    max of 1.5e-5 m, every pixel's median equal bit for bit and a
+    distortion max of 1.9e-7.
+  * K6: K2's bounds, each column scaled by its largest magnitude. Both take
+    K5's output, so the median's cotangent goes to the same rows only where
+    the plain version recomputes each pair's depth with K5's bits
+    (`csrc/surfel_common.cuh`); the run reports how many pixels' medians
+    the plain forward reproduces bit for bit. On the smoke scene the H100
+    read a mean of 6.1e-9, a max of 3.2e-5 and 3 elements beyond 2e-5 over
+    315,459 touched rows.
 """
 from __future__ import annotations
 
@@ -94,6 +128,25 @@ OPT = dict(start_stat=0, update_from=0, update_interval=N_STEPS, update_until=10
 TOL = {"feat_mean": 1e-5, "feat_max": 2e-2, "depth_mean": 1e-3, "depth_max": 2.0}
 K2_TOL = {"mean": 1e-5, "atol": 2e-5, "far_count": 64, "max": 1e-3}
 GRAD_TOL = {"rel_norm": 1e-2, "cos": 0.999}
+# the surfel variant: the CLI's surfel defaults (tile_h 1, capacity 384,
+# max_tiles_per_gaussian left at 32)
+SURFEL_RASTER = dict(tile_h=1, tile_capacity=384, max_tiles_per_gaussian=32,
+                     max_visible=2 ** 18)
+SURFEL_TOL = {"median_atol": 1e-3, "median_far_frac": 0.01, "median_max": 80.0,
+              "dist_atol": 1e-5, "dist_far_frac": 0.01, "dist_max": 2e-2}
+K6_TOL = K2_TOL
+# FP32 operations per pixel-surfel pair, counted from csrc/surfel_common.cuh
+# and the kernels' loops (each add, multiply, divide, sqrt, compare or
+# select one; expf one):
+OPS_S_OUT_RECT = 5             # the valid flag and the four rect compares
+OPS_S_IN_RECT = 85             # those, surfel_pair (five 3-dot products, two divides,
+#                                the rho2d form, the selects), surfel_alpha, the tests
+#                                and the transmittance step
+OPS_S_FWD_APPLIED = 28         # + 2 C: K5's accumulators (w, features, depth, normal,
+#                                the distortion map and term, M1, M2, the median)
+OPS_S_BWD_APPLIED = 288        # + 4 C: K6 per applied pair: the replayed pair (85), the
+#                                chain (188 + 3 C) and one add per gradient column
+#                                (15 + C) for the reduction
 
 
 def fail(msg: str) -> None:
@@ -147,14 +200,34 @@ def time_ms(fn, iters: int, warmup: int) -> list:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
 
 
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take for a function that must move
+    `n_bytes` and do `n_ops` FP32 operations: the larger of the two times
+    at the card's peak rates."""
+    tb, to = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "bytes_ms": tb, "ops": n_ops, "ops_ms": to,
+            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def tile_bytes(counts, rows_walked: int, cols: int, pix, *elements: int) -> int:
+    """Bytes a composite function over tiles must move: `cols` columns (the
+    ones the function reads) of the `rows_walked` rows of the tiles' lists
+    that some pixel's walk reaches, the counts, the five rows of each pixel
+    block it reads (direction, column, row), and `elements` more f32
+    elements (the rows read of other inputs, the output written)."""
+    T, _, npix = pix.shape
+    return 4 * (rows_walked * cols + counts.numel() + T * 5 * npix + sum(elements))
+
+
 def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-instance pairs that K1's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
-    crossing), as (applied, other in rect, out of rect): the pairs that pass
-    and are blended (K2 runs its backward chain and reduction on these
-    alone), the other pairs inside the instance's parity rect (the alpha
-    arithmetic, then a failed test or the crossing), and the pairs outside
-    it (the rect test alone)."""
+    crossing), as (applied, other in rect, out of rect, rows): the pairs
+    that pass and are blended (K2 runs its backward chain and reduction on
+    these alone), the other pairs inside the instance's parity rect (the
+    alpha arithmetic, then a failed test or the crossing), the pairs outside
+    it (the rect test alone), and the rows of the tiles' lists that some
+    pixel visits (the rows the function must read)."""
     import torch
 
     from lidargs_torch.ops.projection import PackedCols as PC
@@ -162,7 +235,7 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     T, K, _ = inst.shape
     rc = PC.rect(C).start
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = 0
+    n_app = n_in = n_out = n_rows = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -182,19 +255,20 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         n_app += int((visited & passed & (cross == 0)).sum())
         n_in += int((visited & in_rect).sum())
         n_out += int((visited & ~in_rect).sum())
-    return n_app, n_in - n_app, n_out
+        n_rows += int(visited.any(dim=2).sum())
+    return n_app, n_in - n_app, n_out, n_rows
 
 
-def check_dinst(got, want, C: int) -> dict:
-    """K2's dinst against the plain version's, each column scaled by its
-    largest magnitude; fails out of K2_TOL."""
+def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
+    """A backward kernel's dinst against the plain version's, each of its
+    first `nv` columns scaled by its largest magnitude; the columns after
+    must be zero. Fails out of `tol`."""
     import torch
 
-    nv = 14 + C
     if not bool(torch.isfinite(got).all()):
-        fail("K2: non-finite dinst")
+        fail(f"{name}: non-finite dinst")
     if bool((got[..., nv:] != 0).any()):
-        fail("K2: nonzero rect/center/valid/pad columns")
+        fail(f"{name}: nonzero columns after the first {nv}")
     scale = want[..., :nv].abs().amax(dim=(0, 1)).clamp_min(1e-30)
     d = (got[..., :nv] - want[..., :nv]).abs() / scale
     err = {"mean": float(d.mean()), "max": float(d.max()),
@@ -203,18 +277,84 @@ def check_dinst(got, want, C: int) -> dict:
            "mean_abs": float((got - want).abs().mean()),
            "rows_touched": int((want[..., :nv].abs().amax(-1) > 0).sum())}
     for k in ("mean", "far_count", "max"):
-        if not err[k] <= K2_TOL[k]:
-            fail(f"K2 vs plain: {k} = {err[k]:.3e} exceeds {K2_TOL[k]:.1e} ({err})")
-    print(f"# K2 vs plain (one step's inputs): {err}", file=sys.stderr)
+        if not err[k] <= tol[k]:
+            fail(f"{name} vs plain: {k} = {err[k]:.3e} exceeds {tol[k]:.1e} ({err})")
+    print(f"# {name} vs plain (one step's inputs): {err}", file=sys.stderr)
     return err
+
+
+def check_surfel(name: str, got, want, C: int) -> dict:
+    """|got - want| over [n, rows, ...] stacks in K5's row layout (features,
+    depth, T, normal, median, distortion, and M1/M2 where present):
+    features, T, normal and M1/M2 against TOL's feature bounds, the depth
+    against its depth bounds, the median and the distortion against
+    SURFEL_TOL's counts of far pixels and max bounds."""
+    import torch
+
+    d = (got - want).abs()
+    rows = list(range(C)) + [C + 1, C + 2, C + 3, C + 4]
+    if got.shape[1] > C + 8:
+        rows += [C + 7, C + 8]
+    feat, dep, med, dist = d[:, rows], d[:, C], d[:, C + 5], d[:, C + 6]
+    err = {
+        "feat_mean": float(feat.mean()), "feat_max": float(feat.max()),
+        "depth_mean": float(dep.mean()), "depth_max": float(dep.max()),
+        "median_far_frac": float((med > SURFEL_TOL["median_atol"]).float().mean()),
+        "median_max": float(med.max()),
+        "dist_far_frac": float((dist > SURFEL_TOL["dist_atol"]).float().mean()),
+        "dist_max": float(dist.max()),
+        "median_bit_equal_frac": float((got[:, C + 5] == want[:, C + 5]).float().mean()),
+    }
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite output")
+    for k, lim in list(TOL.items()) + [(k, v) for k, v in SURFEL_TOL.items()
+                                       if not k.endswith("atol")]:
+        if not err[k] <= lim:
+            fail(f"{name}: {k} = {err[k]:.3e} exceeds {lim:.1e} ({err})")
+    print(f"# {name}: {err}", file=sys.stderr)
+    return err
+
+
+def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
+    """Pixel-surfel pairs that K5's sequential walk visits on these inputs
+    (each pixel's live rows up to and including its first transmittance
+    crossing), as (applied, other past the valid and rect tests, stopped by
+    them, rows): the pairs blended (K5's accumulators and K6's chain run on
+    these alone), the other pairs that reach the pair geometry, the pairs
+    that cost the cheap tests alone, and the rows of the tiles' lists that
+    some pixel visits."""
+    import torch
+
+    from lidargs_torch.ops.surfel import SurfelCols as S
+    from lidargs_torch.ops.surfel import pair_geometry
+
+    T, K, _ = inst.shape
+    rc, vf = S.rect(C).start, S.validf(C)
+    k = torch.arange(K, device=inst.device)[None, :, None]
+    n_app = n_in = n_out = n_rows = 0
+    for t0 in range(0, T, group):
+        r = inst[t0:t0 + group]
+        col = lambda i: r[:, :, i, None]                            # [g,K,1]
+        dirx, diry, dirz, px, py = (pix[t0:t0 + group, i, None, :] for i in range(5))
+        live = k < counts[t0:t0 + group, None, None]
+        cheap = (live & (col(vf) > 0.0) & (px >= col(rc)) & (px < col(rc + 1))
+                 & (py >= col(rc + 2)) & (py < col(rc + 3)))
+        g = pair_geometry(r, dirx, diry, dirz, px, py, C, cfg)
+        passed = live & g.passed
+        t_incl = torch.cumprod(torch.where(passed, 1.0 - g.alpha, 1.0), dim=1)
+        cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
+        visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
+        n_app += int((visited & passed & (cross == 0)).sum())
+        n_in += int((visited & cheap).sum())
+        n_out += int((visited & ~cheap).sum())
+        n_rows += int(visited.any(dim=2).sum())
+    return n_app, n_in - n_app, n_out, n_rows
 
 
 def grad_diff(a: dict, b: dict) -> dict:
     """Per parameter leaf: relative norm of a - b and the cosine of a and b
     (b is the reference)."""
     from lidargs_torch.train.optim import tree_leaves
-
-    import torch
 
     names = []
 
@@ -238,16 +378,83 @@ def grad_diff(a: dict, b: dict) -> dict:
 
 
 @contextlib.contextmanager
-def plain_composite(ck):
-    """Route the composite autograd function through the plain PyTorch
-    versions of K1 and K2 (they are looked up at call time), for holding
-    the kernels' gradients against theirs."""
-    saved = ck.composite_tiles, ck.composite_tiles_bwd
-    ck.composite_tiles, ck.composite_tiles_bwd = ck.composite_tiles_plain, ck.composite_tiles_bwd_plain
+def plain_versions(mod, name: str):
+    """Route a composite autograd function through the plain PyTorch
+    versions of its kernels: `mod.<name>` and `mod.<name>_bwd` (looked up at
+    call time) become `<name>_plain` and `<name>_bwd_plain`, for holding the
+    kernels' gradients against theirs."""
+    fwd, bwd = name, name + "_bwd"
+    saved = getattr(mod, fwd), getattr(mod, bwd)
+    setattr(mod, fwd, getattr(mod, fwd + "_plain"))
+    setattr(mod, bwd, getattr(mod, bwd + "_plain"))
     try:
         yield
     finally:
-        ck.composite_tiles, ck.composite_tiles_bwd = saved
+        setattr(mod, fwd, saved[0])
+        setattr(mod, bwd, saved[1])
+
+
+def kernel_vs_plain(mod, name: str, grads, nv: int, tol: dict, label: str):
+    """One step's gradients through the kernels of a composite autograd
+    function against those through its plain versions (GRAD_TOL per leaf),
+    and its backward kernel `mod.<name>_bwd` against `<name>_bwd_plain` on
+    the arguments that step gave it (`check_dinst`, `tol`). `grads()` runs
+    the step and returns (parameter gradients, proxy gradient). Returns the
+    captured backward arguments, the kernel's dinst, the dinst error, the
+    per-leaf gradient differences and the kernels' gradients."""
+    import torch
+
+    from lidargs_torch.train.optim import tree_leaves
+
+    run_bwd = getattr(mod, name + "_bwd")
+    captured = []
+
+    def record(*args):
+        captured.append(args)
+        return run_bwd(*args)
+
+    setattr(mod, name + "_bwd", record)
+    try:
+        g_k, pg_k = grads()
+    finally:
+        setattr(mod, name + "_bwd", run_bwd)
+    with plain_versions(mod, name):
+        g_p, pg_p = grads()
+    torch.cuda.synchronize()
+    for g in tree_leaves(g_k) + [pg_k]:
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{label}: non-finite gradients")
+    with torch.no_grad():
+        d_k = run_bwd(*captured[0])
+        d_p = getattr(mod, name + "_bwd_plain")(*captured[0])
+    torch.cuda.synchronize()
+    err = check_dinst(label, d_k, d_p, nv, tol)
+    vs_plain = grad_diff({**g_k, "proxy": pg_k}, {**g_p, "proxy": pg_p})
+    for leaf, e in vs_plain.items():
+        if e["norm"] == 0:
+            continue
+        if not (e["rel_norm"] <= GRAD_TOL["rel_norm"] and e["cos"] >= GRAD_TOL["cos"]):
+            fail(f"gradient of {leaf} with {label}, kernels vs plain: {e}")
+    print(f"# grads with {label} vs plain: {vs_plain}", file=sys.stderr)
+    return captured[0], d_k, err, vs_plain, {**g_k, "proxy": pg_k}
+
+
+def time_vs_plain(kernel, plain, args) -> tuple:
+    """Median device ms of a kernel's wrapper (50 calls) and of its plain
+    version (5 calls) on the same arguments, from CUDA events."""
+    import numpy as np
+
+    k_ms = time_ms(lambda: kernel(*args), 50, 5)
+    p_ms = time_ms(lambda: plain(*args), 5, 1)
+    return float(np.median(k_ms)), float(np.median(p_ms))
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, ms: float,
+                 plain_ms: float, b: dict, **errors) -> dict:
+    """One kernel's entry of the `kernels` line."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **errors, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
 def profile_render(render, frames: int = 3) -> dict:
@@ -304,6 +511,7 @@ def run(dev) -> None:
     from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
     from lidargs_torch.models.field import field_splats, render_field
     from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops.projection import PackedCols as PC
     from lidargs_torch.ops.projection import preprocess_gaussians
     from lidargs_torch.ops.rasterize import cull_sorted_rows, render_tiled, tile_inputs
     from lidargs_torch.ops.reference import render_reference
@@ -317,7 +525,7 @@ def run(dev) -> None:
 
     # --- build every kernel of the path ---
     t0 = time.perf_counter()
-    libs = cuda_build.build(["composite_fwd", "composite_bwd"])
+    libs = cuda_build.build(["composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd"])
     build_s = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text().strip()
@@ -408,21 +616,24 @@ def run(dev) -> None:
 
     # --- 5. timing (CUDA events) and K1's bound from this run's inputs ---
     with torch.no_grad():
-        k1_ms = time_ms(lambda: ck.composite_tiles(inst, counts, pix, C, rcfg), 50, 5)
-        plain_ms = time_ms(lambda: ck.composite_tiles_plain(inst, counts, pix, C, rcfg), 5, 1)
+        k1_ms, plain_ms = time_vs_plain(ck.composite_tiles, ck.composite_tiles_plain,
+                                        (inst, counts, pix, C, rcfg))
         render = lambda: render_field(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
-        n_app, n_other, n_out = walked_pairs(inst, counts, pix, C, rcfg)
+        n_app, n_other, n_out, n_rows = walked_pairs(inst, counts, pix, C, rcfg)
         prof = profile_render(render)
     n_in = n_app + n_other
-    n_bytes = 4 * (inst.numel() + counts.numel() + pix.numel() + out_k.numel())
-    n_ops = OPS_IN_RECT * n_in + OPS_OUT_RECT * n_out
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    # K1 reads the columns up to the rect's (PackedCols) of each row
+    b1 = bound(tile_bytes(counts, n_rows, PC.rect(C).stop, pix, out_k.numel()),
+               OPS_IN_RECT * n_in + OPS_OUT_RECT * n_out)
+    b1.update(pairs_in_rect=n_in, pairs_applied=n_app, pairs_out_rect=n_out, rows=n_rows)
     med = lambda xs: float(np.median(xs))
 
     # --- 7-9. training, K2 against plain, timing ---
     train, k2 = train_phases(dev, params, valid, mcfg, rcfg, beams)
+
+    # --- 10-14. the surfel variant: render, K5 against plain, training, K6 ---
+    surfel, k5, k6 = surfel_phases(dev, params, valid, mcfg, beams, frames)
 
     timing = {
         "card": card_csv,
@@ -430,36 +641,27 @@ def run(dev) -> None:
         "render_ms_per_frame_min": min(render_ms), "render_ms_per_frame_max": max(render_ms),
         "render_samples": len(render_ms),
         "fps_from_median": 1e3 / med(render_ms),
-        "k1_ms_median": med(k1_ms), "k1_samples": len(k1_ms),
-        "plain_ms_median": med(plain_ms), "plain_samples": len(plain_ms),
+        "k1_ms_median": k1_ms, "plain_ms_median": plain_ms,
         "k1_inputs": shapes,
-        "k1_bound": {"bytes": n_bytes, "bytes_ms": t_bytes, "ops": n_ops, "ops_ms": t_ops,
-                     "pairs_in_rect": n_in, "pairs_applied": n_app, "pairs_out_rect": n_out},
+        "k1_bound": b1,
         "build_s": build_s,
         "main_path": main_path,
         "golden_small_err": err_ref,
         "profile": prof,
         "train": train,
+        "surfel": surfel,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
     kernels = {
         "card": card_csv,
-        "kernels": [{
-            "name": "composite_fwd",
-            "route": "cuda",
-            "source": "lidargs_torch/csrc/composite_fwd.cu",
-            "replaces": "lidargs_tpu/ops/pallas_composite.py:175",
-            "launches": k1_launches,
-            "launches_train": train["k1_launches"],
-            "max_abs_err": max(err_k1["feat_max"], err_k1["depth_max"]),
-            "mean_abs_err": {"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
-            "ms": med(k1_ms),
-            "plain_ms": med(plain_ms),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }, k2],
+        "kernels": [kernel_entry(
+            "composite_fwd", "lidargs_torch/csrc/composite_fwd.cu",
+            "lidargs_tpu/ops/pallas_composite.py:175", k1_launches, k1_ms, plain_ms, b1,
+            launches_train=train["k1_launches"],
+            max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
+            mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
+        ), k2, k5, k6],
     }
     print(json.dumps({"timing": timing}))
     print(json.dumps(kernels))
@@ -469,26 +671,14 @@ def run(dev) -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
 
 
-def train_phases(dev, params, valid, mcfg, rcfg, beams):
-    """Phases 7-9 on the render scene: (summary for the timing line, K2's
-    entry of the kernels line)."""
+def train_frames(dev, beams) -> list:
+    """N_STEPS training frames from sensor poses, with GT as the JAX
+    package's train-step benchmark draws it."""
     import numpy as np
-    import torch
 
-    from lidargs_torch.config import OptConfig
     from lidargs_torch.lidar import LidarFrame
-    from lidargs_torch.models.field import AnchorField
-    from lidargs_torch.ops import composite_kernel as ck
-    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
-    from lidargs_torch.train.optim import tree_leaves
     from lidargs_torch.utils.testing import sensor_poses
 
-    C = mcfg.color_channel
-    med = lambda xs: float(np.median(xs))
-    ocfg = OptConfig(**OPT)
-    bg = torch.zeros(2, device=dev)
-    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg)
-    # GT as the JAX package's train-step benchmark draws it
     rng = np.random.default_rng(4)
     frames = []
     for i, pose in enumerate(sensor_poses(N_STEPS, seed=2)):
@@ -497,6 +687,28 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
         gt[1] = rng.uniform(size=(H, W)) * gt[0]
         gt[2] = rng.uniform(5.0, 70.0, size=(H, W)) * gt[0]
         frames.append(LidarFrame.from_lidar2world(pose, beams, gt, uid=i, device=dev))
+    return frames
+
+
+def train_phases(dev, params, valid, mcfg, rcfg, beams):
+    """Phases 7-9 on the render scene: (summary for the timing line, K2's
+    entry of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import OptConfig
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops.projection import PackedCols
+    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
+    from lidargs_torch.train.optim import tree_leaves
+
+    C = mcfg.color_channel
+    med = lambda xs: float(np.median(xs))
+    ocfg = OptConfig(**OPT)
+    bg = torch.zeros(2, device=dev)
+    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg)
+    frames = train_frames(dev, beams)
     state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
 
     # --- 7. the main path: N_STEPS training steps ---
@@ -541,69 +753,40 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     # --- 8. K2 against plain on one step's inputs; gradients against plain ---
     frame = frames[0]
     grads = lambda: loss_and_grads(state, frame, bg, mcfg, rcfg, ocfg)[1:]
-    captured = []
-    run_k2 = ck.composite_tiles_bwd
-
-    def record(*args):
-        captured.append(args)
-        return run_k2(*args)
-
-    ck.composite_tiles_bwd = record
-    try:
-        g_k, pg_k = grads()
-    finally:
-        ck.composite_tiles_bwd = run_k2
+    bwd_args, d_k, err_k2, vs_plain, g_k = kernel_vs_plain(
+        ck, "composite_tiles", grads, 14 + C, K2_TOL, "K2")
     g_k2, pg_k2 = grads()
-    with plain_composite(ck):
-        g_p, pg_p = grads()
-    torch.cuda.synchronize()
-    for g in tree_leaves(g_k) + [pg_k]:
-        if not bool(torch.isfinite(g).all()):
-            fail("non-finite gradients")
-    bwd_args = captured[0]
-    with torch.no_grad():
-        d_k = run_k2(*bwd_args)
-        d_p = ck.composite_tiles_bwd_plain(*bwd_args)
-    torch.cuda.synchronize()
-    err_k2 = check_dinst(d_k, d_p, C)
-    vs_plain = grad_diff({**g_k, "proxy": pg_k}, {**g_p, "proxy": pg_p})
-    run_to_run = grad_diff({**g_k2, "proxy": pg_k2}, {**g_k, "proxy": pg_k})
-    for name, e in vs_plain.items():
-        if e["norm"] == 0:
-            continue
-        if not (e["rel_norm"] <= GRAD_TOL["rel_norm"] and e["cos"] >= GRAD_TOL["cos"]):
-            fail(f"gradient of {name}, kernels vs plain: {e}")
-    print(f"# grads vs plain: {vs_plain}\n# grads run to run: {run_to_run}", file=sys.stderr)
+    run_to_run = grad_diff({**g_k2, "proxy": pg_k2}, g_k)
+    print(f"# grads run to run: {run_to_run}", file=sys.stderr)
 
     # --- 9. timing: the step, K2, the plain backward; K2's bound; profile ---
-    inst, counts, pix, res, g = bwd_args[:5]
+    inst, counts, pix = bwd_args[:3]
     held = [state]
 
     def one_step():
         held[0], _ = trainer.step(held[0], frame, 1)
 
     step_ms = time_ms(one_step, TRAIN_TIMED, 3)
-    k2_ms = time_ms(lambda: run_k2(*bwd_args), 50, 5)
-    plain_bwd_ms = time_ms(lambda: ck.composite_tiles_bwd_plain(*bwd_args), 5, 1)
-    n_app, n_other, n_out = walked_pairs(inst, counts, pix, C, rcfg)
+    k2_ms, plain_bwd_ms = time_vs_plain(ck.composite_tiles_bwd, ck.composite_tiles_bwd_plain,
+                                        bwd_args)
+    n_app, n_other, n_out, n_rows = walked_pairs(inst, counts, pix, C, rcfg)
     # profile_render reports per call; a call here is one step
     prof = profile_render(one_step, frames=3)
-    n_bytes = 4 * (inst.numel() + counts.numel() + pix.numel() + res.numel() + g.numel()
-                   + d_k.numel())
-    n_ops = ((OPS_APPLIED_BWD + 14 + C) * n_app + OPS_IN_RECT * n_other
-             + OPS_OUT_RECT * n_out)
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    # K2 reads K1's columns of each row, rows 0..C+1 of res and g
+    T, _, npix = pix.shape
+    b2 = bound(tile_bytes(counts, n_rows, PackedCols.rect(C).stop, pix,
+                          2 * T * (C + 2) * npix, d_k.numel()),
+               (OPS_APPLIED_BWD + 14 + C) * n_app + OPS_IN_RECT * n_other
+               + OPS_OUT_RECT * n_out)
+    b2.update(pairs_applied=n_app, pairs_in_rect_other=n_other, pairs_out_rect=n_out,
+              rows=n_rows)
     train = {
         "steps": N_STEPS, "k1_launches": k1_launches, "k2_launches": k2_launches,
         "loss_first": losses[0], "loss_last": losses[-1], "stats": stats, "densify": densify,
         "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "step_samples": len(step_ms),
-        "k2_ms_median": med(k2_ms), "k2_samples": len(k2_ms),
-        "plain_bwd_ms_median": med(plain_bwd_ms), "plain_bwd_samples": len(plain_bwd_ms),
-        "k2_bound": {"bytes": n_bytes, "bytes_ms": t_bytes, "ops": n_ops, "ops_ms": t_ops,
-                     "pairs_applied": n_app, "pairs_in_rect_other": n_other,
-                     "pairs_out_rect": n_out},
+        "k2_ms_median": k2_ms, "plain_bwd_ms_median": plain_bwd_ms,
+        "k2_bound": b2,
         "k2_err": err_k2,
         "grad_vs_plain_worst": max(vs_plain.items(), key=lambda kv: kv[1]["rel_norm"]),
         "grad_run_to_run_max_rel_norm": max(e["rel_norm"] for e in run_to_run.values()),
@@ -612,23 +795,218 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     }
     if isinstance(prof["device_ms_per_frame"], float):
         train["device_busy_share"] = prof["device_ms_per_frame"] / med(step_ms)
-    k2 = {
-        "name": "composite_bwd",
-        "route": "cuda",
-        "source": "lidargs_torch/csrc/composite_bwd.cu",
-        "replaces": "lidargs_tpu/ops/pallas_composite.py:224",
-        "launches": k2_launches,
-        "max_abs_err": err_k2["max_abs"],
-        "mean_abs_err": err_k2["mean_abs"],
-        "column_scaled_err": {"mean": err_k2["mean"], "max": err_k2["max"],
-                              "far_count": err_k2["far_count"]},
-        "ms": med(k2_ms),
-        "plain_ms": med(plain_bwd_ms),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }
+    k2 = kernel_entry(
+        "composite_bwd", "lidargs_torch/csrc/composite_bwd.cu",
+        "lidargs_tpu/ops/pallas_composite.py:224", k2_launches, k2_ms, plain_bwd_ms, b2,
+        **dinst_errors(err_k2))
     return train, k2
+
+
+def dinst_errors(err: dict) -> dict:
+    """The error keys of a backward kernel's entry, from `check_dinst`."""
+    return {"max_abs_err": err["max_abs"], "mean_abs_err": err["mean_abs"],
+            "column_scaled_err": {k: err[k] for k in ("mean", "max", "far_count")}}
+
+
+def profile_summary(prof: dict) -> dict:
+    """The device totals of a `profile_render` result, without its list."""
+    return {k: v for k, v in prof.items() if k != "top"}
+
+
+def surfel_phases(dev, params, valid, mcfg, beams, frames):
+    """Phases 10-14, the surfel (2DGS) variant on the render scene: (summary
+    for the timing line, K5's and K6's entries of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import OptConfig, RasterConfig
+    from lidargs_torch.models.field import AnchorField, field_surfels, render_field_surfel
+    from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.ops.surfel import SurfelCols as S
+    from lidargs_torch.ops.surfel import (cull_sorted_surfels, preprocess_surfels,
+                                          render_surfels, surfel_tile_inputs)
+    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps
+    from lidargs_torch.train.optim import tree_leaves
+    from lidargs_torch.utils.testing import make_scene
+
+    C = mcfg.color_channel
+    med = lambda xs: float(np.median(xs))
+    rcfg = RasterConfig(**SURFEL_RASTER)
+    bg = torch.zeros(2, device=dev)
+
+    # --- 10. the main path: frames through measure_fps(variant="surfel") ---
+    with torch.no_grad():
+        sk.launches = 0
+        res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev,
+                          variant="surfel")
+        k5_launches = sk.launches
+    if k5_launches != N_FRAMES:
+        fail(f"K5 launched {k5_launches} times for {N_FRAMES} surfel frames")
+    for i, out in enumerate(res.outputs):
+        shapes = {"color": (C, H, W), "depth": (H, W), "occ": (H, W), "final_T": (H, W),
+                  "normal": (3, H, W), "median_depth": (H, W), "distortion": (H, W)}
+        for name, shape in shapes.items():
+            x = getattr(out, name)
+            if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+                fail(f"surfel frame {i}: {name} {tuple(x.shape)} not finite of shape {shape}")
+    occ = [float(o.occ.mean()) for o in res.outputs]
+    if not min(occ) > 0.0:
+        fail(f"empty surfel render: mean occupancy per frame {occ}")
+    main_path = {
+        "frames": N_FRAMES, "warmup": WARMUP, "fps_host_clock": res.fps,
+        "host_ms_per_frame": [t * 1e3 for t in res.seconds], "mean_occ": occ,
+        "n_overflow": [int(o.n_overflow) for o in res.outputs],
+        "n_dropped": [int(o.n_dropped) for o in res.outputs],
+        "n_visible": [int(o.visible.sum()) for o in res.outputs],
+    }
+    print(f"# surfel main path: {json.dumps(main_path)}", file=sys.stderr)
+
+    # --- 11. tiled (K5) against golden (plain) on a small scene; K5 against
+    # plain on frame 0's main-path inputs ---
+    sc = make_scene(seed=3, n=400, H=32, W=256)
+    scales2 = np.random.default_rng(3).uniform(0.3, 1.2, (400, 2)).astype(np.float32)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    small = RasterConfig(tile_h=1, tile_capacity=512, max_tiles_per_gaussian=64,
+                         max_visible=512, chunk=8)
+    bg_s = torch.tensor([0.3, 0.7], device=dev)
+    with torch.no_grad():
+        pk = preprocess_surfels(t(sc.means3d), t(scales2), t(sc.quats), t(sc.opacities),
+                                t(sc.feat), t(sc.mask), t(sc.w2s_rot), t(sc.w2s_trans),
+                                t(sc.beams), sc.W, small)
+        tiled = render_surfels(pk, t(sc.beams), sc.W, bg_s, small, C=C)
+        gold = render_surfels(pk, t(sc.beams), sc.W, bg_s, small, C=C, golden=True)
+    if int(tiled.n_overflow) != 0 or not float(tiled.occ.max()) > 0.5:
+        fail(f"small surfel scene: overflow {int(tiled.n_overflow)}, "
+             f"max occ {float(tiled.occ.max())}")
+    stack = lambda o: torch.cat([o.color, o.depth[None], o.final_T[None], o.normal,
+                                 o.median_depth[None], o.distortion[None]])[None]
+    err_gold = check_surfel("tiled K5 vs golden (small surfel scene)", stack(tiled),
+                            stack(gold), C)
+    with torch.no_grad():
+        pk0 = field_surfels(params, valid, frames[0], mcfg, rcfg)[0]
+        pkv, _ = cull_sorted_surfels(pk0, rcfg, C)
+        inst, counts, pix, _ = surfel_tile_inputs(pkv, frames[0].beams, W, rcfg, C)
+        out_k = sk.surfel_composite_tiles(inst, counts, pix, C, rcfg)
+        out_p = sk.surfel_composite_tiles_plain(inst, counts, pix, C, rcfg)
+    torch.cuda.synchronize()
+    err_k5 = check_surfel("K5 vs plain (frame 0 inputs)", out_k, out_p, C)
+    k5_inputs = {"inst": list(inst.shape), "counts": list(counts.shape),
+                 "pix": list(pix.shape), "mean_count": float(counts.float().mean()),
+                 "max_count": int(counts.max())}
+
+    # --- 12. training: N_STEPS surfel steps, both regularizers on ---
+    ocfg = OptConfig(**OPT, dist_from=0, normal_from=0)
+    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, variant="surfel")
+    tframes = train_frames(dev, beams)
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+    state, losses = state0, []
+    sk.launches = sk.bwd_launches = 0
+    for it in range(1, N_STEPS + 1):
+        state, m = trainer.step(state, tframes[it - 1], it)
+        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    k5_train, k6_launches = sk.launches, sk.bwd_launches
+    if k5_train != N_STEPS or k6_launches != N_STEPS:
+        fail(f"{N_STEPS} surfel steps launched K5 {k5_train} and K6 {k6_launches} times")
+    if not all(np.isfinite(list(l.values())).all() for l in losses):
+        fail(f"non-finite surfel loss terms: {losses}")
+    moved = 0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(state0.params)):
+        if not bool(torch.isfinite(a).all()):
+            fail("non-finite parameters after surfel training")
+        moved += int((a != b).sum())
+    if moved == 0:
+        fail("surfel training left every parameter as it was")
+    stats = {
+        "anchor_demon_max": float(state.anchor_demon.max()),
+        "offset_denom_sum": float(state.offset_denom.sum()),
+        "offset_grad_accum_sum": float(state.offset_grad_accum.sum()),
+        "opacity_accum_sum": float(state.opacity_accum.sum()),
+    }
+    if not (stats["anchor_demon_max"] == N_STEPS and stats["offset_denom_sum"] > 0
+            and stats["offset_grad_accum_sum"] > 0 and stats["opacity_accum_sum"] > 0):
+        fail(f"surfel densification statistics did not accumulate: {stats}")
+    n_before = int(state.valid.sum())
+    dense, dstats = trainer.densify(state, torch.Generator(device=dev).manual_seed(0), VOXEL)
+    densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
+               "n_pruned": int(dstats.n_pruned), "n_anchors_after": int(dense.valid.sum())}
+    if densify["n_anchors_after"] != n_before + densify["n_grown"] - densify["n_pruned"]:
+        fail(f"surfel densify: anchor count does not add up: {densify}")
+    print(f"# surfel train: losses {losses}; stats {stats}; densify {densify}", file=sys.stderr)
+
+    # --- 13. K6 against plain on one step's inputs; gradients against plain ---
+    frame = tframes[0]
+    grads = lambda: loss_and_grads(state, frame, bg, mcfg, rcfg, ocfg, variant="surfel")[1:]
+    bwd_args, d_k, err_k6, vs_plain, _ = kernel_vs_plain(
+        sk, "surfel_composite_tiles", grads, 16 + C, K6_TOL, "K6")
+    with torch.no_grad():
+        # the median routing: where the plain forward's median is K5's bit
+        # for bit, the plain backward recomputes the same depth
+        med_p = sk.surfel_composite_tiles_plain(*bwd_args[:3], C, rcfg)[:, C + 5]
+    err_k6["median_bit_equal_frac"] = float((med_p == bwd_args[3][:, C + 5]).float().mean())
+    if bool((d_k[..., S.DEPTH] != 0).any()):
+        fail("K6: nonzero DEPTH column")
+
+    # --- 14. timing (CUDA events), bounds from this run's inputs, profiles ---
+    with torch.no_grad():
+        k5_ms, p5_ms = time_vs_plain(sk.surfel_composite_tiles, sk.surfel_composite_tiles_plain,
+                                     (inst, counts, pix, C, rcfg))
+        render = lambda: render_field_surfel(params, valid, frames[0], mcfg, rcfg, bg)
+        render_ms = time_ms(render, 30, 3)
+        prof_r = profile_render(render)
+        a5, o5, x5, r5 = walked_surfel_pairs(inst, counts, pix, C, rcfg)
+    held = [state]
+
+    def one_step():
+        held[0], _ = trainer.step(held[0], frame, 1)
+
+    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
+    prof_s = profile_render(one_step, frames=3)
+    k6_ms, p6_ms = time_vs_plain(sk.surfel_composite_tiles_bwd,
+                                 sk.surfel_composite_tiles_bwd_plain, bwd_args)
+    b_counts, b_pix = bwd_args[1:3]
+    a6, o6, x6, r6 = walked_surfel_pairs(*bwd_args[:3], C, rcfg)
+    T6, _, npix = b_pix.shape
+
+    # bytes: of each row the kernels read every column up to the valid flag
+    # but DEPTH (SurfelCols.validf(C) of them); K6 reads rows 0..C+8 of res
+    # and g; each output is written once
+    b5 = bound(tile_bytes(counts, r5, S.validf(C), pix, out_k.numel()),
+               (OPS_S_IN_RECT + OPS_S_FWD_APPLIED + 2 * C) * a5 + OPS_S_IN_RECT * o5
+               + OPS_S_OUT_RECT * x5)
+    b5.update(pairs_applied=a5, pairs_in_rect_other=o5, pairs_out_rect=x5, rows=r5)
+    b6 = bound(tile_bytes(b_counts, r6, S.validf(C), b_pix, 2 * T6 * (C + 9) * npix,
+                          d_k.numel()),
+               (OPS_S_BWD_APPLIED + 4 * C) * a6 + OPS_S_IN_RECT * o6 + OPS_S_OUT_RECT * x6)
+    b6.update(pairs_applied=a6, pairs_in_rect_other=o6, pairs_out_rect=x6, rows=r6)
+    summary = {
+        "raster": SURFEL_RASTER, "main_path": main_path, "golden_small_err": err_gold,
+        "k5_inputs": k5_inputs, "k5_err": err_k5, "k6_err": err_k6,
+        "render_ms_per_frame_median": med(render_ms), "render_ms_per_frame_min": min(render_ms),
+        "render_ms_per_frame_max": max(render_ms), "render_samples": len(render_ms),
+        "render_profile": profile_summary(prof_r), "render_top": prof_r.get("top", [])[:6],
+        "steps": N_STEPS, "k5_launches_train": k5_train, "k6_launches": k6_launches,
+        "loss_first": losses[0], "loss_last": losses[-1], "stats": stats, "densify": densify,
+        "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_samples": len(step_ms),
+        "step_profile": profile_summary(prof_s), "step_top": prof_s.get("top", [])[:8],
+        "k5_ms_median": k5_ms, "plain_fwd_ms_median": p5_ms,
+        "k6_ms_median": k6_ms, "plain_bwd_ms_median": p6_ms,
+        "k5_bound": b5, "k6_bound": b6,
+        "grad_vs_plain_worst": max(vs_plain.items(), key=lambda kv: kv[1]["rel_norm"]),
+    }
+    for key, prof, ms in (("render", prof_r, render_ms), ("step", prof_s, step_ms)):
+        if isinstance(prof["device_ms_per_frame"], float):
+            summary[f"{key}_device_busy_share"] = prof["device_ms_per_frame"] / med(ms)
+    k5 = kernel_entry(
+        "surfel_fwd", "lidargs_torch/csrc/surfel_fwd.cu", "lidargs_tpu/ops/pallas_surfel.py:186",
+        k5_launches, k5_ms, p5_ms, b5, launches_train=k5_train,
+        max_abs_err=max(err_k5["feat_max"], err_k5["depth_max"], err_k5["median_max"],
+                        err_k5["dist_max"]),
+        mean_abs_err={"feat": err_k5["feat_mean"], "depth": err_k5["depth_mean"]})
+    k6 = kernel_entry(
+        "surfel_bwd", "lidargs_torch/csrc/surfel_bwd.cu", "lidargs_tpu/ops/pallas_surfel.py:405",
+        k6_launches, k6_ms, p6_ms, b6, **dinst_errors(err_k6))
+    return summary, k5, k6
 
 
 if __name__ == "__main__":

@@ -7,9 +7,12 @@ Hopper, under `csrc/`, built with nvcc at its first use on a card.
 
 Ported so far: the render path (config, beams and frames, projection,
 binning and compositing with kernel K1, the anchor field and its MLP heads,
-evaluation metrics, `measure_fps` and `run_eval`) and the beam training step
+evaluation metrics, `measure_fps` and `run_eval`), the beam training step
 (the hand projection VJP, the backward composite kernel K2, the 5-term loss,
-Adam, the densification statistics and `densify_step`).
+Adam, the densification statistics and `densify_step`), and the surfel
+(2DGS) variant's render and training step (`variant="surfel"`: the surfel
+preprocess, kernels K5 and K6, the distortion and normal-consistency
+terms).
 
 Matrix products stay in full float32 (no TF32), as the JAX package computes
 its geometry at `Precision.HIGHEST`.

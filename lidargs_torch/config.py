@@ -32,7 +32,9 @@ class RasterConfig:
     ray_divergence_angle: float = 0.002
     near: float = 0.0
     far: float = 80.0
-    # surfel (2DGS) variant; read once the surfel renderer is ported
+    # surfel (2DGS) variant: the divergence rejection of a surfel's center,
+    # the per-pair near cut and the distortion map's near/far, and the rho2d
+    # low-pass weight
     surfel_ray_divergence_angle: float = 0.006
     surfel_near: float = 0.2
     surfel_far: float = 80.0
@@ -54,7 +56,7 @@ class RasterConfig:
     # counts the instances beyond it into n_overflow
     instance_capacity: int = 0
     # per-tile windows of one sorted buffer instead of the [T, K, F]
-    # gather; arrives with its kernel, so it must stay False for now
+    # gather; arrives with its kernels, so it must stay False for now
     fused_gather: bool = False
     # training-only projection knobs, read once the backward is ported
     remat_projection: bool = False
@@ -136,7 +138,8 @@ class OptConfig:
     depth_max: float = 80.0
     depth_min: float = 5.0                  # kitti 1 / waymo 5
     adam_eps: float = 1e-15
-    # surfel (2DGS) regularizers; read once the surfel renderer is ported
+    # surfel (2DGS) regularizers: the weights of the distortion and
+    # normal-consistency terms and the steps from which each counts
     dist_lambda: float = 100.0
     normal_lambda: float = 0.05
     dist_from: int = 1000

@@ -7,8 +7,11 @@ carry across unchanged (`utils/params.py`). The decode is anchor-major
 [C, k, ...] and is flattened once, at the projection, so `visible` and every
 per-gaussian row line up with the JAX package's.
 
+`render_field_surfel` is the surfel (2DGS) variant's render path: the same
+decode, the first two decoded covariance scales as the surfel's scales.
+
 Not ported yet: `init_field_from_points` (needs the 3-NN and the voxel
-dedup) and the surfel render.
+dedup).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, visible_filter
 from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
+from ..ops.surfel import SurfelOut, preprocess_surfels, render_surfels
 from ..utils.device import resolve_device
 from .mlp import apply_mlp, init_mlp
 
@@ -275,3 +279,55 @@ def render_field(params: dict, valid: torch.Tensor, frame: LidarFrame,
     if n_anchor_drop is not None:
         out = out._replace(n_dropped=out.n_dropped + n_anchor_drop * mcfg.n_offsets)
     return out, ng, anchor_visible
+
+
+def field_surfels(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                  mcfg: ModelConfig, rcfg: RasterConfig,
+                  mean_proxy: Optional[torch.Tensor] = None):
+    """The front half of `render_field_surfel`: prefilter -> decode ->
+    surfel preprocess. Returns (packed [C*k, F] surfel rows,
+    NeuralGaussians, anchor_visible).
+
+    The decode is the beam variant's; its first two covariance scales
+    parameterize the surfel, whose third local axis is the normal.
+    `mean_proxy` ([C, k, 3], zeros) is added to the decoded world means: its
+    gradient is the densification signal. With `remat_projection` the
+    preprocess runs under activation checkpointing (recomputed in the
+    backward)."""
+    anchor_visible = prefilter_anchors(params, valid, frame, rcfg)
+    ng = generate_neural_gaussians(params, valid, anchor_visible, frame.center, mcfg,
+                                   cam_uid=frame.uid)
+    xyz = ng.xyz if mean_proxy is None else ng.xyz + mean_proxy
+    # the surfel preprocess takes flat [P, ...] rows: flatten the
+    # anchor-major decode once, here
+    flat = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+    args = (flat(xyz), flat(ng.scaling)[:, :2], flat(ng.rot), flat(ng.opacity),
+            flat(ng.feat), flat(ng.mask), frame.w2s_rot, frame.w2s_trans, frame.beams,
+            frame.W, rcfg)
+    if rcfg.remat_projection:
+        pk = torch.utils.checkpoint.checkpoint(preprocess_surfels, *args, use_reentrant=False)
+    else:
+        pk = preprocess_surfels(*args)
+    return pk, ng, anchor_visible
+
+
+def render_field_surfel(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                        mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
+                        mean_proxy: Optional[torch.Tensor] = None):
+    """Surfel (2DGS) render path: prefilter -> decode -> surfel preprocess ->
+    tiled surfel splat (K5, K6 on the card). Returns (SurfelOut,
+    NeuralGaussians, anchor_visible). `mean_proxy`: see `field_surfels`."""
+    pk, ng, anchor_visible = field_surfels(params, valid, frame, mcfg, rcfg, mean_proxy)
+    out: SurfelOut = render_surfels(pk, frame.beams, frame.W, bg, rcfg, C=ng.feat.shape[-1])
+    return out, ng, anchor_visible
+
+
+def render_fn(variant: str):
+    """The render path of a variant: `render_field` ("beam") or
+    `render_field_surfel` ("surfel"). Both take (params, valid, frame, mcfg,
+    rcfg, bg, proxy) and return (out, NeuralGaussians, anchor_visible)."""
+    if variant == "beam":
+        return render_field
+    if variant == "surfel":
+        return render_field_surfel
+    raise ValueError(f"unknown variant {variant!r}: 'beam' or 'surfel'")

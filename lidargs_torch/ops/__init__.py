@@ -17,3 +17,11 @@ from .composite_kernel import (
 )
 from .reference import render_reference
 from .rasterize import RenderOut, render_tiled
+from .surfel import SurfelCols, SurfelOut, preprocess_surfels, render_surfels, surfel_composite
+from .surfel_kernel import (
+    SurfelCompositeTiles,
+    surfel_composite_tiles,
+    surfel_composite_tiles_bwd,
+    surfel_composite_tiles_bwd_plain,
+    surfel_composite_tiles_plain,
+)

@@ -36,6 +36,7 @@ from .composite import composite_packed
 from .projection import PackedCols as PC
 
 OUT_ROWS = 8
+PIX_ROWS = 8             # rows of a pixel block
 MAX_NPIX = 1024          # one thread per pixel, one block per tile
 
 # Launches of the CUDA kernels since the last reset (plain counts; the CPU
@@ -43,23 +44,10 @@ MAX_NPIX = 1024          # one thread per pixel, one block per tile
 launches = 0
 bwd_launches = 0
 
-_fns: dict = {}
-
-
-def _kernel(name: str, symbol: str, n_ptr: int):
-    """(C entry point, error-string function) of `csrc/<name>.cu`: `n_ptr`
-    tensor pointers, then T, K, F, NPIX, C, alpha_min, alpha_clamp,
-    transmittance_min and the stream."""
-    if name not in _fns:
-        lib = cuda_build.load(name)
-        fn = getattr(lib, symbol)
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * n_ptr + [I, I, I, I, I, Fl, Fl, Fl, P]
-        fn.restype = I
-        lib.lidargs_cuda_error_string.argtypes = [I]
-        lib.lidargs_cuda_error_string.restype = ctypes.c_char_p
-        _fns[name] = (fn, lib.lidargs_cuda_error_string)
-    return _fns[name]
+# the launch functions' arguments after the tensor pointers: T, K, F, NPIX,
+# C, alpha_min, alpha_clamp, transmittance_min and the stream
+_P = ctypes.c_void_p
+_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [_P]
 
 
 def composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
@@ -81,7 +69,11 @@ def composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
     return torch.cat([out.color, out.depth[:, None], out.final_T[:, None], pad], 1)
 
 
-def _check_cuda_inputs(inst, counts, pix, C: int):
+def check_tile_inputs(inst, counts, pix, C: int, max_c: int, row_width: int):
+    """Raise on inputs a composite kernel cannot take: [T, K, F] float32
+    rows at least `row_width` wide, [T] int32 counts, [T, 8, NPIX] float32
+    pixel blocks with NPIX in 1..MAX_NPIX, all contiguous on one device, and
+    C in 1..max_c."""
     dev = inst.device
     if counts.device != dev or pix.device != dev:
         raise ValueError(f"inputs on different devices: {inst.device}, "
@@ -93,17 +85,32 @@ def _check_cuda_inputs(inst, counts, pix, C: int):
     if inst.dim() != 3 or pix.dim() != 3 or counts.dim() != 1:
         raise ValueError("expected inst [T,K,F], counts [T], pix [T,8,NPIX]")
     T, K, Fw = inst.shape
-    if counts.shape[0] != T or pix.shape[0] != T or pix.shape[1] != OUT_ROWS:
+    if counts.shape[0] != T or pix.shape[0] != T or pix.shape[1] != PIX_ROWS:
         raise ValueError(f"shape mismatch: inst {tuple(inst.shape)}, counts "
                          f"{tuple(counts.shape)}, pix {tuple(pix.shape)}")
-    if not 1 <= C <= OUT_ROWS - 2:
-        raise ValueError(f"C={C} does not fit {OUT_ROWS} output rows")
-    if Fw < PC.rect(C).stop:
-        raise ValueError(f"row width {Fw} is narrower than PackedCols for C={C}")
+    if not 1 <= C <= max_c:
+        raise ValueError(f"C={C} outside 1..{max_c}")
+    if Fw < row_width:
+        raise ValueError(f"row width {Fw} is narrower than {row_width} for C={C}")
     if not 1 <= pix.shape[2] <= MAX_NPIX:
         raise ValueError(f"NPIX={pix.shape[2]} outside 1..{MAX_NPIX}")
     if not (inst.is_contiguous() and counts.is_contiguous() and pix.is_contiguous()):
         raise ValueError("inputs must be contiguous")
+
+
+def check_saved(inst, pix, out_rows: int, **tensors):
+    """Raise unless each of `tensors` (a forward's output, its cotangent)
+    is a contiguous float32 [T, out_rows, NPIX] tensor on inst's device."""
+    shape = (pix.shape[0], out_rows, pix.shape[2])
+    for name, x in tensors.items():
+        if x.device != inst.device:
+            raise ValueError(f"{name} on {x.device}, inst on {inst.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
@@ -115,13 +122,13 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
         return composite_tiles_plain(inst, counts, pix, C, cfg)
     if inst.device.type != "cuda":
         raise ValueError(f"composite_tiles: unsupported device {inst.device}")
-    _check_cuda_inputs(inst, counts, pix, C)
+    check_tile_inputs(inst, counts, pix, C, OUT_ROWS - 2, PC.rect(C).stop)
     T, K, Fw = inst.shape
     npix = pix.shape[2]
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
     if T == 0:
         return out
-    fn, err_str = _kernel("composite_fwd", "lidargs_composite_fwd", 4)
+    fn, err_str = cuda_build.entry("composite_fwd", "lidargs_composite_fwd", [_P] * 4 + _ARGS)
     with torch.cuda.device(inst.device):
         stream = torch.cuda.current_stream(inst.device).cuda_stream
         err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), out.data_ptr(),
@@ -227,19 +234,6 @@ def composite_tiles_bwd_plain(inst: torch.Tensor, counts: torch.Tensor,
     return torch.cat(rows, 1)[:, :K].contiguous()
 
 
-def _check_bwd_inputs(inst, counts, pix, res, g, C: int):
-    _check_cuda_inputs(inst, counts, pix, C)
-    for name, x in (("res", res), ("g", g)):
-        if x.device != inst.device:
-            raise ValueError(f"{name} on {x.device}, inst on {inst.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.shape != pix.shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)} != pix shape {tuple(pix.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
                         res: torch.Tensor, g: torch.Tensor, C: int,
                         cfg: RasterConfig) -> torch.Tensor:
@@ -252,13 +246,14 @@ def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Ten
         return composite_tiles_bwd_plain(inst, counts, pix, res, g, C, cfg)
     if inst.device.type != "cuda":
         raise ValueError(f"composite_tiles_bwd: unsupported device {inst.device}")
-    _check_bwd_inputs(inst, counts, pix, res, g, C)
+    check_tile_inputs(inst, counts, pix, C, OUT_ROWS - 2, PC.rect(C).stop)
+    check_saved(inst, pix, OUT_ROWS, res=res, g=g)
     T, K, Fw = inst.shape
     npix = pix.shape[2]
     dinst = torch.empty_like(inst)      # the kernel writes every row, zeros included
     if T == 0:
         return dinst
-    fn, err_str = _kernel("composite_bwd", "lidargs_composite_bwd", 6)
+    fn, err_str = cuda_build.entry("composite_bwd", "lidargs_composite_bwd", [_P] * 6 + _ARGS)
     with torch.cuda.device(inst.device):
         stream = torch.cuda.current_stream(inst.device).cuda_stream
         err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), res.data_ptr(),

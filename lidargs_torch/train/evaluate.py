@@ -2,8 +2,10 @@
 
 Counterparts of `measure_fps` and `run_eval` in `lidargs_tpu/train/cli.py`,
 taking the field (params + anchor mask) and the frames directly, since the
-trainer and the scene loaders are not ported yet. Each renders through
-`render_field` (the beam variant), on the card unless the caller passes
+scene loaders are not ported yet. Each renders through the variant's
+render path, as the JAX package's `Trainer.render` dispatches it:
+`render_field` for `variant="beam"` (the default), `render_field_surfel`
+for `variant="surfel"`; on the card unless the caller passes
 `device="cpu"`.
 
 Left out here: the ray-drop refiner, LPIPS, TensorBoard images and the
@@ -15,15 +17,16 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Union
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import render_field
+from ..models.field import render_fn
 from ..ops.rasterize import RenderOut
+from ..ops.surfel import SurfelOut
 from ..utils.device import resolve_device
 from .metrics import evaluate_frame, mean_metrics
 
@@ -43,24 +46,25 @@ def _sync(dev: torch.device) -> None:
 class FpsResult(NamedTuple):
     fps: float                 # mean of 1/t over the frames after warmup
     seconds: List[float]       # per-frame wall clock, warmup frames included
-    outputs: List[RenderOut]   # each frame's render, in order
+    outputs: List[Union[RenderOut, SurfelOut]]   # each frame's render, in order
 
 
 def measure_fps(params: dict, valid: torch.Tensor, frames: List[LidarFrame],
                 mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
-                warmup: int = 5, device="cuda") -> FpsResult:
+                warmup: int = 5, device="cuda", variant: str = "beam") -> FpsResult:
     """Per-frame wall clock of the render, each frame ending in a device
     synchronize; the rate is the mean of 1/t over the frames after the
-    first `warmup`."""
+    first `warmup`. `variant` picks the render path ("beam" or "surfel")."""
     if len(frames) <= warmup:
         raise ValueError(f"{len(frames)} frames leave none after {warmup} warmup frames")
+    render = render_fn(variant)
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
     frames = [fr.to(dev) for fr in frames]
     ts, outs = [], []
     for fr in frames:
         t0 = time.perf_counter()
-        out = render_field(params, valid, fr, mcfg, rcfg, bg)[0]
+        out = render(params, valid, fr, mcfg, rcfg, bg)[0]
         _sync(dev)
         ts.append(time.perf_counter() - t0)
         outs.append(out)
@@ -73,11 +77,12 @@ def run_eval(params: dict, valid: torch.Tensor,
              splits: Dict[str, List[LidarFrame]], mcfg: ModelConfig,
              rcfg: RasterConfig, bg: torch.Tensor, model_path: str,
              depth_min: float = 5.0, depth_max: float = 80.0,
-             device="cuda") -> dict:
+             device="cuda", variant: str = "beam") -> dict:
     """Render every frame of each split (e.g. {"test": [...], "train":
     [...]}), score it with `evaluate_frame`, and write the per-split means to
     `<model_path>/results.json` and the per-frame metrics to
     `<model_path>/per_view.json`. Returns both in one dict."""
+    render = render_fn(variant)
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
     results = {}
@@ -88,7 +93,7 @@ def run_eval(params: dict, valid: torch.Tensor,
         per = []
         for fr in frames:
             fr = fr.to(dev)
-            out = render_field(params, valid, fr, mcfg, rcfg, bg)[0]
+            out = render(params, valid, fr, mcfg, rcfg, bg)[0]
             pv = evaluate_frame(out.color, out.depth, fr.gt_image, fr.beams,
                                 depth_min=depth_min, depth_max=depth_max)
             pv["visible_count"] = float(out.visible.sum())

@@ -7,10 +7,12 @@ passes (`_sep_conv`), never a convolution: a convolution in reduced
 precision (cuDNN takes TF32 by default) lets conv(x^2) - mu^2 cancel below
 the c2 = 9e-4 stabilizer and drives the loss to +/-inf.
 
-The surfel and ray-drop losses arrive with their slices.
+The surfel (2DGS) regularizers: `depth_normals` and
+`normal_consistency_loss`. The ray-drop losses arrive with their slice.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -132,3 +134,47 @@ def lidar_losses(
         l1_intensity=ll1,
         ssim_intensity=ssim_loss,
     )
+
+
+# --- surfel (2DGS) regularizers: the surfel rasterizer computes the
+# distortion, normal and median-depth channels; the weights follow the 2DGS
+# paper ---
+
+
+def depth_normals(depth: torch.Tensor, beams: torch.Tensor, W: int) -> torch.Tensor:
+    """Differentiable surface normals of a range image: back-project each
+    pixel along its beam ray and cross the finite differences. [3, H, W],
+    zero where the cross product vanishes."""
+    H = beams.shape[0]
+    dev = depth.device
+    rows = torch.arange(H, device=dev)[:, None].expand(H, depth.shape[1])
+    cols = torch.arange(depth.shape[1], device=dev)[None, :].expand(H, depth.shape[1])
+    alp = beams[H - 1 - rows]
+    beta = -(cols.to(torch.float32) - W / 2.0) / W * 2.0 * math.pi
+    dirs = torch.stack([torch.cos(alp) * torch.cos(beta), torch.cos(alp) * torch.sin(beta),
+                        torch.sin(alp)], 0)
+    pts = dirs * depth[None]                                   # [3,H,W]
+    dc = torch.diff(pts, dim=2, append=pts[:, :, -1:])
+    dr = torch.diff(pts, dim=1, append=pts[:, -1:, :])
+    n = torch.linalg.cross(dc, dr, dim=0)
+    # double where: sqrt at 0 has a NaN gradient even where the rows are
+    # masked downstream (empty pixels have zero cross products)
+    nn2 = (n * n).sum(0, keepdim=True)
+    ok = nn2 > 1e-16
+    return torch.where(ok, n, torch.zeros_like(n)) / torch.sqrt(
+        torch.where(ok, nn2, torch.ones_like(nn2)))
+
+
+def normal_consistency_loss(normal: torch.Tensor, depth: torch.Tensor, beams: torch.Tensor,
+                            W: int, hit_mask: torch.Tensor) -> torch.Tensor:
+    """2DGS normal consistency: the mean of 1 - |n_render . n_depth| over the
+    hit pixels with depth > 0. Both normals are in the sensor frame
+    (`render_surfels` emits sensor-frame normals)."""
+    nd = depth_normals(depth, beams, W)
+    rn2 = (normal * normal).sum(0, keepdim=True)
+    rok = rn2 > 1e-16
+    nr = torch.where(rok, normal, torch.zeros_like(normal)) / torch.sqrt(
+        torch.where(rok, rn2, torch.ones_like(rn2)))
+    cos = (nr * nd).sum(0)
+    m = hit_mask * (depth > 0)
+    return ((1.0 - cos.abs()) * m).sum() / m.sum().clamp_min(1.0)

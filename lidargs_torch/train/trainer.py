@@ -1,14 +1,17 @@
 """Training step and its orchestration: render -> 5-term loss -> backward -> Adam,
 plus the densification statistics.
 
-Counterpart of `lidargs_tpu/train/trainer.py` (beam variant). The step is
-eager PyTorch: the composite runs through kernels K1 and K2 on the card
-(`ops/composite_kernel.py`), the projection through its hand VJP. Densify
-and prune run between steps (`models/densify.py`).
+Counterpart of `lidargs_tpu/train/trainer.py`, for both variants. The step
+is eager PyTorch. The beam variant composites through kernels K1 and K2 on
+the card (`ops/composite_kernel.py`) and projects through its hand VJP; the
+surfel (2DGS) variant (`variant="surfel"`) composites through K5 and K6
+(`ops/surfel_kernel.py`), differentiates its preprocess with autograd and
+adds the distortion and normal-consistency regularizers, each gated on the
+step. Densify and prune run between steps (`models/densify.py`).
 
-The densification signal: a zeros "sphere proxy" [C, k, 3] is added to the
-unit-sphere means after the projection, and the norm of its gradient is
-accumulated per decoded gaussian.
+The densification signal: a zeros proxy [C, k, 3] is added to the
+unit-sphere means after the projection (beam) or to the decoded world means
+(surfel), and the norm of its gradient is accumulated per decoded gaussian.
 
 Parameters that the loss does not reach (a head the configuration does not
 use) get a zero gradient, as in the JAX package's gradient pytree, so their
@@ -23,8 +26,8 @@ import torch
 
 from ..config import ModelConfig, OptConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import AnchorField, render_field
-from .losses import LossTerms, lidar_losses
+from ..models.field import AnchorField, render_fn
+from .losses import LossTerms, lidar_losses, normal_consistency_loss
 from .optim import AdamState, adam_update, init_adam, lr_schedules, tree_leaves, tree_unflatten
 
 
@@ -67,23 +70,31 @@ class StepMetrics(NamedTuple):
 def frame_loss(params, proxy, valid, step, frame: LidarFrame, bg,
                mcfg: ModelConfig, rcfg: RasterConfig, ocfg: OptConfig,
                variant: str = "beam"):
-    """Per-frame render + 5-term loss: (total, (RenderOut, NeuralGaussians,
-    anchor_visible, LossTerms)). `proxy` is the zeros densification probe
-    added to the unit-sphere means."""
-    if variant != "beam":
-        raise NotImplementedError(
-            f"variant {variant!r}: the surfel renderer and its kernels (K5-K8) "
-            "are not ported yet")
-    out, ng, anchor_vis = render_field(params, valid, frame, mcfg, rcfg, bg,
-                                       sphere_proxy=proxy)
+    """Per-frame render + 5-term loss: (total, (RenderOut or SurfelOut,
+    NeuralGaussians, anchor_visible, LossTerms)). `proxy` is the zeros
+    densification probe added to the unit-sphere means (surfel: the world
+    means). The surfel variant adds the distortion and normal-consistency
+    terms from `ocfg.dist_from` and `ocfg.normal_from` on."""
+    out, ng, anchor_vis = render_fn(variant)(params, valid, frame, mcfg, rcfg, bg, proxy)
     lt = lidar_losses(
-        out.color, out.depth, frame.gt_image, ng.scaling, ng.mask,
+        out.color, out.depth, frame.gt_image,
+        ng.scaling[..., :2] if variant == "surfel" else ng.scaling, ng.mask,
         lambda_dssim=ocfg.lambda_dssim,
         raydrop_lambda=ocfg.raydrop_lambda,
         scale_reg=ocfg.scale_reg,
         grad_clip_x=ocfg.grad_clip_x,
         pixel_mask=frame.pixel_mask,
     )
+    if variant == "surfel":
+        # gated on the step tensor, not on a host copy of it (no sync)
+        dist_w = torch.where(step >= ocfg.dist_from, ocfg.dist_lambda, 0.0)
+        norm_w = torch.where(step >= ocfg.normal_from, ocfg.normal_lambda, 0.0)
+        hit = frame.gt_image[0]
+        if frame.pixel_mask is not None:
+            hit = hit * frame.pixel_mask
+        dist_loss = (out.distortion * hit).sum() / hit.sum().clamp_min(1.0)
+        nc_loss = normal_consistency_loss(out.normal, out.depth, frame.beams, frame.W, hit)
+        lt = lt._replace(total=lt.total + dist_w * dist_loss + norm_w * nc_loss)
     if ocfg.overflow_lambda > 0:
         # capacity-pressure regularizer: truncated instances per decoded
         # gaussian (a constant) times the mean positive opacity, so its
@@ -172,7 +183,12 @@ class Trainer:
     ocfg: OptConfig
     rcfg: RasterConfig
     bg: torch.Tensor
-    variant: str = "beam"                   # "surfel" is not ported yet
+    variant: str = "beam"                   # "beam" | "surfel"
+
+    def render(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
+        """The forward render of this trainer's variant: RenderOut (beam) or
+        SurfelOut (surfel), both with color, depth and occ."""
+        return render_fn(self.variant)(params, valid, frame, self.mcfg, self.rcfg, self.bg)[0]
 
     def step(self, state: TrainState, frame: LidarFrame, iteration: int):
         collect = self.ocfg.start_stat < iteration < self.ocfg.update_until

@@ -27,6 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
 
 
 def _nvcc() -> str:
@@ -87,3 +88,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list):
+    """(launch function `symbol`, `lidargs_cuda_error_string`) of
+    `csrc/<name>.cu`, with `argtypes` declared on the first and an int
+    result on both: every kernel library exports a launch function that
+    returns the cudaError_t of its launch, and the function that names it."""
+    key = (name, symbol)
+    if key not in _entries:
+        lib = load(name)
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.lidargs_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.lidargs_cuda_error_string.restype = ctypes.c_char_p
+        _entries[key] = (fn, lib.lidargs_cuda_error_string)
+    return _entries[key]

@@ -1,14 +1,26 @@
-"""The pair counts behind the kernels' bounds in `chip_smoke.py`, and the
-kernel A/B tool's command line.
+"""The pair counts behind the kernels' bounds in `chip_smoke.py`, a
+rehearsal of its whole run on the CPU, and the kernel A/B tool's command
+line.
 
 `walked_pairs` counts, with tensor ops over whole tiles, the pixel-instance
 pairs that K1's sequential walk visits, split into applied pairs (K2's
 backward chain runs on these alone), other pairs inside the parity rect,
-and pairs outside it. Here it is held to a walk written out pixel by pixel
+and pairs outside it, and the rows of the tiles' lists that some pixel
+visits (the rows behind the kernels' byte counts). Here it is held to a walk written out pixel by pixel
 and row by row in float32 numpy, on the instances, counts and pixel blocks
-of the JAX render path, for a sample of pixels. The counts are integers
-and must be equal.
+of the JAX render path, for a sample of pixels. `walked_surfel_pairs` does
+the same for K5's walk over surfels (split at the valid flag and the rect
+test), held to a pixel-by-pixel walk over the same per-pair alphas and pass
+flags. The counts are integers and must be equal.
+
+The rehearsal runs `chip_smoke.run` on the CPU at a tiny size, with the
+card-only helpers stubbed and each kernel wrapper replaced by its plain
+version that counts launches as the wrapper does: every phase's control
+flow, launch count check and comparison runs, and the last line is the
+contract's.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -16,23 +28,31 @@ import torch
 import chip_smoke
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops.projection import PackedCols as PC
-from lidargs_torch.utils import kernel_ab
+from lidargs_torch.ops import composite_kernel as ck
+from lidargs_torch.ops import surfel_kernel as sk
+from lidargs_torch.utils import cuda_build, kernel_ab
+from lidargs_torch.ops.surfel import SurfelCols as S
+from lidargs_torch.ops.surfel import pair_geometry
 from test_torch_composite_kernel import _kernel_inputs
+from test_torch_surfel_kernel import _surfel_inputs
 
 C = 2
 
 
 def _walk(inst, counts, pix, cfg):
-    """(applied, other in rect, out of rect) from a sequential walk."""
+    """(applied, other in rect, out of rect, rows some pixel visits) from a
+    sequential walk."""
     rc = PC.rect(C).start
-    n = [0, 0, 0]
+    n = [0, 0, 0, 0]
     f32 = np.float32
     for t in range(inst.shape[0]):
+        reach = 0                                   # rows [0, reach) visited by some pixel
         for p in range(pix.shape[2]):
             dirx, diry, dirz, px, py = pix[t, :5, p]
             T = f32(1.0)
             for k in range(int(counts[t])):
                 r = inst[t, k]
+                reach = max(reach, k + 1)
                 if not (px >= r[rc] and px < r[rc + 1] and py >= r[rc + 2] and py < r[rc + 3]):
                     n[2] += 1
                     continue
@@ -50,6 +70,7 @@ def _walk(inst, counts, pix, cfg):
                     break
                 n[0] += 1
                 T = T_next
+        n[3] += reach
     return tuple(n)
 
 
@@ -69,7 +90,63 @@ def test_walked_pairs_counts_the_sequential_walk(case):
                                   torch.from_numpy(pix), C, cfg)
     want = _walk(inst, counts, pix, cfg)
     assert got == want
-    assert want[0] > 0 and want[1] > 0 and want[2] > 0
+    assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
+
+
+def _walk_surfels(inst, counts, pix, cfg):
+    """(applied, other past the valid and rect tests, stopped by them, rows
+    some pixel visits) from a sequential walk; each pair's alpha and pass
+    flag come from `pair_geometry`, the walk, its stop rule and the split
+    are written out."""
+    rc, vf = S.rect(C).start, S.validf(C)
+    it, ip = torch.from_numpy(inst), torch.from_numpy(pix)
+    d = lambda i: ip[:, i, None, :]
+    g = pair_geometry(it, d(0), d(1), d(2), d(3), d(4), C, cfg)
+    alpha, passed = g.alpha.numpy(), g.passed.numpy()
+    f32 = np.float32
+    n = [0, 0, 0, 0]
+    for t in range(inst.shape[0]):
+        reach = 0                                   # rows [0, reach) visited by some pixel
+        for p in range(pix.shape[2]):
+            px, py = pix[t, 3, p], pix[t, 4, p]
+            T = f32(1.0)
+            for k in range(int(counts[t])):
+                r = inst[t, k]
+                reach = max(reach, k + 1)
+                if not (r[vf] > 0 and px >= r[rc] and px < r[rc + 1] and py >= r[rc + 2]
+                        and py < r[rc + 3]):
+                    n[2] += 1
+                    continue
+                if not passed[t, k, p]:
+                    n[1] += 1
+                    continue
+                T_next = T * (f32(1.0) - alpha[t, k, p])
+                if T_next < f32(cfg.transmittance_min):
+                    n[1] += 1                       # the crossing: visited, not applied
+                    break
+                n[0] += 1
+                T = T_next
+        n[3] += reach
+    return tuple(n)
+
+
+@pytest.mark.parametrize("case", [
+    dict(seed=0, n=160, H=8, W=256, tile_capacity=64),
+    # an opaque pile-up: most pixels cross the threshold and stop early
+    dict(seed=1, n=300, H=8, W=128, tile_capacity=128, scale=(2.0, 4.0), opaque=True),
+])
+def test_walked_surfel_pairs_counts_the_sequential_walk(case):
+    case = dict(case)
+    seed, n, H, W = (case.pop(k) for k in ("seed", "n", "H", "W"))
+    extra = {k: case.pop(k) for k in ("scale", "opaque") if k in case}
+    _, inst, counts, pix = _surfel_inputs(seed, n, H, W, **extra, **case)
+    pix = np.ascontiguousarray(pix[:, :, ::7])                # a sample of each tile's pixels
+    cfg = TCfg(**case)
+    got = chip_smoke.walked_surfel_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
+                                         torch.from_numpy(pix), C, cfg)
+    want = _walk_surfels(inst, counts, pix, cfg)
+    assert got == want
+    assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
 
 
 def test_kernel_ab_needs_labelled_source_trees():
@@ -77,3 +154,41 @@ def test_kernel_ab_needs_labelled_source_trees():
         kernel_ab.main([])
     with pytest.raises(SystemExit, match="LABEL=CSRC_DIR"):
         kernel_ab.main(["out", "lidargs_torch/csrc"])
+
+
+def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
+    sizes = dict(H=16, W=256, N_ANCHORS=300, N_FRAMES=3, WARMUP=1, N_STEPS=2, TRAIN_TIMED=2,
+                 MODEL=dict(anchor_capacity=512, feat_dim=8, n_offsets=2, mlp_hidden=8),
+                 RASTER=dict(tile_h=4, tile_capacity=64, max_tiles_per_gaussian=8,
+                             max_visible=2048),
+                 SURFEL_RASTER=dict(tile_h=1, tile_capacity=64, max_tiles_per_gaussian=32,
+                                    max_visible=2048),
+                 OPT=dict(start_stat=0, update_from=0, update_interval=2, update_until=10 ** 6))
+    for name, value in sizes.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, warmup: [(fn(), 1.0)[1]])
+    monkeypatch.setattr(chip_smoke, "profile_render",
+                        lambda fn, frames=3: {"frames": frames, "device_ms_per_frame": "n/a"})
+    monkeypatch.setattr(cuda_build, "build", lambda names, csrc=None: {})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+    for mod, name, counter in ((ck, "composite_tiles", "launches"),
+                               (ck, "composite_tiles_bwd", "bwd_launches"),
+                               (sk, "surfel_composite_tiles", "launches"),
+                               (sk, "surfel_composite_tiles_bwd", "bwd_launches")):
+        def counted(*a, mod=mod, plain=getattr(mod, name + "_plain"), counter=counter):
+            setattr(mod, counter, getattr(mod, counter) + 1)
+            return plain(*a)
+        monkeypatch.setattr(mod, name, counted)
+        monkeypatch.setattr(mod, counter, 0)
+    chip_smoke.run(torch.device("cpu"))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1])["ok"] is True and lines[-2] == "CPU rehearsal"
+    kernels = json.loads(lines[-3])["kernels"]
+    assert [k["name"] for k in kernels] == ["composite_fwd", "composite_bwd", "surfel_fwd",
+                                            "surfel_bwd"]
+    assert [k["launches"] for k in kernels] == [3, 2, 3, 2]
+    surfel = json.loads(lines[-4])["timing"]["surfel"]
+    assert surfel["k5_launches_train"] == surfel["k6_launches"] == 2
+    assert surfel["k5_bound"]["pairs_applied"] > 0

@@ -456,5 +456,5 @@ def test_clamp_cov_scales_and_cadence_match_jax():
         assert ttr.should_maintain(it) == jtr.should_maintain(it), it
     assert any(ttr.should_densify(10, it) for it in range(130))
     assert any(ttr.should_maintain(it) for it in range(130))
-    with pytest.raises(NotImplementedError, match="surfel"):
-        tt.frame_loss(None, None, None, None, None, None, TM(), TR(), TO(), variant="surfel")
+    with pytest.raises(ValueError, match="variant"):
+        tt.frame_loss(None, None, None, None, None, None, TM(), TR(), TO(), variant="disk")

@@ -55,7 +55,25 @@ then:
      versions;
  14. times the surfel frame and step, K5, K6 and both plain versions with
      CUDA events, computes K5's and K6's bounds from this run's inputs and
-     profiles a frame and a step.
+     profiles a frame and a step;
+ 15. renders the same frames through the fused-window gather of the beam
+     variant, `measure_fps` with `fused_gather=True` at h4/K768/cap8, with
+     the counts set to 0 just before and read just after, requiring one K3
+     launch per frame and no K1 launch; holds frame 0's fused render equal
+     bit for bit to the materialized one, and K3 equal bit for bit to K1 on
+     frame 0's rows (the same packed rows, binned both ways) and to its
+     plain version within K1's tolerance;
+ 16. trains N_STEPS fused `Trainer.step`s (one K3 and one K4 launch each, no
+     K1 or K2), densifies once, holds K4 against its plain version and
+     against K2 scattered to the windows (bit for bit, every row no tile
+     owns zero), and one step's gradients against the plain versions'
+     (GRAD_TOL) and the materialized path's (GRAD_TOL, relative norms
+     reported); times K3, K4, K1 and K2 on the same rows, the plain
+     versions, the fused and the materialized frame and step in turns, the
+     `buf` gather against the `[T, K, F]` gather and the zeroing of `dbuf`;
+     computes K3's and K4's bounds and profiles a fused frame and step;
+ 17-18. the same for the surfel variant at h1/K384/cap32: K7 against K5 and
+     K8 against K6.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -93,6 +111,13 @@ stop one instance earlier or later.
     the plain forward reproduces bit for bit. On the smoke scene the H100
     read a mean of 6.1e-9, a max of 3.2e-5 and 3 elements beyond 2e-5 over
     315,459 touched rows.
+  * K3, K7 (window forms): bit for bit equal to K1, K5 on the same rows, and
+    against their plain versions K1's and K5's bounds above.
+  * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
+    on the same inputs and every other row of dbuf exactly zero; the owned
+    rows against the plain versions' within K2_TOL. A fused step's
+    gradients against the materialized step's within GRAD_TOL (the gather's
+    backward sums each gaussian's rows in another order).
 """
 from __future__ import annotations
 
@@ -200,6 +225,27 @@ def time_ms(fn, iters: int, warmup: int) -> list:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
 
 
+def time_cold_ms(fn, iters: int = 20) -> float:
+    """Median device ms of `fn` from CUDA events around each call alone,
+    with the card's 50 MB L2 cache flushed before it (256 MB written
+    outside the timed span)."""
+    import numpy as np
+    import torch
+
+    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
+    fn()
+    ms = []
+    for _ in range(iters):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(np.median(ms))
+
+
 def bound(n_bytes: int, n_ops: int) -> dict:
     """The least time the card could take for a function that must move
     `n_bytes` and do `n_ops` FP32 operations: the larger of the two times
@@ -260,16 +306,17 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
 
 
 def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
-    """A backward kernel's dinst against the plain version's, each of its
-    first `nv` columns scaled by its largest magnitude; the columns after
-    must be zero. Fails out of `tol`."""
+    """A backward kernel's dinst ([T, K, F], or the owned rows [n, F] of a
+    window kernel's dbuf) against the plain version's, each of its first
+    `nv` columns scaled by its largest magnitude; the columns after must be
+    zero. Fails out of `tol`."""
     import torch
 
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite dinst")
     if bool((got[..., nv:] != 0).any()):
         fail(f"{name}: nonzero columns after the first {nv}")
-    scale = want[..., :nv].abs().amax(dim=(0, 1)).clamp_min(1e-30)
+    scale = want[..., :nv].flatten(0, -2).abs().amax(dim=0).clamp_min(1e-30)
     d = (got[..., :nv] - want[..., :nv]).abs() / scale
     err = {"mean": float(d.mean()), "max": float(d.max()),
            "far_count": int((d > K2_TOL["atol"]).sum()),
@@ -394,14 +441,27 @@ def plain_versions(mod, name: str):
         setattr(mod, bwd, saved[1])
 
 
+def owned_rows(starts, counts, n_rows: int):
+    """[n_rows] bool: the rows [starts[t], starts[t] + counts[t]) that some
+    tile owns in a window kernel's buffer."""
+    import torch
+
+    edge = torch.zeros(n_rows + 1, dtype=torch.int64, device=starts.device)
+    edge.index_add_(0, starts.long(), torch.ones_like(starts, dtype=torch.int64))
+    edge.index_add_(0, (starts + counts).long(), -torch.ones_like(counts, dtype=torch.int64))
+    return torch.cumsum(edge, 0)[:n_rows] > 0
+
+
 def kernel_vs_plain(mod, name: str, grads, nv: int, tol: dict, label: str):
     """One step's gradients through the kernels of a composite autograd
     function against those through its plain versions (GRAD_TOL per leaf),
     and its backward kernel `mod.<name>_bwd` against `<name>_bwd_plain` on
     the arguments that step gave it (`check_dinst`, `tol`). `grads()` runs
-    the step and returns (parameter gradients, proxy gradient). Returns the
-    captured backward arguments, the kernel's dinst, the dinst error, the
-    per-leaf gradient differences and the kernels' gradients."""
+    the step and returns (parameter gradients, proxy gradient). For a window
+    kernel (a 2-D buffer first) the rows no tile owns must be zero in the
+    kernel's dbuf, and the owned rows are compared. Returns the captured
+    backward arguments, the kernel's dinst, the dinst error, the per-leaf
+    gradient differences and the kernels' gradients."""
     import torch
 
     from lidargs_torch.train.optim import tree_leaves
@@ -428,7 +488,13 @@ def kernel_vs_plain(mod, name: str, grads, nv: int, tol: dict, label: str):
         d_k = run_bwd(*captured[0])
         d_p = getattr(mod, name + "_bwd_plain")(*captured[0])
     torch.cuda.synchronize()
-    err = check_dinst(label, d_k, d_p, nv, tol)
+    if d_k.dim() == 2:
+        own = owned_rows(*captured[0][1:3], d_k.shape[0])
+        if bool((d_k[~own] != 0).any()):
+            fail(f"{label}: a row that no tile owns is not zero")
+        err = check_dinst(label, d_k[own], d_p[own], nv, tol)
+    else:
+        err = check_dinst(label, d_k, d_p, nv, tol)
     vs_plain = grad_diff({**g_k, "proxy": pg_k}, {**g_p, "proxy": pg_p})
     for leaf, e in vs_plain.items():
         if e["norm"] == 0:
@@ -635,6 +701,10 @@ def run(dev) -> None:
     # --- 10-14. the surfel variant: render, K5 against plain, training, K6 ---
     surfel, k5, k6 = surfel_phases(dev, params, valid, mcfg, beams, frames)
 
+    # --- 15-18. the fused-window gather of both variants: K3/K4, K7/K8 ---
+    windows, k3, k4 = window_phases(dev, params, valid, mcfg, beams, frames, "beam")
+    surfel_windows, k7, k8 = window_phases(dev, params, valid, mcfg, beams, frames, "surfel")
+
     timing = {
         "card": card_csv,
         "render_ms_per_frame_median": med(render_ms),
@@ -650,6 +720,8 @@ def run(dev) -> None:
         "profile": prof,
         "train": train,
         "surfel": surfel,
+        "windows": windows,
+        "surfel_windows": surfel_windows,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
@@ -661,7 +733,7 @@ def run(dev) -> None:
             launches_train=train["k1_launches"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
-        ), k2, k5, k6],
+        ), k2, k3, k4, k5, k6, k7, k8],
     }
     print(json.dumps({"timing": timing}))
     print(json.dumps(kernels))
@@ -1007,6 +1079,281 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
         "surfel_bwd", "lidargs_torch/csrc/surfel_bwd.cu", "lidargs_tpu/ops/pallas_surfel.py:405",
         k6_launches, k6_ms, p6_ms, b6, **dinst_errors(err_k6))
     return summary, k5, k6
+
+
+def ab_ms(fns: dict, iters: int) -> dict:
+    """Per-call device ms of each of `fns` from CUDA events, timed in turns
+    (iters // 2 calls each, the order reversed on the second turn)."""
+    ms = {k: [] for k in fns}
+    for turn in range(2):
+        for k in (list(fns) if turn == 0 else list(fns)[::-1]):
+            ms[k] += time_ms(fns[k], max(iters // 2, 1), 2)
+    return ms
+
+
+def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
+    """Phases 15-16 (beam) or 17-18 (surfel): the fused-window gather at the
+    variant's CLI settings with `fused_gather=True`. Returns (summary for
+    the timing line, the entries of the forward and backward window kernels
+    for the kernels line)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lidargs_torch.config import OptConfig, RasterConfig, replace
+    from lidargs_torch.models.field import AnchorField, field_splats, field_surfels, render_fn
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import rasterize as tr
+    from lidargs_torch.ops import surfel as ts
+    from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.ops.projection import PackedCols
+    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps
+    from lidargs_torch.train.optim import tree_leaves
+
+    C = mcfg.color_channel
+    surfel = variant == "surfel"
+    mod = sk if surfel else ck
+    tiles, wins = ("surfel_composite_tiles", "surfel_composite_windows") if surfel else (
+        "composite_tiles", "composite_windows")
+    cols = ts.SurfelCols if surfel else PackedCols
+    mat = RasterConfig(**(SURFEL_RASTER if surfel else RASTER))
+    rcfg = replace(mat, fused_gather=True)
+    K = rcfg.tile_capacity
+    check_out = check_surfel if surfel else check_against
+    walked = walked_surfel_pairs if surfel else walked_pairs
+    # of each row the kernels read the columns before the valid flag but
+    # DEPTH (surfel), or up to the rect's end (beam); the backward reads
+    # rows 0..C+8 (surfel) or 0..C+1 (beam) of res and g
+    read_cols, res_rows = (cols.validf(C), C + 9) if surfel else (cols.rect(C).stop, C + 2)
+    nv = 16 + C if surfel else 14 + C
+    bg = torch.zeros(2, device=dev)
+    med = lambda xs: float(np.median(xs))
+    k_f, k_b = ("K7", "K8") if surfel else ("K3", "K4")
+    k_tf, k_tb = ("K5", "K6") if surfel else ("K1", "K2")
+
+    def counts_now():
+        return (mod.launches, mod.bwd_launches, mod.windows_launches, mod.windows_bwd_launches)
+
+    def zero_counts():
+        mod.launches = mod.bwd_launches = mod.windows_launches = mod.windows_bwd_launches = 0
+
+    # --- 15/17. the main path: frames through measure_fps, fused ---
+    with torch.no_grad():
+        zero_counts()
+        res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev,
+                          variant=variant)
+        render_counts = counts_now()
+    if render_counts[2] != N_FRAMES or render_counts[0] != 0:
+        fail(f"{N_FRAMES} fused {variant} frames launched {k_f} {render_counts[2]} and "
+             f"{k_tf} {render_counts[0]} times")
+    names = ("color", "depth", "occ") + (("normal", "median_depth", "distortion") if surfel
+                                         else ())
+    for i, out in enumerate(res.outputs):
+        if tuple(out.color.shape) != (C, H, W) or tuple(out.depth.shape) != (H, W):
+            fail(f"fused {variant} frame {i}: shapes {tuple(out.color.shape)}, "
+                 f"{tuple(out.depth.shape)}")
+        for name in names:
+            if not bool(torch.isfinite(getattr(out, name)).all()):
+                fail(f"fused {variant} frame {i}: non-finite {name}")
+    occ = [float(o.occ.mean()) for o in res.outputs]
+    if not min(occ) > 0.0:
+        fail(f"empty fused {variant} render: mean occupancy per frame {occ}")
+    main_path = {"frames": N_FRAMES, "fps_host_clock": res.fps, "mean_occ": occ,
+                 "n_overflow": [int(o.n_overflow) for o in res.outputs]}
+    print(f"# fused {variant} main path: {json.dumps(main_path)}", file=sys.stderr)
+
+    # frame 0: the fused render against the materialized one, and the window
+    # kernel against the tile kernel and its plain version on its inputs
+    frame = frames[0]
+    render = lambda cfg: render_fn(variant)(params, valid, frame, mcfg, cfg, bg)[0]
+    with torch.no_grad():
+        fused, plain = render(rcfg), render(mat)
+        for name in names:
+            if not torch.equal(getattr(fused, name), getattr(plain, name)):
+                fail(f"fused {variant} frame 0: {name} differs from the materialized render")
+        if int(fused.n_overflow) != int(plain.n_overflow):
+            fail(f"fused {variant}: overflow {int(fused.n_overflow)} != {int(plain.n_overflow)}")
+        if surfel:
+            pkv, _ = ts.cull_sorted_surfels(field_surfels(params, valid, frame, mcfg, rcfg)[0],
+                                            rcfg, C)
+            inst, counts, pix, _ = ts.surfel_tile_inputs(pkv, frame.beams, W, rcfg, C)
+        else:
+            pkv, _ = tr.cull_sorted_rows(field_splats(params, valid, frame, mcfg, rcfg)[0], rcfg)
+            inst, counts, pix, _ = tr.tile_inputs(pkv, frame.beams, W, rcfg, C)
+        buf, starts, wcounts, wpix, _ = tr.window_inputs(pkv, frame.beams, W, rcfg, C, cols)
+        if not (torch.equal(counts, wcounts) and torch.equal(pix, wpix)):
+            fail(f"fused {variant}: window counts or pixel blocks differ from the tiles'")
+        out_w = getattr(mod, wins)(buf, starts, counts, pix, C, rcfg)
+        out_t = getattr(mod, tiles)(inst, counts, pix, C, rcfg)
+        out_p = getattr(mod, wins + "_plain")(buf, starts, counts, pix, C, rcfg)
+    torch.cuda.synchronize()
+    if not torch.equal(out_w, out_t):
+        fail(f"{k_f} differs from {k_tf} on the same rows "
+             f"(max |d| {float((out_w - out_t).abs().max()):.3e})")
+    err_f = check_out(f"{k_f} vs plain (fused frame 0 inputs)", out_w, out_p, C)
+
+    # --- 16/18. training: N_STEPS fused steps, one densify ---
+    extra = dict(dist_from=0, normal_from=0) if surfel else {}
+    ocfg = OptConfig(**OPT, **extra)
+    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, variant=variant)
+    tframes = train_frames(dev, beams)
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+    state, losses = state0, []
+    zero_counts()
+    for it in range(1, N_STEPS + 1):
+        state, m = trainer.step(state, tframes[it - 1], it)
+        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    train_counts = counts_now()
+    if train_counts != (0, 0, N_STEPS, N_STEPS):
+        fail(f"{N_STEPS} fused {variant} steps launched {k_tf}, {k_tb}, {k_f}, {k_b} "
+             f"{train_counts} times")
+    if not all(np.isfinite(list(l.values())).all() for l in losses):
+        fail(f"non-finite fused {variant} loss terms: {losses}")
+    moved = 0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(state0.params)):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"non-finite parameters after fused {variant} training")
+        moved += int((a != b).sum())
+    if moved == 0:
+        fail(f"fused {variant} training left every parameter as it was")
+    n_before = int(state.valid.sum())
+    dense, dstats = trainer.densify(state, torch.Generator(device=dev).manual_seed(0), VOXEL)
+    densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
+               "n_pruned": int(dstats.n_pruned), "n_anchors_after": int(dense.valid.sum())}
+    if densify["n_anchors_after"] != n_before + densify["n_grown"] - densify["n_pruned"]:
+        fail(f"fused {variant} densify: anchor count does not add up: {densify}")
+    print(f"# fused {variant} train: losses {losses}; densify {densify}", file=sys.stderr)
+
+    # the backward window kernel against its plain version and against the
+    # tile kernel scattered to the windows; one step's gradients against the
+    # plain versions' and the materialized path's
+    tframe = tframes[0]
+    grads = lambda cfg=rcfg: loss_and_grads(state, tframe, bg, mcfg, cfg, ocfg, variant)[1:]
+    bwd_args, d_k, err_b, vs_plain, g_f = kernel_vs_plain(mod, wins, grads, nv, K2_TOL, k_b)
+    b_buf, b_starts, b_counts, b_pix, b_res, b_g = bwd_args[:6]
+    with torch.no_grad():
+        b_inst = ck.window_rows(b_buf, b_starts, K).contiguous()
+        if not torch.equal(getattr(mod, tiles)(b_inst, b_counts, b_pix, C, rcfg), b_res):
+            fail(f"{k_f} differs from {k_tf} on one step's rows")
+        d_t = getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res, b_g, C, rcfg)
+        if not torch.equal(d_k, ck.scatter_windows(d_t, b_starts, b_counts, b_buf.shape[0])):
+            fail(f"{k_b} differs from {k_tb} scattered to the windows")
+        if surfel:
+            med_p = sk.surfel_composite_windows_plain(*bwd_args[:4], C, rcfg)[:, C + 5]
+            err_b["median_bit_equal_frac"] = float((med_p == b_res[:, C + 5]).float().mean())
+            if bool((d_k[:, ts.SurfelCols.DEPTH] != 0).any()):
+                fail(f"{k_b}: nonzero DEPTH column")
+    g_m, pg_m = grads(mat)
+    vs_mat = grad_diff(g_f, {**g_m, "proxy": pg_m})
+    for leaf, e in vs_mat.items():
+        if e["norm"] > 0 and not (e["rel_norm"] <= GRAD_TOL["rel_norm"]
+                                  and e["cos"] >= GRAD_TOL["cos"]):
+            fail(f"gradient of {leaf}, fused vs materialized {variant}: {e}")
+    print(f"# fused {variant} grads vs materialized: {vs_mat}", file=sys.stderr)
+
+    # --- timing: kernels, plain versions, frames and steps beside the
+    # materialized ones; the buf gather and the dbuf zeroing; profiles ---
+    with torch.no_grad():
+        f_ms, pf_ms = time_vs_plain(getattr(mod, wins), getattr(mod, wins + "_plain"),
+                                    (buf, starts, counts, pix, C, rcfg))
+        t_ms = med(time_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg), 50, 5))
+        # the same pair with the L2 cache flushed before each call: the tile
+        # list may fit the 50 MB L2 where the windows' stretch of buf does not
+        cold = {k_f: time_cold_ms(lambda: getattr(mod, wins)(buf, starts, counts, pix, C, rcfg)),
+                k_tf: time_cold_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg))}
+        render_ms = ab_ms({"fused": lambda: render(rcfg), "materialized": lambda: render(mat)},
+                          30)
+        gy, gx = rcfg.grid_shape(H, W)
+        V = pkv.shape[0]
+        bin_args = (pkv[:, cols.rect(C)].to(torch.int32), pkv[:, cols.center(C)],
+                    pkv[:, cols.validf(C)] > 0.0, rcfg, gx, gy)
+        gid = tr.bin_instances_windows(*bin_args)[0]
+        ids = tr.bin_instances(*bin_args)[0].reshape(-1)
+        gathers = {
+            "buf_gather_ms": med(time_ms(lambda: F.pad(pkv[gid.clamp(0, V - 1)], (0, 0, 0, K)),
+                                         20, 2)),
+            "inst_gather_ms": med(time_ms(lambda: pkv[ids.clamp(0, V - 1)], 20, 2)),
+            "dbuf_zero_ms": med(time_ms(lambda: torch.zeros_like(buf), 20, 2)),
+            "buf_mb": buf.numel() * 4 / 1e6, "inst_mb": inst.numel() * 4 / 1e6,
+        }
+        prof_r = profile_render(lambda: render(rcfg))
+        a_f, o_f, x_f, r_f = walked(ck.window_rows(buf, starts, K), counts, pix, C, rcfg)
+    b_ms, pb_ms = time_vs_plain(getattr(mod, wins + "_bwd"), getattr(mod, wins + "_bwd_plain"),
+                                bwd_args)
+    tb_ms = med(time_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res,
+                                                              b_g, C, rcfg), 50, 5))
+    cold[k_b] = time_cold_ms(lambda: getattr(mod, wins + "_bwd")(*bwd_args))
+    cold[k_tb] = time_cold_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix,
+                                                                   b_res, b_g, C, rcfg))
+    trainer_m = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=mat, bg=bg, variant=variant)
+    held = {"fused": [state], "materialized": [state]}
+
+    def step_with(tr_, key):
+        def one_step():
+            held[key][0], _ = tr_.step(held[key][0], tframe, 1)
+        return one_step
+
+    step_ms = ab_ms({"fused": step_with(trainer, "fused"),
+                     "materialized": step_with(trainer_m, "materialized")}, TRAIN_TIMED)
+    prof_s = profile_render(step_with(trainer, "fused"), frames=3)
+    a_b, o_b, x_b, r_b = walked(b_inst, b_counts, b_pix, C, rcfg)
+    T, _, npix = pix.shape
+    if surfel:
+        ops_f = ((OPS_S_IN_RECT + OPS_S_FWD_APPLIED + 2 * C) * a_f + OPS_S_IN_RECT * o_f
+                 + OPS_S_OUT_RECT * x_f)
+        ops_b = (OPS_S_BWD_APPLIED + 4 * C) * a_b + OPS_S_IN_RECT * o_b + OPS_S_OUT_RECT * x_b
+    else:
+        ops_f = OPS_IN_RECT * (a_f + o_f) + OPS_OUT_RECT * x_f
+        ops_b = (OPS_APPLIED_BWD + 14 + C) * a_b + OPS_IN_RECT * o_b + OPS_OUT_RECT * x_b
+    # each kernel reads the rows some pixel's walk reaches and writes its
+    # output once: K3/K7 the [T, rows, NPIX] image, K4/K8 the owned rows
+    b_f = bound(tile_bytes(counts, r_f, read_cols, pix, out_w.numel()), ops_f)
+    b_f.update(pairs_applied=a_f, pairs_in_rect_other=o_f, pairs_out_rect=x_f, rows=r_f)
+    b_b = bound(tile_bytes(b_counts, r_b, read_cols, b_pix, 2 * T * res_rows * npix,
+                           int(b_counts.sum()) * b_buf.shape[1]), ops_b)
+    b_b.update(pairs_applied=a_b, pairs_in_rect_other=o_b, pairs_out_rect=x_b, rows=r_b)
+    summary = {
+        "raster": {**(SURFEL_RASTER if surfel else RASTER), "fused_gather": True},
+        "main_path": main_path, "render_launches": dict(zip((k_tf, k_tb, k_f, k_b),
+                                                            render_counts)),
+        "train_launches": dict(zip((k_tf, k_tb, k_f, k_b), train_counts)),
+        "buf_rows": b_buf.shape[0], **gathers,
+        "render_ms_median": {k: med(v) for k, v in render_ms.items()},
+        "render_ms_min_max": {k: [min(v), max(v)] for k, v in render_ms.items()},
+        "step_ms_median": {k: med(v) for k, v in step_ms.items()},
+        "step_ms_min_max": {k: [min(v), max(v)] for k, v in step_ms.items()},
+        f"{k_f}_ms_median": f_ms, f"{k_tf}_ms_median_same_rows": t_ms,
+        f"{k_b}_ms_median": b_ms, f"{k_tb}_ms_median_same_rows": tb_ms,
+        "plain_fwd_ms_median": pf_ms, "plain_bwd_ms_median": pb_ms, "cold_l2_ms_median": cold,
+        f"{k_f}_bound": b_f, f"{k_b}_bound": b_b, f"{k_f}_err": err_f, f"{k_b}_err": err_b,
+        "loss_first": losses[0], "loss_last": losses[-1], "densify": densify,
+        "grad_vs_plain_worst": max(vs_plain.items(), key=lambda kv: kv[1]["rel_norm"]),
+        "grad_vs_materialized_worst": max(vs_mat.items(), key=lambda kv: kv[1]["rel_norm"]),
+        "render_profile": profile_summary(prof_r), "render_top": prof_r.get("top", [])[:6],
+        "step_profile": profile_summary(prof_s), "step_top": prof_s.get("top", [])[:8],
+    }
+    for key, prof, ms in (("render", prof_r, render_ms["fused"]),
+                          ("step", prof_s, step_ms["fused"])):
+        if isinstance(prof["device_ms_per_frame"], float):
+            summary[f"{key}_device_busy_share"] = prof["device_ms_per_frame"] / med(ms)
+            summary[f"{key}_gather_share"] = gathers["buf_gather_ms"] / prof["device_ms_per_frame"]
+    summary["step_dbuf_zero_share"] = (gathers["dbuf_zero_ms"] / prof_s["device_ms_per_frame"]
+                                       if isinstance(prof_s["device_ms_per_frame"], float)
+                                       else "not measured")
+    src = "lidargs_torch/csrc/" + ("surfel" if surfel else "composite")
+    tpu = "lidargs_tpu/ops/pallas_" + ("surfel.py:" if surfel else "composite.py:")
+    e_f = kernel_entry(
+        ("surfel" if surfel else "composite") + "_fwd_windows", src + "_fwd.cu",
+        tpu + ("192" if surfel else "325"), render_counts[2], f_ms, pf_ms, b_f,
+        launches_train=train_counts[2],
+        max_abs_err=max(v for k, v in err_f.items() if k.endswith("_max")),
+        mean_abs_err={"feat": err_f["feat_mean"], "depth": err_f["depth_mean"]},
+        bit_equal_to=k_tf)
+    e_b = kernel_entry(
+        ("surfel" if surfel else "composite") + "_bwd_windows", src + "_bwd.cu",
+        tpu + ("418" if surfel else "385"), train_counts[3], b_ms, pb_ms, b_b,
+        **dinst_errors(err_b), bit_equal_to=f"{k_tb} on the owned rows")
+    return summary, e_f, e_b
 
 
 if __name__ == "__main__":

@@ -56,7 +56,7 @@ class RasterConfig:
     # counts the instances beyond it into n_overflow
     instance_capacity: int = 0
     # per-tile windows of one sorted buffer instead of the [T, K, F]
-    # gather; arrives with its kernels, so it must stay False for now
+    # gather: kernels K3/K4 (beam), K7/K8 (surfel) for K1/K2, K5/K6
     fused_gather: bool = False
     # training-only projection knobs, read once the backward is ported
     remat_projection: bool = False

@@ -1,6 +1,6 @@
-// Backward range-view composite (kernel K2) for Hopper (sm_90a).
+// Backward range-view composite (kernels K2 and K4) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_bwd_kernel` / `_bwd_tile` of
+// K2 replaces the TPU kernel `_bwd_kernel` / `_bwd_tile` of
 // lidargs_tpu/ops/pallas_composite.py (reached through `_bwd_call` and the
 // custom VJP of `composite_tiles_pallas`). Same function, the VJP of K1
 // (composite_fwd.cu):
@@ -48,6 +48,23 @@
 //     element. Every run gives the same bits, as the TPU kernel does;
 //   * the block leaves once every pixel is done (__syncthreads_or), and
 //     writes zeros on the rows it never reached.
+//
+// K4, the window form (`lidargs_composite_bwd_windows`), replaces the TPU
+// kernel `_bwd_kernel_fused` (reached through `_fused_bwd_call`, then
+// `mask_unwritten_rows`, in the custom VJP of `composite_windows_pallas`).
+// It is K2's body reading tile t's rows from buf + starts[t] * F (as K3) and
+// writing their gradients to dbuf + starts[t] * F. The TPU kernel copies a
+// whole [K, F] block to each window; neighbouring windows overlap in their
+// [count, K) tails, and the TPU's grid runs its tiles one at a time in
+// ascending order, so a later tile's rows overwrite an earlier tile's zero
+// tail. Blocks run at once here, so that copy would race. The rule instead:
+// the caller zeroes dbuf, and block t writes only the rows it owns,
+// [starts[t], starts[t] + count) (gradients, and zeros on the owned rows no
+// pixel reached), and nothing in [count, K). Owned ranges are disjoint,
+// since starts[t+1] >= starts[t] + count, so there are no atomics, every run
+// gives the same bits, and each owned row equals K2's row on the same
+// inputs. Every other row stays zero: that is the TPU's dbuf after
+// `mask_unwritten_rows`.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -64,9 +81,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int C>
+// kWindows: tile t's rows (and their gradients) start at row starts[t] of
+// inst (dinst), and only its [0, count) rows are written (K4); else at row
+// t * K, all K written (K2; starts is not read).
+template <int C, bool kWindows>
 __global__ void __launch_bounds__(1024) composite_bwd_kernel(
-    const float* __restrict__ inst, const int* __restrict__ counts,
+    const float* __restrict__ inst, const int* __restrict__ starts,
+    const int* __restrict__ counts,
     const float* __restrict__ pix, const float* __restrict__ res,
     const float* __restrict__ g, float* __restrict__ dinst, int K, int F, int npix,
     float alpha_min, float alpha_clamp, float t_min) {
@@ -103,8 +124,9 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
   }
 
   const int count = min(max(counts[t], 0), K);
-  const float* ti = inst + (size_t)t * K * F;
-  float* to = dinst + (size_t)t * K * F;
+  const size_t row0 = kWindows ? (size_t)starts[t] * F : (size_t)t * K * F;
+  const float* ti = inst + row0;
+  float* to = dinst + row0;
   float T = 1.f;
   float acc_w = 0.f;                  // running sum of w * direct
   bool done = !in;
@@ -194,24 +216,54 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
     if (!__syncthreads_or(!done)) break;   // every pixel has crossed
   }
 
-  for (size_t i = (size_t)reached * F + p; i < (size_t)K * F; i += blockDim.x) to[i] = 0.f;
+  const int owned = kWindows ? count : K;   // K4 writes nothing in [count, K)
+  for (size_t i = (size_t)reached * F + p; i < (size_t)owned * F; i += blockDim.x) to[i] = 0.f;
 }
 
-template <int C>
-cudaError_t launch(const float* inst, const int* counts, const float* pix, const float* res,
-                   const float* g, float* dinst, int T, int K, int F, int npix,
-                   float alpha_min, float alpha_clamp, float t_min, cudaStream_t stream) {
+template <int C, bool kWindows>
+cudaError_t launch_as(const float* inst, const int* starts, const int* counts,
+                      const float* pix, const float* res, const float* g, float* dinst, int T,
+                      int K, int F, int npix, float alpha_min, float alpha_clamp, float t_min,
+                      cudaStream_t stream) {
   const int threads = (npix + 31) / 32 * 32;
   const size_t smem =
       ((size_t)kRows * F + (size_t)(threads / 32) * kRows * (kFeat0 + C)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel<C, kWindows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  composite_bwd_kernel<C><<<T, threads, smem, stream>>>(inst, counts, pix, res, g, dinst, K,
-                                                         F, npix, alpha_min, alpha_clamp,
-                                                         t_min);
+  composite_bwd_kernel<C, kWindows><<<T, threads, smem, stream>>>(
+      inst, starts, counts, pix, res, g, dinst, K, F, npix, alpha_min, alpha_clamp, t_min);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch(const float* inst, const int* starts, const int* counts, const float* pix,
+                   const float* res, const float* g, float* dinst, int T, int K, int F,
+                   int npix, float alpha_min, float alpha_clamp, float t_min,
+                   cudaStream_t stream) {
+  return starts ? launch_as<C, true>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
+                                     alpha_min, alpha_clamp, t_min, stream)
+                : launch_as<C, false>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
+                                      alpha_min, alpha_clamp, t_min, stream);
+}
+
+// K2 where starts is null, K4 otherwise.
+int dispatch(const float* inst, const int* starts, const int* counts, const float* pix,
+             const float* res, const float* g, float* dinst, int T, int K, int F, int npix,
+             int C, float alpha_min, float alpha_clamp, float t_min, void* stream) {
+  if (T <= 0) return 0;
+  if (npix <= 0 || npix > 1024 || F < kFeat0 + C + 4 || C < 1 || C > kMaxC)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)launch<1>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 2: return (int)launch<2>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 3: return (int)launch<3>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 4: return (int)launch<4>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 5: return (int)launch<5>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    default: return (int)launch<6>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+  }
 }
 
 }  // namespace
@@ -224,18 +276,22 @@ int lidargs_composite_bwd(const float* inst, const int* counts, const float* pix
                           const float* res, const float* g, float* dinst, int T, int K,
                           int F, int npix, int C, float alpha_min, float alpha_clamp,
                           float t_min, void* stream) {
-  if (T <= 0) return 0;
-  if (npix <= 0 || npix > 1024 || F < kFeat0 + C + 4 || C < 1 || C > kMaxC)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)launch<1>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 2: return (int)launch<2>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 3: return (int)launch<3>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 4: return (int)launch<4>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 5: return (int)launch<5>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    default: return (int)launch<6>(inst, counts, pix, res, g, dinst, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-  }
+  return dispatch(inst, nullptr, counts, pix, res, g, dinst, T, K, F, npix, C, alpha_min,
+                  alpha_clamp, t_min, stream);
+}
+
+// Launches K4 on `stream`: the VJP of K3, writing the gradient of each
+// tile's rows [starts[t], starts[t] + min(counts[t], K)) into dbuf [E, F],
+// which the caller has zeroed, and no other row. The caller has checked
+// shapes, types, contiguity and the device, and that every window lies
+// inside buf.
+int lidargs_composite_bwd_windows(const float* buf, const int* starts, const int* counts,
+                                  const float* pix, const float* res, const float* g,
+                                  float* dbuf, int T, int K, int F, int npix, int C,
+                                  float alpha_min, float alpha_clamp, float t_min,
+                                  void* stream) {
+  return dispatch(buf, starts, counts, pix, res, g, dbuf, T, K, F, npix, C, alpha_min,
+                  alpha_clamp, t_min, stream);
 }
 
 const char* lidargs_cuda_error_string(int err) {

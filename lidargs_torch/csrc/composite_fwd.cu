@@ -1,6 +1,6 @@
-// Forward range-view composite (kernel K1) for Hopper (sm_90a).
+// Forward range-view composite (kernels K1 and K3) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_fwd_kernel` of lidargs_tpu/ops/pallas_composite.py
+// K1 replaces the TPU kernel `_fwd_kernel` of lidargs_tpu/ops/pallas_composite.py
 // (reached through `_fwd_call` and `composite_tiles_pallas`). Same function:
 //
 //   in   inst   [T, K, F] f32  depth-ordered packed instances per tile
@@ -40,6 +40,17 @@
 // The TPU kernel's Hillis-Steele prefix over sublanes served the TPU's
 // layout and is not carried over: a thread multiplies T sequentially, as the
 // reference CUDA rasterizer does.
+//
+// K3, the window form (`lidargs_composite_fwd_windows`), replaces the TPU
+// kernel `_fwd_kernel_fused` (reached through `_fused_fwd_call` and
+// `composite_windows_pallas`). It is K1's body with one change: tile t reads
+// its rows from buf + starts[t] * F, a window of one dense depth-sorted
+// buffer [E + K, F] (K zero rows of padding, so no window runs off its end),
+// instead of inst + t * K * F. Both forms are instances of one template, so
+// K3 gives K1's bits on the same rows. The TPU kernel's double-buffered
+// window DMA and its feature padding to 128 lanes served the TPU and are not
+// carried over: the block stages its window's first `count` rows through
+// shared memory as K1 stages its tile's.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -50,9 +61,12 @@ namespace {
 
 constexpr int kChunk = 64;     // instance rows staged per shared-memory chunk
 
-template <int C>
+// kWindows: tile t's rows start at inst + starts[t] * F (K3), else at
+// inst + t * K * F (K1; starts is not read).
+template <int C, bool kWindows>
 __global__ void __launch_bounds__(1024) composite_fwd_kernel(
-    const float* __restrict__ inst, const int* __restrict__ counts,
+    const float* __restrict__ inst, const int* __restrict__ starts,
+    const int* __restrict__ counts,
     const float* __restrict__ pix, float* __restrict__ out, int K, int F, int npix,
     float alpha_min, float alpha_clamp, float t_min) {
   extern __shared__ float rows[];   // [kChunk][F]
@@ -64,7 +78,7 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
   const float dirx = tp[p], diry = tp[npix + p], dirz = tp[2 * npix + p];
   const float px = tp[3 * npix + p], py = tp[4 * npix + p];
   const int count = min(max(counts[t], 0), K);
-  const float* ti = inst + (size_t)t * K * F;
+  const float* ti = inst + (kWindows ? (size_t)starts[t] * F : (size_t)t * K * F);
 
   float T = 1.f, dep = 0.f;
   float acc[C];
@@ -112,13 +126,35 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
 }
 
 template <int C>
-cudaError_t launch(const float* inst, const int* counts, const float* pix, float* out,
-                   int T, int K, int F, int npix, float alpha_min, float alpha_clamp,
-                   float t_min, cudaStream_t stream) {
+cudaError_t launch(const float* inst, const int* starts, const int* counts, const float* pix,
+                   float* out, int T, int K, int F, int npix, float alpha_min,
+                   float alpha_clamp, float t_min, cudaStream_t stream) {
   const size_t smem = (size_t)kChunk * F * sizeof(float);
-  composite_fwd_kernel<C><<<T, npix, smem, stream>>>(inst, counts, pix, out, K, F, npix,
-                                                      alpha_min, alpha_clamp, t_min);
+  if (starts)
+    composite_fwd_kernel<C, true><<<T, npix, smem, stream>>>(
+        inst, starts, counts, pix, out, K, F, npix, alpha_min, alpha_clamp, t_min);
+  else
+    composite_fwd_kernel<C, false><<<T, npix, smem, stream>>>(
+        inst, starts, counts, pix, out, K, F, npix, alpha_min, alpha_clamp, t_min);
   return cudaGetLastError();
+}
+
+// K1 where starts is null, K3 otherwise.
+int dispatch(const float* inst, const int* starts, const int* counts, const float* pix,
+             float* out, int T, int K, int F, int npix, int C, float alpha_min,
+             float alpha_clamp, float t_min, void* stream) {
+  if (T <= 0) return 0;
+  if (npix <= 0 || npix > 1024 || F < kFeat0 + C + 4 || C < 1 || C > kMaxC)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)launch<1>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 2: return (int)launch<2>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 3: return (int)launch<3>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 4: return (int)launch<4>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    case 5: return (int)launch<5>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+    default: return (int)launch<6>(inst, starts, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
+  }
 }
 
 }  // namespace
@@ -131,18 +167,19 @@ int lidargs_composite_fwd(const float* inst, const int* counts, const float* pix
                           float* out, int T, int K, int F, int npix, int C,
                           float alpha_min, float alpha_clamp, float t_min,
                           void* stream) {
-  if (T <= 0) return 0;
-  if (npix <= 0 || npix > 1024 || F < kFeat0 + C + 4 || C < 1 || C > kMaxC)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)launch<1>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 2: return (int)launch<2>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 3: return (int)launch<3>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 4: return (int)launch<4>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    case 5: return (int)launch<5>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-    default: return (int)launch<6>(inst, counts, pix, out, T, K, F, npix, alpha_min, alpha_clamp, t_min, s);
-  }
+  return dispatch(inst, nullptr, counts, pix, out, T, K, F, npix, C, alpha_min, alpha_clamp,
+                  t_min, stream);
+}
+
+// Launches K3 on `stream`: tile t composites rows [starts[t], starts[t] +
+// min(counts[t], K)) of buf [E, F]. The caller has checked shapes, types,
+// contiguity and the device, and that every window lies inside buf.
+int lidargs_composite_fwd_windows(const float* buf, const int* starts, const int* counts,
+                                  const float* pix, float* out, int T, int K, int F,
+                                  int npix, int C, float alpha_min, float alpha_clamp,
+                                  float t_min, void* stream) {
+  return dispatch(buf, starts, counts, pix, out, T, K, F, npix, C, alpha_min, alpha_clamp,
+                  t_min, stream);
 }
 
 const char* lidargs_cuda_error_string(int err) {

@@ -1,6 +1,6 @@
-// Backward surfel (2DGS) composite (kernel K6) for Hopper (sm_90a).
+// Backward surfel (2DGS) composite (kernels K6 and K8) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_bwd_kernel` / `_bwd_tile` of
+// K6 replaces the TPU kernel `_bwd_kernel` / `_bwd_tile` of
 // lidargs_tpu/ops/pallas_surfel.py (reached through `_bwd_call` and the
 // custom VJP of its `surfel_composite_tiles`). Same function, the VJP of K5
 // (surfel_fwd.cu):
@@ -58,6 +58,18 @@
 //     element, so every run gives the same bits, as the TPU kernel does;
 //   * the block leaves once every pixel is done (__syncthreads_or), and
 //     writes zeros on the rows it never reached.
+//
+// K8, the window form (`lidargs_surfel_bwd_windows`), replaces the TPU
+// kernel `_bwd_kernel_fused` of pallas_surfel.py (reached through its
+// `_fused_bwd_call`, then `mask_unwritten_rows`, in the custom VJP of
+// `surfel_composite_windows`). It is K6's body reading tile t's rows from
+// buf + starts[t] * F and writing their gradients to dbuf + starts[t] * F,
+// under K4's write rule (composite_bwd.cu): the caller zeroes dbuf, block t
+// writes only its owned rows [starts[t], starts[t] + count) and nothing in
+// [count, K), so the TPU's in-order overwrite of overlapping window tails
+// needs no counterpart, no row is written twice, and each owned row equals
+// K6's row on the same inputs. It replays K5's walk through the same
+// surfel_common.cuh, so the median's cotangent finds the same row.
 #include <cuda_runtime.h>
 
 #include "surfel_common.cuh"
@@ -74,9 +86,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int C>
+// kWindows: tile t's rows (and their gradients) start at row starts[t] of
+// inst (dinst), and only its [0, count) rows are written (K8); else at row
+// t * K, all K written (K6; starts is not read).
+template <int C, bool kWindows>
 __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
-    const float* __restrict__ inst, const int* __restrict__ counts,
+    const float* __restrict__ inst, const int* __restrict__ starts,
+    const int* __restrict__ counts,
     const float* __restrict__ pix, const float* __restrict__ res,
     const float* __restrict__ g, float* __restrict__ dinst, int K, int F, int npix,
     SurfelConsts kc) {
@@ -132,8 +148,9 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
   const float w_tot = 1.f - t_fin;
 
   const int count = min(max(counts[t], 0), K);
-  const float* ti = inst + (size_t)t * K * F;
-  float* to = dinst + (size_t)t * K * F;
+  const size_t row0 = kWindows ? (size_t)starts[t] * F : (size_t)t * K * F;
+  const float* ti = inst + row0;
+  float* to = dinst + row0;
   float T = 1.f;
   float acc_w = 0.f;                    // running sum of w * direct
   float am1 = 0.f, am2 = 0.f;           // running sums of w m, w m^2
@@ -260,23 +277,53 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
     if (!__syncthreads_or(!done)) break;   // every pixel has crossed
   }
 
-  for (size_t i = (size_t)reached * F + p; i < (size_t)K * F; i += blockDim.x) to[i] = 0.f;
+  const int owned = kWindows ? count : K;   // K8 writes nothing in [count, K)
+  for (size_t i = (size_t)reached * F + p; i < (size_t)owned * F; i += blockDim.x) to[i] = 0.f;
 }
 
-template <int C>
-cudaError_t launch(const float* inst, const int* counts, const float* pix, const float* res,
-                   const float* g, float* dinst, int T, int K, int F, int npix,
-                   const SurfelConsts& kc, cudaStream_t stream) {
+template <int C, bool kWindows>
+cudaError_t launch_as(const float* inst, const int* starts, const int* counts,
+                      const float* pix, const float* res, const float* g, float* dinst, int T,
+                      int K, int F, int npix, const SurfelConsts& kc, cudaStream_t stream) {
   const int threads = (npix + 31) / 32 * 32;
   const size_t smem =
       ((size_t)kRows * F + (size_t)(threads / 32) * kRows * (kSFeat0 + C + 2)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(surfel_bwd_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(surfel_bwd_kernel<C, kWindows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  surfel_bwd_kernel<C><<<T, threads, smem, stream>>>(inst, counts, pix, res, g, dinst, K, F,
-                                                      npix, kc);
+  surfel_bwd_kernel<C, kWindows><<<T, threads, smem, stream>>>(
+      inst, starts, counts, pix, res, g, dinst, K, F, npix, kc);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch(const float* inst, const int* starts, const int* counts, const float* pix,
+                   const float* res, const float* g, float* dinst, int T, int K, int F,
+                   int npix, const SurfelConsts& kc, cudaStream_t stream) {
+  return starts ? launch_as<C, true>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
+                                     kc, stream)
+                : launch_as<C, false>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
+                                      kc, stream);
+}
+
+// K6 where starts is null, K8 otherwise.
+int dispatch(const float* inst, const int* starts, const int* counts, const float* pix,
+             const float* res, const float* g, float* dinst, int T, int K, int F, int npix,
+             int C, const SurfelConsts& kc, void* stream) {
+  if (T <= 0) return 0;
+  if (npix <= 0 || npix > 1024 || F < kSFeat0 + C + 7 || C < 1 || C > kSurfelMaxC)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)launch<1>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    case 2: return (int)launch<2>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    case 3: return (int)launch<3>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    case 4: return (int)launch<4>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    case 5: return (int)launch<5>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    case 6: return (int)launch<6>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+    default: return (int)launch<7>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
+  }
 }
 
 }  // namespace
@@ -290,21 +337,25 @@ int lidargs_surfel_bwd(const float* inst, const int* counts, const float* pix,
                        int npix, int C, float alpha_min, float alpha_clamp, float t_min,
                        float near, float fis, float m_scale, float m_dscale,
                        float depth_floor, void* stream) {
-  if (T <= 0) return 0;
-  if (npix <= 0 || npix > 1024 || F < kSFeat0 + C + 7 || C < 1 || C > kSurfelMaxC)
-    return (int)cudaErrorInvalidValue;
   const SurfelConsts kc{alpha_min, alpha_clamp, t_min, near, fis, m_scale, m_dscale,
                         depth_floor};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)launch<1>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    case 2: return (int)launch<2>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    case 3: return (int)launch<3>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    case 4: return (int)launch<4>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    case 5: return (int)launch<5>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    case 6: return (int)launch<6>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-    default: return (int)launch<7>(inst, counts, pix, res, g, dinst, T, K, F, npix, kc, s);
-  }
+  return dispatch(inst, nullptr, counts, pix, res, g, dinst, T, K, F, npix, C, kc, stream);
+}
+
+// Launches K8 on `stream`: the VJP of K7, writing the gradient of each
+// tile's rows [starts[t], starts[t] + min(counts[t], K)) into dbuf [E, F],
+// which the caller has zeroed, and no other row. The caller has checked
+// shapes, types, contiguity and the device, and that every window lies
+// inside buf.
+int lidargs_surfel_bwd_windows(const float* buf, const int* starts, const int* counts,
+                               const float* pix, const float* res, const float* g,
+                               float* dbuf, int T, int K, int F, int npix, int C,
+                               float alpha_min, float alpha_clamp, float t_min, float near,
+                               float fis, float m_scale, float m_dscale, float depth_floor,
+                               void* stream) {
+  const SurfelConsts kc{alpha_min, alpha_clamp, t_min, near, fis, m_scale, m_dscale,
+                        depth_floor};
+  return dispatch(buf, starts, counts, pix, res, g, dbuf, T, K, F, npix, C, kc, stream);
 }
 
 const char* lidargs_cuda_error_string(int err) {

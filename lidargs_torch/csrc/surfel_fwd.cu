@@ -1,6 +1,6 @@
-// Forward surfel (2DGS) composite (kernel K5) for Hopper (sm_90a).
+// Forward surfel (2DGS) composite (kernels K5 and K7) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_fwd_kernel` / `_fwd_tile` (with `_surfel_alpha`)
+// K5 replaces the TPU kernel `_fwd_kernel` / `_fwd_tile` (with `_surfel_alpha`)
 // of lidargs_tpu/ops/pallas_surfel.py, reached through its
 // `surfel_composite_tiles`. Same function:
 //
@@ -52,6 +52,14 @@
 // The TPU kernel's Hillis-Steele prefix products and sums over sublanes
 // served the TPU's layout and are not carried over: a thread multiplies T
 // and sums M1, M2 in sequence.
+//
+// K7, the window form (`lidargs_surfel_fwd_windows`), replaces the TPU
+// kernel `_fwd_kernel_fused` of pallas_surfel.py (reached through its
+// `_fused_fwd_call` and `surfel_composite_windows`). It is K5's body with
+// one change, as K3 is K1's (composite_fwd.cu): tile t reads its rows from
+// buf + starts[t] * F, a window of one dense depth-sorted buffer [E + K, F]
+// with K zero rows of padding. One template serves both, so K7 gives K5's
+// bits on the same rows, the median's included.
 #include <cuda_runtime.h>
 
 #include "surfel_common.cuh"
@@ -62,9 +70,12 @@ namespace {
 
 constexpr int kChunk = 64;     // surfel rows staged per shared-memory chunk
 
-template <int C>
+// kWindows: tile t's rows start at inst + starts[t] * F (K7), else at
+// inst + t * K * F (K5; starts is not read).
+template <int C, bool kWindows>
 __global__ void __launch_bounds__(1024) surfel_fwd_kernel(
-    const float* __restrict__ inst, const int* __restrict__ counts,
+    const float* __restrict__ inst, const int* __restrict__ starts,
+    const int* __restrict__ counts,
     const float* __restrict__ pix, float* __restrict__ out, int K, int F, int npix,
     SurfelConsts kc) {
   extern __shared__ float rows[];   // [kChunk][F]
@@ -76,7 +87,7 @@ __global__ void __launch_bounds__(1024) surfel_fwd_kernel(
   const float dirx = tp[p], diry = tp[npix + p], dirz = tp[2 * npix + p];
   const float px = tp[3 * npix + p], py = tp[4 * npix + p];
   const int count = min(max(counts[t], 0), K);
-  const float* ti = inst + (size_t)t * K * F;
+  const float* ti = inst + (kWindows ? (size_t)starts[t] * F : (size_t)t * K * F);
 
   float T = 1.f, dep = 0.f, med = 0.f, dist = 0.f, m1 = 0.f, m2 = 0.f;
   float acc[C], nrm[3] = {0.f, 0.f, 0.f};
@@ -139,11 +150,37 @@ __global__ void __launch_bounds__(1024) surfel_fwd_kernel(
 }
 
 template <int C>
-cudaError_t launch(const float* inst, const int* counts, const float* pix, float* out, int T,
-                   int K, int F, int npix, const SurfelConsts& kc, cudaStream_t stream) {
+cudaError_t launch(const float* inst, const int* starts, const int* counts, const float* pix,
+                   float* out, int T, int K, int F, int npix, const SurfelConsts& kc,
+                   cudaStream_t stream) {
   const size_t smem = (size_t)kChunk * F * sizeof(float);
-  surfel_fwd_kernel<C><<<T, npix, smem, stream>>>(inst, counts, pix, out, K, F, npix, kc);
+  if (starts)
+    surfel_fwd_kernel<C, true><<<T, npix, smem, stream>>>(inst, starts, counts, pix, out, K, F,
+                                                           npix, kc);
+  else
+    surfel_fwd_kernel<C, false><<<T, npix, smem, stream>>>(inst, starts, counts, pix, out, K,
+                                                            F, npix, kc);
   return cudaGetLastError();
+}
+
+// K5 where starts is null, K7 otherwise.
+int dispatch(const float* inst, const int* starts, const int* counts, const float* pix,
+             float* out, int T, int K, int F, int npix, int C, const SurfelConsts& kc,
+             void* stream) {
+  if (T <= 0) return 0;
+  if (npix <= 0 || npix > 1024 || F < kSFeat0 + C + 7 || C < 1 || C > kSurfelMaxC ||
+      (size_t)kChunk * F * sizeof(float) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return (int)launch<1>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    case 2: return (int)launch<2>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    case 3: return (int)launch<3>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    case 4: return (int)launch<4>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    case 5: return (int)launch<5>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    case 6: return (int)launch<6>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+    default: return (int)launch<7>(inst, starts, counts, pix, out, T, K, F, npix, kc, s);
+  }
 }
 
 }  // namespace
@@ -156,22 +193,22 @@ int lidargs_surfel_fwd(const float* inst, const int* counts, const float* pix, f
                        int T, int K, int F, int npix, int C, float alpha_min,
                        float alpha_clamp, float t_min, float near, float fis, float m_scale,
                        float m_dscale, float depth_floor, void* stream) {
-  if (T <= 0) return 0;
-  if (npix <= 0 || npix > 1024 || F < kSFeat0 + C + 7 || C < 1 || C > kSurfelMaxC ||
-      (size_t)kChunk * F * sizeof(float) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
   const SurfelConsts kc{alpha_min, alpha_clamp, t_min, near, fis, m_scale, m_dscale,
                         depth_floor};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return (int)launch<1>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    case 2: return (int)launch<2>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    case 3: return (int)launch<3>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    case 4: return (int)launch<4>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    case 5: return (int)launch<5>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    case 6: return (int)launch<6>(inst, counts, pix, out, T, K, F, npix, kc, s);
-    default: return (int)launch<7>(inst, counts, pix, out, T, K, F, npix, kc, s);
-  }
+  return dispatch(inst, nullptr, counts, pix, out, T, K, F, npix, C, kc, stream);
+}
+
+// Launches K7 on `stream`: tile t composites rows [starts[t], starts[t] +
+// min(counts[t], K)) of buf [E, F]. The caller has checked shapes, types,
+// contiguity and the device, and that every window lies inside buf.
+int lidargs_surfel_fwd_windows(const float* buf, const int* starts, const int* counts,
+                               const float* pix, float* out, int T, int K, int F, int npix,
+                               int C, float alpha_min, float alpha_clamp, float t_min,
+                               float near, float fis, float m_scale, float m_dscale,
+                               float depth_floor, void* stream) {
+  const SurfelConsts kc{alpha_min, alpha_clamp, t_min, near, fis, m_scale, m_dscale,
+                        depth_floor};
+  return dispatch(buf, starts, counts, pix, out, T, K, F, npix, C, kc, stream);
 }
 
 const char* lidargs_cuda_error_string(int err) {

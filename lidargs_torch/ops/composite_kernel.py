@@ -1,5 +1,6 @@
 """Composite over per-tile instance lists: kernels K1 (forward) and K2
-(backward), their plain versions, and the autograd function that joins them.
+(backward), their window forms K3 and K4, their plain versions, and the
+autograd functions that join them.
 
 `composite_tiles` is the forward of `composite_tiles_pallas`
 (`lidargs_tpu/ops/pallas_composite.py`, kernel body `_fwd_kernel`);
@@ -13,6 +14,14 @@ tensor a kernel cannot take raises. `CompositeTiles` is the
 `torch.autograd.Function` with `composite_tiles` forward and
 `composite_tiles_bwd` backward, as `composite_tiles_pallas` is a custom VJP.
 
+The window forms take one dense depth-sorted buffer instead of the
+`[T, K, F]` lists: `composite_windows` (K3, the forward of
+`composite_windows_pallas`, kernel body `_fwd_kernel_fused`) reads tile t's
+rows `buf[starts[t] : starts[t] + counts[t])`; `composite_windows_bwd` (K4,
+kernel body `_bwd_kernel_fused`) writes their gradients at the same rows of
+a zeroed `dbuf` and no other row, which is the JAX package's `dbuf` after
+`mask_unwritten_rows`. `CompositeWindows` joins them.
+
 Layout (shared by both):
   inst   [T, K, F] f32   depth-ordered packed instances (PackedCols)
   counts [T]       i32   live rows per tile
@@ -23,6 +32,11 @@ Layout (shared by both):
                          opacity, depth, features(C); zero in the rect,
                          center, valid and pad columns and on rows no pixel
                          walked
+  buf    [E, F] f32      window form: rows in sorted (tile, depth) order, the
+                         last K of them zero padding (E >= starts[t] + K)
+  starts [T]    i32      window form: tile t's first row in buf
+  dbuf   [E, F] f32      window form: the gradient of tile t's rows [starts[t],
+                         starts[t] + counts[t]) at those rows, zero elsewhere
 """
 from __future__ import annotations
 
@@ -40,14 +54,19 @@ PIX_ROWS = 8             # rows of a pixel block
 MAX_NPIX = 1024          # one thread per pixel, one block per tile
 
 # Launches of the CUDA kernels since the last reset (plain counts; the CPU
-# path does not add to them): K1 and K2.
+# path does not add to them): K1, K2, K3 and K4.
 launches = 0
 bwd_launches = 0
+windows_launches = 0
+windows_bwd_launches = 0
 
-# the launch functions' arguments after the tensor pointers: T, K, F, NPIX,
-# C, alpha_min, alpha_clamp, transmittance_min and the stream
-_P = ctypes.c_void_p
-_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [_P]
+# the launch functions' arguments between the tensor pointers and the
+# stream: T, K, F, NPIX, C, alpha_min, alpha_clamp, transmittance_min
+_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+
+
+def _consts(cfg: RasterConfig):
+    return cfg.alpha_min, cfg.alpha_clamp, cfg.transmittance_min
 
 
 def composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
@@ -69,33 +88,94 @@ def composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
     return torch.cat([out.color, out.depth[:, None], out.final_T[:, None], pad], 1)
 
 
+def _check_inputs(rows, ints: dict, pix, T: int, C: int, max_c: int, row_width: int):
+    """The checks shared by both forms: float32 `rows` at least `row_width`
+    wide in its last dimension, each of `ints` an int32 [T] tensor,
+    [T, 8, NPIX] float32 pixel blocks with NPIX in 1..MAX_NPIX, all
+    contiguous on one device, and C in 1..max_c."""
+    dev = rows.device
+    if pix.device != dev or any(x.device != dev for x in ints.values()):
+        raise ValueError(f"inputs on different devices: {rows.device}, "
+                         f"{[x.device for x in ints.values()]}, {pix.device}")
+    if rows.dtype != torch.float32 or pix.dtype != torch.float32:
+        raise TypeError(f"rows and pix must be float32, got {rows.dtype}, {pix.dtype}")
+    for name, x in ints.items():
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if tuple(x.shape) != (T,):
+            raise ValueError(f"{name} shape {tuple(x.shape)} != ({T},)")
+    if pix.dim() != 3 or pix.shape[0] != T or pix.shape[1] != PIX_ROWS:
+        raise ValueError(f"pix shape {tuple(pix.shape)} != ({T}, {PIX_ROWS}, NPIX)")
+    if not 1 <= C <= max_c:
+        raise ValueError(f"C={C} outside 1..{max_c}")
+    if rows.shape[-1] < row_width:
+        raise ValueError(f"row width {rows.shape[-1]} is narrower than {row_width} for C={C}")
+    if not 1 <= pix.shape[2] <= MAX_NPIX:
+        raise ValueError(f"NPIX={pix.shape[2]} outside 1..{MAX_NPIX}")
+    if not (rows.is_contiguous() and pix.is_contiguous()
+            and all(x.is_contiguous() for x in ints.values())):
+        raise ValueError("inputs must be contiguous")
+
+
 def check_tile_inputs(inst, counts, pix, C: int, max_c: int, row_width: int):
     """Raise on inputs a composite kernel cannot take: [T, K, F] float32
     rows at least `row_width` wide, [T] int32 counts, [T, 8, NPIX] float32
     pixel blocks with NPIX in 1..MAX_NPIX, all contiguous on one device, and
     C in 1..max_c."""
-    dev = inst.device
-    if counts.device != dev or pix.device != dev:
-        raise ValueError(f"inputs on different devices: {inst.device}, "
-                         f"{counts.device}, {pix.device}")
-    if inst.dtype != torch.float32 or pix.dtype != torch.float32:
-        raise TypeError(f"inst and pix must be float32, got {inst.dtype}, {pix.dtype}")
-    if counts.dtype != torch.int32:
-        raise TypeError(f"counts must be int32, got {counts.dtype}")
-    if inst.dim() != 3 or pix.dim() != 3 or counts.dim() != 1:
+    if inst.dim() != 3 or counts.dim() != 1:
         raise ValueError("expected inst [T,K,F], counts [T], pix [T,8,NPIX]")
-    T, K, Fw = inst.shape
-    if counts.shape[0] != T or pix.shape[0] != T or pix.shape[1] != PIX_ROWS:
-        raise ValueError(f"shape mismatch: inst {tuple(inst.shape)}, counts "
-                         f"{tuple(counts.shape)}, pix {tuple(pix.shape)}")
-    if not 1 <= C <= max_c:
-        raise ValueError(f"C={C} outside 1..{max_c}")
-    if Fw < row_width:
-        raise ValueError(f"row width {Fw} is narrower than {row_width} for C={C}")
-    if not 1 <= pix.shape[2] <= MAX_NPIX:
-        raise ValueError(f"NPIX={pix.shape[2]} outside 1..{MAX_NPIX}")
-    if not (inst.is_contiguous() and counts.is_contiguous() and pix.is_contiguous()):
-        raise ValueError("inputs must be contiguous")
+    _check_inputs(inst, {"counts": counts}, pix, inst.shape[0], C, max_c, row_width)
+
+
+def check_window_inputs(buf, starts, counts, pix, K: int, C: int, max_c: int,
+                        row_width: int):
+    """Raise on inputs a window kernel cannot take: an [E, F] float32 buffer
+    with E >= K, [T] int32 starts and counts, and the pixel blocks and C of
+    `check_tile_inputs`. That every window [starts[t], starts[t] + K) lies
+    inside buf is `window_rows`'s check: on the card it would cost a read
+    of `starts` back to the host on every call."""
+    if buf.dim() != 2 or starts.dim() != 1:
+        raise ValueError("expected buf [E,F], starts [T], counts [T], pix [T,8,NPIX]")
+    if buf.shape[0] < K:
+        raise ValueError(f"buf has {buf.shape[0]} rows, fewer than K={K}")
+    _check_inputs(buf, {"starts": starts, "counts": counts}, pix, starts.shape[0], C, max_c,
+                  row_width)
+
+
+def window_rows(buf: torch.Tensor, starts: torch.Tensor, K: int) -> torch.Tensor:
+    """[T, K, F]: rows [starts[t], starts[t] + K) of buf for each tile (a
+    gather). Raises if a window reaches past buf's end."""
+    T = starts.shape[0]
+    if T and (int(starts.min()) < 0 or int(starts.max()) + K > buf.shape[0]):
+        raise ValueError(f"a window [start, start + {K}) leaves buf's {buf.shape[0]} rows")
+    idx = starts.to(torch.int64)[:, None] + torch.arange(K, device=buf.device)[None, :]
+    return buf[idx]
+
+
+def scatter_windows(dinst: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """[n_rows, F] zeros with rows [0, counts[t]) of each tile's [K, F]
+    block of dinst written at rows [starts[t], starts[t] + counts[t]): the
+    window kernels' write rule. The owned ranges are disjoint."""
+    T, K, Fw = dinst.shape
+    k = torch.arange(K, device=dinst.device)[None, :]
+    own = k < counts.to(torch.int64)[:, None]
+    out = torch.zeros((n_rows, Fw), dtype=dinst.dtype, device=dinst.device)
+    out[(starts.to(torch.int64)[:, None] + k)[own]] = dinst[own]
+    return out
+
+
+def mask_unwritten_rows(dbuf: torch.Tensor, starts: torch.Tensor, K: int) -> torch.Tensor:
+    """Zero every row of dbuf that lies in no tile's [start, start + K)
+    window (the JAX package's `mask_unwritten_rows`, with `where`, not a
+    multiply). On the window kernels' output it changes nothing: a row they
+    write lies in its own tile's window, and every other row is zero."""
+    r = torch.arange(dbuf.shape[0], dtype=torch.int32, device=dbuf.device)
+    t = (torch.searchsorted(starts, r, right=True, out_int32=True) - 1).clamp(
+        0, starts.shape[0] - 1)
+    written = (r >= starts[t]) & (r < starts[t] + K)
+    return torch.where(written[:, None], dbuf, torch.zeros((), dtype=dbuf.dtype,
+                                                            device=dbuf.device))
 
 
 def check_saved(inst, pix, out_rows: int, **tensors):
@@ -128,14 +208,8 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
     if T == 0:
         return out
-    fn, err_str = cuda_build.entry("composite_fwd", "lidargs_composite_fwd", [_P] * 4 + _ARGS)
-    with torch.cuda.device(inst.device):
-        stream = torch.cuda.current_stream(inst.device).cuda_stream
-        err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), out.data_ptr(),
-                 T, K, Fw, npix, C, cfg.alpha_min, cfg.alpha_clamp,
-                 cfg.transmittance_min, stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd launch failed: {err_str(err).decode()}")
+    cuda_build.launch("composite_fwd", "lidargs_composite_fwd", _ARGS, (inst, counts, pix, out),
+                      (T, K, Fw, npix, C, *_consts(cfg)))
     launches += 1
     return out
 
@@ -253,14 +327,8 @@ def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Ten
     dinst = torch.empty_like(inst)      # the kernel writes every row, zeros included
     if T == 0:
         return dinst
-    fn, err_str = cuda_build.entry("composite_bwd", "lidargs_composite_bwd", [_P] * 6 + _ARGS)
-    with torch.cuda.device(inst.device):
-        stream = torch.cuda.current_stream(inst.device).cuda_stream
-        err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), res.data_ptr(),
-                 g.data_ptr(), dinst.data_ptr(), T, K, Fw, npix, C, cfg.alpha_min,
-                 cfg.alpha_clamp, cfg.transmittance_min, stream)
-    if err != 0:
-        raise RuntimeError(f"composite_bwd launch failed: {err_str(err).decode()}")
+    cuda_build.launch("composite_bwd", "lidargs_composite_bwd", _ARGS,
+                      (inst, counts, pix, res, g, dinst), (T, K, Fw, npix, C, *_consts(cfg)))
     bwd_launches += 1
     return dinst
 
@@ -282,3 +350,88 @@ class CompositeTiles(torch.autograd.Function):
         inst, counts, pix, out = ctx.saved_tensors
         dinst = composite_tiles_bwd(inst, counts, pix, out, g.contiguous(), ctx.C, ctx.cfg)
         return dinst, None, None, None, None
+
+
+def composite_windows_plain(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor,
+                            pix: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
+    """The plain PyTorch version of K3: each tile's window gathered into a
+    [T, K, F] list (`window_rows`), then `composite_tiles_plain`."""
+    return composite_tiles_plain(window_rows(buf, starts, cfg.tile_capacity), counts, pix,
+                                 C, cfg)
+
+
+def composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor,
+                      pix: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
+    """[E, F] buffer + [T] starts and counts + [T, 8, NPIX] pixel blocks ->
+    [T, 8, NPIX]: K3 on a CUDA tensor, the plain version on a CPU tensor."""
+    global windows_launches
+    if buf.device.type == "cpu":
+        return composite_windows_plain(buf, starts, counts, pix, C, cfg)
+    if buf.device.type != "cuda":
+        raise ValueError(f"composite_windows: unsupported device {buf.device}")
+    K = cfg.tile_capacity
+    check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 2, PC.rect(C).stop)
+    T, npix = pix.shape[0], pix.shape[2]
+    out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=buf.device)
+    if T == 0:
+        return out
+    cuda_build.launch("composite_fwd", "lidargs_composite_fwd_windows", _ARGS,
+                      (buf, starts, counts, pix, out), (T, K, buf.shape[1], npix, C, *_consts(cfg)))
+    windows_launches += 1
+    return out
+
+
+def composite_windows_bwd_plain(buf: torch.Tensor, starts: torch.Tensor,
+                                counts: torch.Tensor, pix: torch.Tensor, res: torch.Tensor,
+                                g: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
+    """The plain PyTorch version of K4: `composite_tiles_bwd_plain` on the
+    gathered windows, its rows [0, counts[t]) written at rows [starts[t],
+    starts[t] + counts[t]) of a zeroed [E, F] dbuf (`scatter_windows`)."""
+    dinst = composite_tiles_bwd_plain(window_rows(buf, starts, cfg.tile_capacity), counts,
+                                      pix, res, g, C, cfg)
+    return scatter_windows(dinst, starts, counts, buf.shape[0])
+
+
+def composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor,
+                          pix: torch.Tensor, res: torch.Tensor, g: torch.Tensor, C: int,
+                          cfg: RasterConfig) -> torch.Tensor:
+    """The VJP of `composite_windows`: -> dbuf [E, F], the gradient of each
+    tile's rows at those rows and zero on every other row. K4 on a CUDA
+    tensor (into a zeroed dbuf), the plain version on a CPU tensor."""
+    global windows_bwd_launches
+    if buf.device.type == "cpu":
+        return composite_windows_bwd_plain(buf, starts, counts, pix, res, g, C, cfg)
+    if buf.device.type != "cuda":
+        raise ValueError(f"composite_windows_bwd: unsupported device {buf.device}")
+    K = cfg.tile_capacity
+    check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 2, PC.rect(C).stop)
+    check_saved(buf, pix, OUT_ROWS, res=res, g=g)
+    T, npix = pix.shape[0], pix.shape[2]
+    dbuf = torch.zeros_like(buf)        # the kernel writes the owned rows alone
+    if T == 0:
+        return dbuf
+    cuda_build.launch("composite_bwd", "lidargs_composite_bwd_windows", _ARGS,
+                      (buf, starts, counts, pix, res, g, dbuf),
+                      (T, K, buf.shape[1], npix, C, *_consts(cfg)))
+    windows_bwd_launches += 1
+    return dbuf
+
+
+class CompositeWindows(torch.autograd.Function):
+    """`composite_windows` with `composite_windows_bwd` as its backward (K3
+    and K4 on the card). Only `buf` gets a gradient, as in the JAX package's
+    custom VJP of `composite_windows_pallas`."""
+
+    @staticmethod
+    def forward(ctx, buf, starts, counts, pix, C: int, cfg: RasterConfig):
+        out = composite_windows(buf, starts, counts, pix, C, cfg)
+        ctx.save_for_backward(buf, starts, counts, pix, out)
+        ctx.C, ctx.cfg = C, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, starts, counts, pix, out = ctx.saved_tensors
+        dbuf = composite_windows_bwd(buf, starts, counts, pix, out, g.contiguous(), ctx.C,
+                                     ctx.cfg)
+        return dbuf, None, None, None, None, None

@@ -1,6 +1,6 @@
 """Tiled range-view rasterization — the production render path.
 
-Counterpart of `lidargs_tpu/ops/rasterize.py` (non-fused path, with the backward):
+Counterpart of `lidargs_tpu/ops/rasterize.py` (both gathers, with the backward):
 
   1. cull + compact + depth presort in ONE stable sort on depth (invalid
      rows carry the same finite 4*far sentinel, so stability keeps the
@@ -12,6 +12,13 @@ Counterpart of `lidargs_tpu/ops/rasterize.py` (non-fused path, with the backward
      capacity; overflow drops the farthest instances and is counted;
   5. compositing: the CUDA kernels K1 (forward) and K2 (backward) on the
      card, their plain versions on the CPU (composite_kernel.py).
+
+With `RasterConfig.fused_gather` steps 4-5 take the fused-window form
+instead: one dense gather of every sorted slot's row into `buf`, per-tile
+[start, count) windows into it (`bin_instances_windows`), and the window
+kernels K3 (forward) and K4 (backward) on the card, their plain versions on
+the CPU. The gradient reaches the packed rows through autograd's backward
+of that gather, as JAX's flows through the transpose of `jnp.take`.
 
 Physical tiles are tile_h x 128 pixels; parity with the reference's 16x1
 strips is kept through the per-pixel parity-rect mask (projection.py).
@@ -25,7 +32,7 @@ import torch.nn.functional as F
 
 from ..config import RasterConfig
 from .composite import pixel_rays
-from .composite_kernel import CompositeTiles
+from .composite_kernel import CompositeTiles, CompositeWindows
 from .projection import PackedCols, Splats, pack_splats
 
 _I32 = torch.int32
@@ -179,6 +186,22 @@ def bin_instances(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
     return ids, counts.clamp_max(K), n_overflow
 
 
+def bin_instances_windows(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
+    """Fused-gather form (see _bin_sorted): per-slot gaussian ids in sorted
+    (tile, depth) order and per-tile windows into that list: ([n_keys] gid,
+    [T] starts, [T] counts clipped to K, overflow count), every integer as
+    the JAX package's. `starts` is the unclipped left searchsorted, so a
+    tile that overflows leaves a gap before the next tile's start; slots in
+    no tile's first-K window (that gap, the sentinels) carry real rows that
+    no kernel reads."""
+    s_key, starts, counts, shift, _n_keys, n_overflow = _bin_sorted(
+        rect, center, valid, cfg, gx, gy
+    )
+    K = cfg.tile_capacity
+    gid = s_key & ((1 << shift) - 1)
+    return gid, starts[:-1], counts.clamp_max(K), n_overflow
+
+
 def _tile_pixels(H: int, W: int, cfg: RasterConfig, gx: int, gy: int, beams):
     """Per-tile pixel coords + ray dirs for all gy*gx tiles."""
     th, tw = cfg.tile_h, cfg.tile_w
@@ -208,9 +231,8 @@ def tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int,
                 cfg: RasterConfig, C: int):
     """Bin the depth-ordered packed rows and gather each tile's list: the
     composite kernel's inputs ([T, K, F] instances, [T] int32 counts,
-    [T, 8, NPIX] pixel blocks) and the overflow count."""
-    if cfg.fused_gather:
-        raise NotImplementedError("the fused-window gather is not ported yet")
+    [T, 8, NPIX] pixel blocks) and the overflow count. The materialized
+    form, whatever `cfg.fused_gather` says (`window_inputs` is the other)."""
     H = beams.shape[0]
     gy, gx = cfg.grid_shape(H, W)
     T = gy * gx
@@ -230,12 +252,36 @@ def tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int,
     return inst, counts, _pix_blocks(pix_x, pix_y, dirs), n_overflow
 
 
+def window_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int, cfg: RasterConfig,
+                  C: int, cols=PackedCols):
+    """Bin the depth-ordered packed rows into windows: the window kernels'
+    inputs ([n_keys + K, F] buf, every sorted slot's row and K zero rows of
+    padding so that no window runs off its end; [T] int32 starts and
+    counts; [T, 8, NPIX] pixel blocks) and the overflow count. `cols` names
+    the rect, center and valid columns (PackedCols, or SurfelCols for
+    surfels)."""
+    H = beams.shape[0]
+    gy, gx = cfg.grid_shape(H, W)
+    V = pkv.shape[0]
+    gid, starts, counts, n_overflow = bin_instances_windows(
+        pkv[:, cols.rect(C)].to(_I32), pkv[:, cols.center(C)], pkv[:, cols.validf(C)] > 0.0,
+        cfg, gx, gy)
+    buf = F.pad(pkv[gid.clamp(0, V - 1)], (0, 0, 0, cfg.tile_capacity))
+    pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams)
+    return buf, starts, counts, _pix_blocks(pix_x, pix_y, dirs), n_overflow
+
+
 def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
                          cfg: RasterConfig, C: int):
-    """Bin + composite every tile against the packed gaussian set. Returns
+    """Bin + composite every tile against the packed gaussian set, through
+    the [T, K, F] lists or, with `cfg.fused_gather`, the windows. Returns
     per-tile strips (color [T,C,npix], depth, final_T, overflow)."""
-    inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C)
-    out8 = CompositeTiles.apply(inst, counts, pix, C, cfg)
+    if cfg.fused_gather:
+        buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C)
+        out8 = CompositeWindows.apply(buf, starts, counts, pix, C, cfg)
+    else:
+        inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C)
+        out8 = CompositeTiles.apply(inst, counts, pix, C, cfg)
     return out8[:, :C], out8[:, C], out8[:, C + 1], n_overflow
 
 

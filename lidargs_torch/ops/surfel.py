@@ -19,8 +19,10 @@ the center columns do (the composite's rho2d reads them).
 
 The tiled render shares the cull sort and the binning with the beam
 variant (`rasterize.py`) and composites through `SurfelCompositeTiles`
-(kernels K5 and K6 on the card, `surfel_kernel.py`); `golden=True` runs the
-chunk scan `surfel_composite` over one whole-image list, the test oracle.
+(kernels K5 and K6 on the card, `surfel_kernel.py`) or, with
+`fused_gather`, through `SurfelCompositeWindows` (K7 and K8); `golden=True`
+runs the chunk scan `surfel_composite` over one whole-image list, the test
+oracle.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from ..config import RasterConfig
 from .composite import pixel_rays
 from .projection import _project_rows, quat_to_rotmat
-from .rasterize import _pix_blocks, _tile_pixels, bin_instances, permutation_rows
+from .rasterize import (_pix_blocks, _tile_pixels, bin_instances, permutation_rows,
+                        window_inputs)
 
 _TWO_PI = 2.0 * math.pi
 
@@ -370,9 +373,8 @@ def surfel_tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int, cfg: Rast
                        C: int):
     """Bin the depth-ordered packed surfels and gather each tile's list: the
     composite kernel's inputs ([T, K, F] surfels, [T] int32 counts,
-    [T, 8, NPIX] pixel blocks) and the overflow count."""
-    if cfg.fused_gather:
-        raise NotImplementedError("the fused-window gather is not ported yet")
+    [T, 8, NPIX] pixel blocks) and the overflow count. The materialized
+    form, whatever `cfg.fused_gather` says (`window_inputs` is the other)."""
     S = SurfelCols
     H = beams.shape[0]
     gy, gx = cfg.grid_shape(H, W)
@@ -395,8 +397,10 @@ def render_surfels(
     golden: bool = False,
 ) -> SurfelOut:
     """Tiled surfel render (golden=True: one whole-image list through the
-    chunk scan, the test oracle)."""
-    from .surfel_kernel import SurfelCompositeTiles
+    chunk scan, the test oracle). With `cfg.fused_gather` the tiles read
+    windows of one sorted buffer (K7 and K8 on the card) instead of
+    [T, K, F] lists (K5 and K6)."""
+    from .surfel_kernel import SurfelCompositeTiles, SurfelCompositeWindows
 
     H = beams.shape[0]
     dev = pk.device
@@ -415,8 +419,13 @@ def render_surfels(
     else:
         gy, gx = cfg.grid_shape(H, W)
         th, tw = cfg.tile_h, cfg.tile_w
-        inst, counts, pix, n_overflow = surfel_tile_inputs(pkv, beams, W, cfg, C)
-        out16 = SurfelCompositeTiles.apply(inst, counts, pix, C, cfg)
+        if cfg.fused_gather:
+            buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C,
+                                                                 SurfelCols)
+            out16 = SurfelCompositeWindows.apply(buf, starts, counts, pix, C, cfg)
+        else:
+            inst, counts, pix, n_overflow = surfel_tile_inputs(pkv, beams, W, cfg, C)
+            out16 = SurfelCompositeTiles.apply(inst, counts, pix, C, cfg)
         color, dep, T = out16[:, :C], out16[:, C], out16[:, C + 1]
         nrm, med, dist = out16[:, C + 2:C + 5], out16[:, C + 5], out16[:, C + 6]
 

@@ -1,6 +1,6 @@
 """Surfel composite over per-tile instance lists: kernels K5 (forward) and
-K6 (backward), their plain versions, and the autograd function that joins
-them.
+K6 (backward), their window forms K7 and K8, their plain versions, and the
+autograd functions that join them.
 
 `surfel_composite_tiles` is the forward of the JAX package's
 `surfel_composite_tiles` (`lidargs_tpu/ops/pallas_surfel.py`, kernel body
@@ -10,6 +10,12 @@ body `_bwd_tile`). On a CUDA tensor each launches its hand-written kernel
 the first call and loaded with ctypes); on a CPU tensor each runs its plain
 PyTorch version with the same signature and layout. There is no fallback
 from one to the other: a CUDA tensor a kernel cannot take raises.
+
+The window forms (`surfel_composite_windows`, K7, the forward of the JAX
+package's `surfel_composite_windows`, kernel body `_fwd_kernel_fused`;
+`surfel_composite_windows_bwd`, K8, kernel body `_bwd_kernel_fused`) take
+one dense sorted buffer and per-tile windows into it, with the layout and
+write rule of the beam's K3 and K4 (`composite_kernel.py`).
 
 Layout (shared by both):
   inst   [T, K, F] f32     depth-ordered packed surfels (SurfelCols)
@@ -32,21 +38,23 @@ import torch
 
 from ..config import RasterConfig
 from ..utils import cuda_build
-from .composite_kernel import check_saved, check_tile_inputs
+from .composite_kernel import (check_saved, check_tile_inputs, check_window_inputs,
+                               scatter_windows, window_rows)
 from .surfel import SurfelCols as S
 from .surfel import pair_geometry, surfel_composite
 
 OUT_ROWS = 16
 
 # Launches of the CUDA kernels since the last reset (plain counts; the CPU
-# path does not add to them): K5 and K6.
+# path does not add to them): K5, K6, K7 and K8.
 launches = 0
 bwd_launches = 0
+windows_launches = 0
+windows_bwd_launches = 0
 
-# the launch functions' arguments after the tensor pointers: T, K, F, NPIX,
-# C, the eight constants of `_consts` and the stream
-_P = ctypes.c_void_p
-_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 8 + [_P]
+# the launch functions' arguments between the tensor pointers and the
+# stream: T, K, F, NPIX, C and the eight constants of `_consts`
+_ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 8
 
 
 def _consts(cfg: RasterConfig):
@@ -93,13 +101,8 @@ def surfel_composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
     if T == 0:
         return out
-    fn, err_str = cuda_build.entry("surfel_fwd", "lidargs_surfel_fwd", [_P] * 4 + _ARGS)
-    with torch.cuda.device(inst.device):
-        stream = torch.cuda.current_stream(inst.device).cuda_stream
-        err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), out.data_ptr(),
-                 T, K, Fw, npix, C, *_consts(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"surfel_fwd launch failed: {err_str(err).decode()}")
+    cuda_build.launch("surfel_fwd", "lidargs_surfel_fwd", _ARGS, (inst, counts, pix, out),
+                      (T, K, Fw, npix, C, *_consts(cfg)))
     launches += 1
     return out
 
@@ -256,13 +259,8 @@ def surfel_composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: to
     dinst = torch.empty_like(inst)      # the kernel writes every row, zeros included
     if T == 0:
         return dinst
-    fn, err_str = cuda_build.entry("surfel_bwd", "lidargs_surfel_bwd", [_P] * 6 + _ARGS)
-    with torch.cuda.device(inst.device):
-        stream = torch.cuda.current_stream(inst.device).cuda_stream
-        err = fn(inst.data_ptr(), counts.data_ptr(), pix.data_ptr(), res.data_ptr(),
-                 g.data_ptr(), dinst.data_ptr(), T, K, Fw, npix, C, *_consts(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"surfel_bwd launch failed: {err_str(err).decode()}")
+    cuda_build.launch("surfel_bwd", "lidargs_surfel_bwd", _ARGS,
+                      (inst, counts, pix, res, g, dinst), (T, K, Fw, npix, C, *_consts(cfg)))
     bwd_launches += 1
     return dinst
 
@@ -285,3 +283,90 @@ class SurfelCompositeTiles(torch.autograd.Function):
         dinst = surfel_composite_tiles_bwd(inst, counts, pix, out, g.contiguous(), ctx.C,
                                            ctx.cfg)
         return dinst, None, None, None, None
+
+
+def surfel_composite_windows_plain(buf: torch.Tensor, starts: torch.Tensor,
+                                   counts: torch.Tensor, pix: torch.Tensor, C: int,
+                                   cfg: RasterConfig) -> torch.Tensor:
+    """The plain PyTorch version of K7: each tile's window gathered into a
+    [T, K, F] list (`window_rows`), then `surfel_composite_tiles_plain`."""
+    return surfel_composite_tiles_plain(window_rows(buf, starts, cfg.tile_capacity), counts,
+                                        pix, C, cfg)
+
+
+def surfel_composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor,
+                             pix: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
+    """[E, F] buffer + [T] starts and counts + [T, 8, NPIX] pixel blocks ->
+    [T, 16, NPIX]: K7 on a CUDA tensor, the plain version on a CPU tensor."""
+    global windows_launches
+    if buf.device.type == "cpu":
+        return surfel_composite_windows_plain(buf, starts, counts, pix, C, cfg)
+    if buf.device.type != "cuda":
+        raise ValueError(f"surfel_composite_windows: unsupported device {buf.device}")
+    K = cfg.tile_capacity
+    check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 9, S.validf(C) + 1)
+    T, npix = pix.shape[0], pix.shape[2]
+    out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=buf.device)
+    if T == 0:
+        return out
+    cuda_build.launch("surfel_fwd", "lidargs_surfel_fwd_windows", _ARGS,
+                      (buf, starts, counts, pix, out), (T, K, buf.shape[1], npix, C, *_consts(cfg)))
+    windows_launches += 1
+    return out
+
+
+def surfel_composite_windows_bwd_plain(buf: torch.Tensor, starts: torch.Tensor,
+                                       counts: torch.Tensor, pix: torch.Tensor,
+                                       res: torch.Tensor, g: torch.Tensor, C: int,
+                                       cfg: RasterConfig) -> torch.Tensor:
+    """The plain PyTorch version of K8: `surfel_composite_tiles_bwd_plain` on
+    the gathered windows, its rows [0, counts[t]) written at rows
+    [starts[t], starts[t] + counts[t]) of a zeroed [E, F] dbuf."""
+    dinst = surfel_composite_tiles_bwd_plain(window_rows(buf, starts, cfg.tile_capacity),
+                                             counts, pix, res, g, C, cfg)
+    return scatter_windows(dinst, starts, counts, buf.shape[0])
+
+
+def surfel_composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor,
+                                 counts: torch.Tensor, pix: torch.Tensor, res: torch.Tensor,
+                                 g: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
+    """The VJP of `surfel_composite_windows`: -> dbuf [E, F], the gradient of
+    each tile's rows at those rows and zero on every other row. K8 on a CUDA
+    tensor (into a zeroed dbuf), the plain version on a CPU tensor."""
+    global windows_bwd_launches
+    if buf.device.type == "cpu":
+        return surfel_composite_windows_bwd_plain(buf, starts, counts, pix, res, g, C, cfg)
+    if buf.device.type != "cuda":
+        raise ValueError(f"surfel_composite_windows_bwd: unsupported device {buf.device}")
+    K = cfg.tile_capacity
+    check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 9, S.validf(C) + 1)
+    check_saved(buf, pix, OUT_ROWS, res=res, g=g)
+    T, npix = pix.shape[0], pix.shape[2]
+    dbuf = torch.zeros_like(buf)        # the kernel writes the owned rows alone
+    if T == 0:
+        return dbuf
+    cuda_build.launch("surfel_bwd", "lidargs_surfel_bwd_windows", _ARGS,
+                      (buf, starts, counts, pix, res, g, dbuf),
+                      (T, K, buf.shape[1], npix, C, *_consts(cfg)))
+    windows_bwd_launches += 1
+    return dbuf
+
+
+class SurfelCompositeWindows(torch.autograd.Function):
+    """`surfel_composite_windows` with `surfel_composite_windows_bwd` as its
+    backward (K7 and K8 on the card). Only `buf` gets a gradient, as in the
+    JAX package's custom VJP of `surfel_composite_windows`."""
+
+    @staticmethod
+    def forward(ctx, buf, starts, counts, pix, C: int, cfg: RasterConfig):
+        out = surfel_composite_windows(buf, starts, counts, pix, C, cfg)
+        ctx.save_for_backward(buf, starts, counts, pix, out)
+        ctx.C, ctx.cfg = C, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, starts, counts, pix, out = ctx.saved_tensors
+        dbuf = surfel_composite_windows_bwd(buf, starts, counts, pix, out, g.contiguous(),
+                                            ctx.C, ctx.cfg)
+        return dbuf, None, None, None, None, None

@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lidargs_torch"
 NVCC_FLAGS = [
@@ -105,3 +107,19 @@ def entry(name: str, symbol: str, argtypes: list):
         lib.lidargs_cuda_error_string.restype = ctypes.c_char_p
         _entries[key] = (fn, lib.lidargs_cuda_error_string)
     return _entries[key]
+
+
+def launch(name: str, symbol: str, scalar_types: list, tensors, scalars) -> None:
+    """Launch `symbol` of `csrc/<name>.cu` on the current stream of the
+    first tensor's device, with the tensors' data pointers, then `scalars`
+    (declared as `scalar_types`), then the stream. Raises if the launch
+    returns an error (a refused launch never runs, and a later synchronize
+    would not report it)."""
+    fn, err_str = entry(name, symbol, [ctypes.c_void_p] * len(tensors) + scalar_types
+                        + [ctypes.c_void_p])
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: {err_str(err).decode()}")

@@ -14,10 +14,10 @@ test), held to a pixel-by-pixel walk over the same per-pair alphas and pass
 flags. The counts are integers and must be equal.
 
 The rehearsal runs `chip_smoke.run` on the CPU at a tiny size, with the
-card-only helpers stubbed and each kernel wrapper replaced by its plain
-version that counts launches as the wrapper does: every phase's control
-flow, launch count check and comparison runs, and the last line is the
-contract's.
+card-only helpers stubbed and each kernel wrapper (the tile and the window
+forms of both variants) replaced by its plain version that counts launches
+as the wrapper does: every phase's control flow, launch count check and
+comparison runs, and the last line is the contract's.
 """
 import json
 
@@ -168,6 +168,7 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, warmup: [(fn(), 1.0)[1]])
+    monkeypatch.setattr(chip_smoke, "time_cold_ms", lambda fn, iters=20: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "profile_render",
                         lambda fn, frames=3: {"frames": frames, "device_ms_per_frame": "n/a"})
     monkeypatch.setattr(cuda_build, "build", lambda names, csrc=None: {})
@@ -175,8 +176,12 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     for mod, name, counter in ((ck, "composite_tiles", "launches"),
                                (ck, "composite_tiles_bwd", "bwd_launches"),
+                               (ck, "composite_windows", "windows_launches"),
+                               (ck, "composite_windows_bwd", "windows_bwd_launches"),
                                (sk, "surfel_composite_tiles", "launches"),
-                               (sk, "surfel_composite_tiles_bwd", "bwd_launches")):
+                               (sk, "surfel_composite_tiles_bwd", "bwd_launches"),
+                               (sk, "surfel_composite_windows", "windows_launches"),
+                               (sk, "surfel_composite_windows_bwd", "windows_bwd_launches")):
         def counted(*a, mod=mod, plain=getattr(mod, name + "_plain"), counter=counter):
             setattr(mod, counter, getattr(mod, counter) + 1)
             return plain(*a)
@@ -186,9 +191,17 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1])["ok"] is True and lines[-2] == "CPU rehearsal"
     kernels = json.loads(lines[-3])["kernels"]
-    assert [k["name"] for k in kernels] == ["composite_fwd", "composite_bwd", "surfel_fwd",
-                                            "surfel_bwd"]
-    assert [k["launches"] for k in kernels] == [3, 2, 3, 2]
-    surfel = json.loads(lines[-4])["timing"]["surfel"]
+    assert [k["name"] for k in kernels] == [
+        "composite_fwd", "composite_bwd", "composite_fwd_windows", "composite_bwd_windows",
+        "surfel_fwd", "surfel_bwd", "surfel_fwd_windows", "surfel_bwd_windows"]
+    assert [k["launches"] for k in kernels] == [3, 2] * 4
+    timing = json.loads(lines[-4])["timing"]
+    surfel = timing["surfel"]
     assert surfel["k5_launches_train"] == surfel["k6_launches"] == 2
     assert surfel["k5_bound"]["pairs_applied"] > 0
+    assert timing["windows"]["train_launches"] == {"K1": 0, "K2": 0, "K3": 2, "K4": 2}
+    assert timing["surfel_windows"]["render_launches"] == {"K5": 0, "K6": 0, "K7": 3, "K8": 0}
+    # the window kernels' bounds count the same pairs as the tile kernels'
+    assert timing["windows"]["K3_bound"]["pairs_applied"] == timing["k1_bound"]["pairs_applied"]
+    assert (timing["surfel_windows"]["K7_bound"]["pairs_applied"]
+            == surfel["k5_bound"]["pairs_applied"])

@@ -165,11 +165,3 @@ def test_binning_counters_equal_jax(raster):
     for name, atol, flip in OUTPUTS:
         assert_close_up_to_flips(getattr(ot, name).numpy(), np.asarray(getattr(oj, name)),
                                  atol, flip, what=name)
-
-
-def test_fused_gather_is_refused():
-    args, W = _inputs(0)
-    tc = TR(**RASTER, fused_gather=True)
-    pk = ts.preprocess_surfels(*[torch.from_numpy(np.array(a)) for a in args], W, tc)
-    with pytest.raises(NotImplementedError, match="fused"):
-        ts.render_surfels(pk, torch.from_numpy(np.array(args[-1])), W, torch.zeros(2), tc)

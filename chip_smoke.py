@@ -37,7 +37,9 @@ then:
      two identical steps (PyTorch does not promise that the `[T, K, F]`
      gather's backward, an accumulating index_put, is deterministic on CUDA);
   9. times the train step, K2 and the plain backward with CUDA events,
-     computes K2's bound from this run's inputs, and profiles a few steps;
+     computes K2's bound from this run's inputs, counts the (tile, warp of
+     32 pixels, row) visits in which some lane applies the row (the row
+     reductions K2 runs, `warp_rows`), and profiles a few steps;
  10. renders the same scene from the same poses through the surfel (2DGS)
      variant, `measure_fps(..., variant="surfel")` at the CLI's surfel
      defaults (h1/K384/cap32), with the counts set to 0 just before and read
@@ -54,8 +56,8 @@ then:
      parameter gradients through K5/K6 against those through the plain
      versions;
  14. times the surfel frame and step, K5, K6 and both plain versions with
-     CUDA events, computes K5's and K6's bounds from this run's inputs and
-     profiles a frame and a step;
+     CUDA events, computes K5's and K6's bounds (and K6's row reductions)
+     from this run's inputs and profiles a frame and a step;
  15. renders the same frames through the fused-window gather of the beam
      variant, `measure_fps` with `fused_gather=True` at h4/K768/cap8, with
      the counts set to 0 just before and read just after, requiring one K3
@@ -89,7 +91,7 @@ stop one instance earlier or later.
   * K2: each dinst column scaled by its largest magnitude: mean |d| <= 1e-5,
     at most 64 elements beyond 2e-5 (the 16 columns of four rows whose
     instance sits at a flipped pixel), max <= 1e-3. On the smoke scene the
-    H100 read a mean of 3.9e-9, a max of 8.2e-7 and no element beyond 2e-5
+    H100 read a mean of 3.9e-9, a max of 9.7e-7 and no element beyond 2e-5
     over 183,125 touched rows: the max allows ~1000 times that, and a flip
     whose pixel carries more than 0.1% of its column's largest gradient
     fails.
@@ -109,8 +111,8 @@ stop one instance earlier or later.
     the plain version recomputes each pair's depth with K5's bits
     (`csrc/surfel_common.cuh`); the run reports how many pixels' medians
     the plain forward reproduces bit for bit. On the smoke scene the H100
-    read a mean of 6.1e-9, a max of 3.2e-5 and 3 elements beyond 2e-5 over
-    315,459 touched rows.
+    read a mean of 6.4e-9, a max of 2.8e-5 and 3 elements beyond 2e-5 over
+    315,277 touched rows.
   * K3, K7 (window forms): bit for bit equal to K1, K5 on the same rows, and
     against their plain versions K1's and K5's bounds above.
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
@@ -265,15 +267,28 @@ def tile_bytes(counts, rows_walked: int, cols: int, pix, *elements: int) -> int:
     return 4 * (rows_walked * cols + counts.numel() + T * 5 * npix + sum(elements))
 
 
+def warp_rows(applied) -> int:
+    """(tile, warp of 32 pixels, row) visits in which some lane applies the
+    row, of an [tiles, rows, NPIX] mask of applied pairs: the row
+    reductions a backward kernel runs (its warps are 32 consecutive pixels
+    of a tile, the last one padded)."""
+    import torch
+
+    g, K, npix = applied.shape
+    lanes = torch.nn.functional.pad(applied.to(torch.uint8), (0, -npix % 32))
+    return int(lanes.view(g, K, -1, 32).amax(-1).sum())
+
+
 def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-instance pairs that K1's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
-    crossing), as (applied, other in rect, out of rect, rows): the pairs
-    that pass and are blended (K2 runs its backward chain and reduction on
-    these alone), the other pairs inside the instance's parity rect (the
-    alpha arithmetic, then a failed test or the crossing), the pairs outside
-    it (the rect test alone), and the rows of the tiles' lists that some
-    pixel visits (the rows the function must read)."""
+    crossing), as (applied, other in rect, out of rect, rows, reducing warp
+    rows): the pairs that pass and are blended (K2 runs its backward chain
+    and reduction on these alone), the other pairs inside the instance's
+    parity rect (the alpha arithmetic, then a failed test or the crossing),
+    the pairs outside it (the rect test alone), the rows of the tiles' lists
+    that some pixel visits (the rows the function must read), and the
+    `warp_rows` of the applied pairs (K2's row reductions)."""
     import torch
 
     from lidargs_torch.ops.projection import PackedCols as PC
@@ -281,7 +296,7 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     T, K, _ = inst.shape
     rc = PC.rect(C).start
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = 0
+    n_app = n_in = n_out = n_rows = n_warp = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -298,11 +313,13 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         t_incl = torch.cumprod(torch.where(passed, 1.0 - alpha, 1.0), dim=1)
         cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
         visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
-        n_app += int((visited & passed & (cross == 0)).sum())
+        applied = visited & passed & (cross == 0)
+        n_app += int(applied.sum())
         n_in += int((visited & in_rect).sum())
         n_out += int((visited & ~in_rect).sum())
         n_rows += int(visited.any(dim=2).sum())
-    return n_app, n_in - n_app, n_out, n_rows
+        n_warp += warp_rows(applied)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp
 
 
 def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
@@ -366,10 +383,11 @@ def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-surfel pairs that K5's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
     crossing), as (applied, other past the valid and rect tests, stopped by
-    them, rows): the pairs blended (K5's accumulators and K6's chain run on
-    these alone), the other pairs that reach the pair geometry, the pairs
-    that cost the cheap tests alone, and the rows of the tiles' lists that
-    some pixel visits."""
+    them, rows, reducing warp rows): the pairs blended (K5's accumulators
+    and K6's chain run on these alone), the other pairs that reach the pair
+    geometry, the pairs that cost the cheap tests alone, the rows of the
+    tiles' lists that some pixel visits, and the `warp_rows` of the applied
+    pairs (K6's row reductions)."""
     import torch
 
     from lidargs_torch.ops.surfel import SurfelCols as S
@@ -378,7 +396,7 @@ def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     T, K, _ = inst.shape
     rc, vf = S.rect(C).start, S.validf(C)
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = 0
+    n_app = n_in = n_out = n_rows = n_warp = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -391,11 +409,13 @@ def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         t_incl = torch.cumprod(torch.where(passed, 1.0 - g.alpha, 1.0), dim=1)
         cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
         visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
-        n_app += int((visited & passed & (cross == 0)).sum())
+        applied = visited & passed & (cross == 0)
+        n_app += int(applied.sum())
         n_in += int((visited & cheap).sum())
         n_out += int((visited & ~cheap).sum())
         n_rows += int(visited.any(dim=2).sum())
-    return n_app, n_in - n_app, n_out, n_rows
+        n_warp += warp_rows(applied)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp
 
 
 def grad_diff(a: dict, b: dict) -> dict:
@@ -686,7 +706,7 @@ def run(dev) -> None:
                                         (inst, counts, pix, C, rcfg))
         render = lambda: render_field(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
-        n_app, n_other, n_out, n_rows = walked_pairs(inst, counts, pix, C, rcfg)
+        n_app, n_other, n_out, n_rows, _ = walked_pairs(inst, counts, pix, C, rcfg)
         prof = profile_render(render)
     n_in = n_app + n_other
     # K1 reads the columns up to the rect's (PackedCols) of each row
@@ -841,7 +861,7 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     step_ms = time_ms(one_step, TRAIN_TIMED, 3)
     k2_ms, plain_bwd_ms = time_vs_plain(ck.composite_tiles_bwd, ck.composite_tiles_bwd_plain,
                                         bwd_args)
-    n_app, n_other, n_out, n_rows = walked_pairs(inst, counts, pix, C, rcfg)
+    n_app, n_other, n_out, n_rows, n_warp = walked_pairs(inst, counts, pix, C, rcfg)
     # profile_render reports per call; a call here is one step
     prof = profile_render(one_step, frames=3)
     # K2 reads K1's columns of each row, rows 0..C+1 of res and g
@@ -851,7 +871,9 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
                (OPS_APPLIED_BWD + 14 + C) * n_app + OPS_IN_RECT * n_other
                + OPS_OUT_RECT * n_out)
     b2.update(pairs_applied=n_app, pairs_in_rect_other=n_other, pairs_out_rect=n_out,
-              rows=n_rows)
+              rows=n_rows, warp_rows_reduced=n_warp)
+    print(f"# K2 bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}); (tile, warp, row) visits "
+          f"that reduce: {n_warp} for {n_app} applied pairs", file=sys.stderr)
     train = {
         "steps": N_STEPS, "k1_launches": k1_launches, "k2_launches": k2_launches,
         "loss_first": losses[0], "loss_last": losses[-1], "stats": stats, "densify": densify,
@@ -870,7 +892,7 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     k2 = kernel_entry(
         "composite_bwd", "lidargs_torch/csrc/composite_bwd.cu",
         "lidargs_tpu/ops/pallas_composite.py:224", k2_launches, k2_ms, plain_bwd_ms, b2,
-        **dinst_errors(err_k2))
+        warp_rows_reduced=n_warp, **dinst_errors(err_k2))
     return train, k2
 
 
@@ -1025,7 +1047,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
         render = lambda: render_field_surfel(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
         prof_r = profile_render(render)
-        a5, o5, x5, r5 = walked_surfel_pairs(inst, counts, pix, C, rcfg)
+        a5, o5, x5, r5, _ = walked_surfel_pairs(inst, counts, pix, C, rcfg)
     held = [state]
 
     def one_step():
@@ -1036,7 +1058,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     k6_ms, p6_ms = time_vs_plain(sk.surfel_composite_tiles_bwd,
                                  sk.surfel_composite_tiles_bwd_plain, bwd_args)
     b_counts, b_pix = bwd_args[1:3]
-    a6, o6, x6, r6 = walked_surfel_pairs(*bwd_args[:3], C, rcfg)
+    a6, o6, x6, r6, w6 = walked_surfel_pairs(*bwd_args[:3], C, rcfg)
     T6, _, npix = b_pix.shape
 
     # bytes: of each row the kernels read every column up to the valid flag
@@ -1049,7 +1071,10 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     b6 = bound(tile_bytes(b_counts, r6, S.validf(C), b_pix, 2 * T6 * (C + 9) * npix,
                           d_k.numel()),
                (OPS_S_BWD_APPLIED + 4 * C) * a6 + OPS_S_IN_RECT * o6 + OPS_S_OUT_RECT * x6)
-    b6.update(pairs_applied=a6, pairs_in_rect_other=o6, pairs_out_rect=x6, rows=r6)
+    b6.update(pairs_applied=a6, pairs_in_rect_other=o6, pairs_out_rect=x6, rows=r6,
+              warp_rows_reduced=w6)
+    print(f"# K6 bound {b6['bound_ms']:.4f} ms ({b6['bound_by']}); (tile, warp, row) visits "
+          f"that reduce: {w6} for {a6} applied pairs", file=sys.stderr)
     summary = {
         "raster": SURFEL_RASTER, "main_path": main_path, "golden_small_err": err_gold,
         "k5_inputs": k5_inputs, "k5_err": err_k5, "k6_err": err_k6,
@@ -1077,7 +1102,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
         mean_abs_err={"feat": err_k5["feat_mean"], "depth": err_k5["depth_mean"]})
     k6 = kernel_entry(
         "surfel_bwd", "lidargs_torch/csrc/surfel_bwd.cu", "lidargs_tpu/ops/pallas_surfel.py:405",
-        k6_launches, k6_ms, p6_ms, b6, **dinst_errors(err_k6))
+        k6_launches, k6_ms, p6_ms, b6, warp_rows_reduced=w6, **dinst_errors(err_k6))
     return summary, k5, k6
 
 
@@ -1277,7 +1302,7 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
             "buf_mb": buf.numel() * 4 / 1e6, "inst_mb": inst.numel() * 4 / 1e6,
         }
         prof_r = profile_render(lambda: render(rcfg))
-        a_f, o_f, x_f, r_f = walked(ck.window_rows(buf, starts, K), counts, pix, C, rcfg)
+        a_f, o_f, x_f, r_f, _ = walked(ck.window_rows(buf, starts, K), counts, pix, C, rcfg)
     b_ms, pb_ms = time_vs_plain(getattr(mod, wins + "_bwd"), getattr(mod, wins + "_bwd_plain"),
                                 bwd_args)
     tb_ms = med(time_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res,
@@ -1296,7 +1321,7 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     step_ms = ab_ms({"fused": step_with(trainer, "fused"),
                      "materialized": step_with(trainer_m, "materialized")}, TRAIN_TIMED)
     prof_s = profile_render(step_with(trainer, "fused"), frames=3)
-    a_b, o_b, x_b, r_b = walked(b_inst, b_counts, b_pix, C, rcfg)
+    a_b, o_b, x_b, r_b, w_b = walked(b_inst, b_counts, b_pix, C, rcfg)
     T, _, npix = pix.shape
     if surfel:
         ops_f = ((OPS_S_IN_RECT + OPS_S_FWD_APPLIED + 2 * C) * a_f + OPS_S_IN_RECT * o_f
@@ -1311,7 +1336,8 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     b_f.update(pairs_applied=a_f, pairs_in_rect_other=o_f, pairs_out_rect=x_f, rows=r_f)
     b_b = bound(tile_bytes(b_counts, r_b, read_cols, b_pix, 2 * T * res_rows * npix,
                            int(b_counts.sum()) * b_buf.shape[1]), ops_b)
-    b_b.update(pairs_applied=a_b, pairs_in_rect_other=o_b, pairs_out_rect=x_b, rows=r_b)
+    b_b.update(pairs_applied=a_b, pairs_in_rect_other=o_b, pairs_out_rect=x_b, rows=r_b,
+               warp_rows_reduced=w_b)
     summary = {
         "raster": {**(SURFEL_RASTER if surfel else RASTER), "fused_gather": True},
         "main_path": main_path, "render_launches": dict(zip((k_tf, k_tb, k_f, k_b),
@@ -1352,7 +1378,7 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     e_b = kernel_entry(
         ("surfel" if surfel else "composite") + "_bwd_windows", src + "_bwd.cu",
         tpu + ("418" if surfel else "385"), train_counts[3], b_ms, pb_ms, b_b,
-        **dinst_errors(err_b), bit_equal_to=f"{k_tb} on the owned rows")
+        warp_rows_reduced=w_b, **dinst_errors(err_b), bit_equal_to=f"{k_tb} on the owned rows")
     return summary, e_f, e_b
 
 

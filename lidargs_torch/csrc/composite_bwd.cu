@@ -32,20 +32,36 @@
 // test), ~22 M inside it that fail a test or cross (~35, the forward's
 // arithmetic) and ~7.7 M applied pairs (~80 for the recompute and the chain
 // above, plus 14 + C adds to reduce each row over the tile's pixels): ~1.9 G
-// operations, ~29 us at 67 TFLOP/s. So it is bound by operations.
+// operations, ~29 us at 67 TFLOP/s. So it is bound by operations. Beyond
+// that, its time goes to the walk that every pixel repeats, to the chain of
+// the applied pairs and to reducing each row over the tile's pixels: an SM
+// retires about one warp-wide shuffle a clock, and a butterfly per column
+// (80 shuffles a row) on every warp and row that any lane applied, with
+// zeros stored for every other, cost ~22% of the kernel (utils/kernel_ab.py,
+// against the reduction below). chip_smoke.py counts the (tile, warp, row)
+// visits that reduce: 0.70 M of the ~4.1 M on its scene's training step.
+// The chain runs on ~11 of a warp's 32 lanes there, and is ~35% of the
+// kernel's time (kernel_ab, with the chain taken out).
 //
-// Design, simple and deterministic:
+// Design, deterministic, no atomics:
 //   * one block per tile, one thread per pixel; the tile's rows are staged
-//     through shared memory kRows at a time;
+//     through shared memory kBwdRows (64) at a time, with three barriers a
+//     chunk;
 //   * each thread repeats K1's own sequential walk (composite_common.cuh:
 //     the same rect and count tests, the same expf, the same T*(1-alpha)
 //     crossing rule), so it stops exactly where the forward that produced
 //     `res` stopped, and carries the running sum of w*direct for `behind`;
-//   * each row's gradient is a sum over the tile's pixels, reduced without
-//     atomics: a butterfly of warp shuffles (skipped, with a zero partial,
-//     when no lane of the warp touched the row: __any_sync), one partial per
-//     warp in shared memory, a fixed-order sum over the warps, one write per
-//     element. Every run gives the same bits, as the TPU kernel does;
+//     the chain's one division is __fdividef (~2 ulp), which moves dinst
+//     by ~1e-7 of each column's scale and the walk not at all;
+//   * each row's gradient is a sum over the tile's pixels (bwd_reduce.cuh):
+//     per warp, nothing where no lane applied the row, the lane's own values
+//     where one did, else a 16-shuffle transpose-reduce; one partial per
+//     touching warp in shared memory, marked in the warp's touched word; a
+//     fixed-order sum over the touching warps, one write per element. Every
+//     run gives the same bits, as the TPU kernel does;
+//   * the 1024-thread bound caps it at 64 registers: 55-60 at C = 2, no
+//     spills, 2 blocks of 512 threads an SM; 3 blocks (40 registers, with
+//     spills) ran no faster;
 //   * the block leaves once every pixel is done (__syncthreads_or), and
 //     writes zeros on the rows it never reached.
 //
@@ -67,19 +83,12 @@
 // `mask_unwritten_rows`.
 #include <cuda_runtime.h>
 
+#include "bwd_reduce.cuh"
 #include "composite_common.cuh"
 
 using namespace lidargs;
 
 namespace {
-
-constexpr int kRows = 32;      // instance rows staged per shared-memory chunk
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // kWindows: tile t's rows (and their gradients) start at row starts[t] of
 // inst (dinst), and only its [0, count) rows are written (K4); else at row
@@ -92,13 +101,15 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
     const float* __restrict__ g, float* __restrict__ dinst, int K, int F, int npix,
     float alpha_min, float alpha_clamp, float t_min) {
   constexpr int NV = kFeat0 + C;      // gradient columns per row
+  constexpr int NP = (NV + 3) / 4 * 4;  // their stride in the partials: whole float4s
   constexpr int kRect = kFeat0 + C;
-  extern __shared__ float smem[];
-  float* rows = smem;                 // [kRows][F]
-  float* part = smem + kRows * F;     // [n_warps][kRows][NV]
+  extern __shared__ float4 smem4[];
+  float* rows = reinterpret_cast<float*>(smem4);           // [kBwdRows][F]
+  float* part = rows + kBwdRows * F;                       // [n_warps][kBwdRows][NP]
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31, warp = p >> 5, n_warps = blockDim.x >> 5;
+  RowBits* touched = reinterpret_cast<RowBits*>(part + n_warps * kBwdRows * NP);  // [n_warps]
   const bool in = p < npix;           // the block is padded to whole warps
 
   float dirx = 0.f, diry = 0.f, dirz = 0.f, px = 0.f, py = 0.f;
@@ -132,16 +143,17 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
   bool done = !in;
   int reached = 0;                    // rows [0, reached) are written
 
-  for (int base = 0; base < count; base += kRows) {
-    const int n = min(kRows, count - base);
-    __syncthreads();                  // previous chunk's rows and partials consumed
+  for (int base = 0; base < count; base += kBwdRows) {
+    const int n = min(kBwdRows, count - base);
+    __syncthreads();                  // previous chunk's rows, partials and words consumed
     for (int i = p; i < n * F; i += blockDim.x) rows[i] = ti[(size_t)base * F + i];
     __syncthreads();
+    RowBits mine = 0;                // bit j: this warp stored a partial of row j
     for (int j = 0; j < n; ++j) {     // every lane runs every j: the warp votes below
       const float* r = rows + j * F;
-      float v[NV];
+      float v[NP];
 #pragma unroll
-      for (int k = 0; k < NV; ++k) v[k] = 0.f;
+      for (int k = 0; k < NP; ++k) v[k] = 0.f;
       bool hit = false;
       PairGeom gm;
       bool passed = false;
@@ -168,7 +180,7 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
           acc_w += w * direct;
           const float behind = tot - acc_w;
           if (gm.araw <= alpha_clamp) {      // live: alpha is not clamped
-            const float dalpha = P * direct - (behind + gT * t_fin) / (1.f - gm.alpha);
+            const float dalpha = P * direct - __fdividef(behind + gT * t_fin, 1.f - gm.alpha);
             const float dpower = dalpha * gm.araw;
             const float a = r[kConic], b = r[kConic + 1], cc = r[kConic + 2];
             const float d_ddx = -dpower * (a * gm.ddx + b * gm.ddy);
@@ -192,26 +204,15 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(
           for (int c = 0; c < C; ++c) v[kFeat0 + c] = w * gc[c];
         }
       }
-      float* pw = part + ((size_t)warp * kRows + j) * NV;
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) {
-          const float s = warp_sum(v[k]);
-          if (lane == 0) pw[k] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) pw[k] = 0.f;
+      const unsigned hits = __ballot_sync(kFullMask, hit);
+      if (hits) {
+        store_warp_sum<NV, NP, -1>(v, hits, lane, part + (warp * kBwdRows + j) * NP);
+        mine |= RowBits(1) << j;
       }
     }
-    __syncthreads();                  // partials of this chunk complete
-    for (int i = p; i < n * F; i += blockDim.x) {
-      const int j = i / F, col = i - j * F;
-      float s = 0.f;
-      if (col < NV)
-        for (int w = 0; w < n_warps; ++w) s += part[((size_t)w * kRows + j) * NV + col];
-      to[(size_t)base * F + i] = s;
-    }
+    if (lane == 0) touched[warp] = mine;
+    __syncthreads();                  // partials and touched words of this chunk complete
+    write_chunk<NV, NP, -1>(part, touched, n, F, n_warps, warp, lane, to + (size_t)base * F);
     reached = base + n;
     if (!__syncthreads_or(!done)) break;   // every pixel has crossed
   }
@@ -226,8 +227,11 @@ cudaError_t launch_as(const float* inst, const int* starts, const int* counts,
                       int K, int F, int npix, float alpha_min, float alpha_clamp, float t_min,
                       cudaStream_t stream) {
   const int threads = (npix + 31) / 32 * 32;
+  constexpr int NP = (kFeat0 + C + 3) / 4 * 4;
+  const int n_warps = threads / 32;
   const size_t smem =
-      ((size_t)kRows * F + (size_t)(threads / 32) * kRows * (kFeat0 + C)) * sizeof(float);
+      ((size_t)kBwdRows * F + (size_t)n_warps * kBwdRows * NP) * sizeof(float) +
+      n_warps * sizeof(RowBits);
   cudaError_t err = cudaFuncSetAttribute(composite_bwd_kernel<C, kWindows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

@@ -42,20 +42,30 @@
 // walk; each applied pair adds the chain above (~190 operations) and one add
 // per gradient column (16 + C) to reduce its row over the tile's pixels. The
 // count of pairs depends on the data; chip_smoke.py counts it from each
-// run's inputs. On its full-width scene the bytes bound it.
+// run's inputs, and the (tile, warp, row) visits that reduce. On its
+// full-width scene the bytes bound it; the time goes to the walk, the chain
+// and the row reduction, as in K2.
 //
-// Design, simple and deterministic, as K2:
+// Design, deterministic, no atomics, as K2 (composite_bwd.cu):
 //   * one block per tile, one thread per pixel; the tile's rows are staged
-//     through shared memory kRows at a time;
+//     through shared memory kBwdRows (64) at a time;
 //   * each thread repeats K5's own sequential walk (surfel_common.cuh: the
 //     same tests, the same roundings, the same crossing rule), so it stops
 //     where the forward that produced `res` stopped and recomputes each
-//     pair's depth with the bits K5 compared with its median;
-//   * each row's gradient is a sum over the tile's pixels, reduced without
-//     atomics: a butterfly of warp shuffles (skipped, with a zero partial,
-//     when no lane of the warp touched the row), one partial per warp in
-//     shared memory, a fixed-order sum over the warps, one write per
+//     pair's depth with the bits K5 compared with its median; the chain's
+//     divisions are reciprocals and __fdividef (~2 ulp), which move dinst by
+//     ~5e-5 of a column's scale at most and the walk not at all;
+//   * each row's gradient is a sum over the tile's pixels (bwd_reduce.cuh):
+//     per warp, nothing where no lane applied the row, the lane's own values
+//     where one did, else a transpose-reduce of 16 of the 17 live columns
+//     (the DEPTH column gets no gradient) and one butterfly; one partial per
+//     touching warp, a fixed-order sum over the touching warps, one write per
 //     element, so every run gives the same bits, as the TPU kernel does;
+//   * tiles of up to 128 pixels (the surfel tiling, h1) run the instance
+//     bounded at 128 threads and kMinBlocks (6) blocks an SM: 80 registers
+//     at C = 2 and no spills, where the 1024-thread bound capped the chain
+//     at 64 with ~140 bytes of spills; wider tiles run the 1024-thread
+//     instance;
 //   * the block leaves once every pixel is done (__syncthreads_or), and
 //     writes zeros on the rows it never reached.
 //
@@ -72,38 +82,36 @@
 // surfel_common.cuh, so the median's cotangent finds the same row.
 #include <cuda_runtime.h>
 
+#include "bwd_reduce.cuh"
 #include "surfel_common.cuh"
 
 using namespace lidargs;
 
 namespace {
 
-constexpr int kRows = 32;      // surfel rows staged per shared-memory chunk
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int kMinBlocks = 6;      // blocks an SM for tiles of <= 128 pixels: <= 80 registers
 
 // kWindows: tile t's rows (and their gradients) start at row starts[t] of
 // inst (dinst), and only its [0, count) rows are written (K8); else at row
-// t * K, all K written (K6; starts is not read).
-template <int C, bool kWindows>
-__global__ void __launch_bounds__(1024) surfel_bwd_kernel(
+// t * K, all K written (K6; starts is not read). A launch has at most
+// kMaxThreads threads, and the compiler keeps room for kMin blocks an SM.
+template <int C, bool kWindows, int kMaxThreads, int kMin>
+__global__ void __launch_bounds__(kMaxThreads, kMin) surfel_bwd_kernel(
     const float* __restrict__ inst, const int* __restrict__ starts,
     const int* __restrict__ counts,
     const float* __restrict__ pix, const float* __restrict__ res,
     const float* __restrict__ g, float* __restrict__ dinst, int K, int F, int npix,
     SurfelConsts kc) {
   constexpr int NV = kSFeat0 + C + 2;   // gradient columns per row, through the center
+  constexpr int NP = (NV + 3) / 4 * 4;  // their stride in the partials: whole float4s
   constexpr int kCen = kSFeat0 + C, kRect = kCen + 2, kValid = kCen + 6;
-  extern __shared__ float smem[];
-  float* rows = smem;                   // [kRows][F]
-  float* part = smem + kRows * F;       // [n_warps][kRows][NV]
+  extern __shared__ float4 smem4[];
+  float* rows = reinterpret_cast<float*>(smem4);           // [kBwdRows][F]
+  float* part = rows + kBwdRows * F;                       // [n_warps][kBwdRows][NP]
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int lane = p & 31, warp = p >> 5, n_warps = blockDim.x >> 5;
+  RowBits* touched = reinterpret_cast<RowBits*>(part + n_warps * kBwdRows * NP);  // [n_warps]
   const bool in = p < npix;             // the block is padded to whole warps
 
   float dirx = 0.f, diry = 0.f, dirz = 0.f, px = 0.f, py = 0.f;
@@ -157,16 +165,17 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
   bool done = !in;
   int reached = 0;                      // rows [0, reached) are written
 
-  for (int base = 0; base < count; base += kRows) {
-    const int n = min(kRows, count - base);
-    __syncthreads();                    // previous chunk's rows and partials consumed
+  for (int base = 0; base < count; base += kBwdRows) {
+    const int n = min(kBwdRows, count - base);
+    __syncthreads();                    // previous chunk's rows, partials and words consumed
     for (int i = p; i < n * F; i += blockDim.x) rows[i] = ti[(size_t)base * F + i];
     __syncthreads();
+    RowBits mine = 0;                  // bit j: this warp stored a partial of row j
     for (int j = 0; j < n; ++j) {       // every lane runs every j: the warp votes below
       const float* r = rows + j * F;
-      float v[NV];
+      float v[NP];
 #pragma unroll
-      for (int k = 0; k < NV; ++k) v[k] = 0.f;
+      for (int k = 0; k < NP; ++k) v[k] = 0.f;
       bool hit = false;
       SurfelGeom gm;
       bool passed = false;
@@ -203,11 +212,11 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
           am2 += wm2;
           const float behind = tot - acc_w;
           const float dalpha = gm.araw <= kc.alpha_clamp      // live: alpha is not clamped
-              ? P * direct - (behind + gT * t_fin) / (1.f - gm.alpha) : 0.f;
+              ? P * direct - __fdividef(behind + gT * t_fin, 1.f - gm.alpha) : 0.f;
 
           // the value chains: the distortion map m, the depth, the median
           const float d_m = gdist * 2.f * w * (m * w_tot - totm1) + gm1 * w + gm2 * 2.f * wm;
-          const float dm_ddep = dep > kc.depth_floor ? kc.m_dscale / (dep * dep) : 0.f;
+          const float dm_ddep = dep > kc.depth_floor ? __fdividef(kc.m_dscale, dep * dep) : 0.f;
           float d_dep = gd * w + d_m * dm_ddep;
           if (P > 0.5f && dep == med) d_dep += gmed;
 
@@ -221,6 +230,8 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
           // rho3d = sx^2 + sy^2, sx = (dp . Tu) / max(|Tu|^2, eps): the radial
           // term dies where the clamp is active, as autodiff of max
           const float dsx = 2.f * gm.sx * drho3d, dsy = 2.f * gm.sy * drho3d;
+          const float itu = __fdividef(1.f, gm.tu_tu), itv = __fdividef(1.f, gm.tv_tv),
+                      icos = __fdividef(1.f, gm.cos2s);
           const float ncu = gm.tu_sq > 1e-20f ? 1.f : 0.f;
           const float ncv = gm.tv_sq > 1e-20f ? 1.f : 0.f;
           const float dp[3] = {gm.dpx, gm.dpy, gm.dpz};
@@ -230,16 +241,16 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
             const float tu = r[kTu + a], tv = r[kTv + a];
-            ddp[a] = dsx * tu / gm.tu_tu + dsy * tv / gm.tv_tv;
-            v[kTu + a] = dsx * (dp[a] - ncu * 2.f * gm.sx * tu) / gm.tu_tu;
-            v[kTv + a] = dsy * (dp[a] - ncv * 2.f * gm.sy * tv) / gm.tv_tv;
+            ddp[a] = dsx * tu * itu + dsy * tv * itv;
+            v[kTu + a] = dsx * (dp[a] - ncu * 2.f * gm.sx * tu) * itu;
+            v[kTv + a] = dsy * (dp[a] - ncv * 2.f * gm.sy * tv) * itv;
             d_lam2 += ddp[a] * dir[a];
           }
           // depth = use3d ? lam2 : rho_r; dp = lam2 dir - Tw; lam2 = (Tw . n) / cos2
           const float d_rho_r = gm.use3d ? 0.f : d_dep;
-          const float d_lam = d_lam2 / gm.cos2s;
-          const float d_cos2 = -d_lam2 * gm.lam2 / gm.cos2s;   // applied rows hit the plane
-          const float rr_fac = gm.tw_sq > 1e-20f ? d_rho_r / gm.rho_r : 0.f;
+          const float d_lam = d_lam2 * icos;
+          const float d_cos2 = -d_lam2 * gm.lam2 * icos;   // applied rows hit the plane
+          const float rr_fac = gm.tw_sq > 1e-20f ? __fdividef(d_rho_r, gm.rho_r) : 0.f;
 #pragma unroll
           for (int a = 0; a < 3; ++a) {
             const float tw = r[kTw + a], nrm = r[kNrm + a];
@@ -251,28 +262,16 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
           for (int c = 0; c < C; ++c) v[kSFeat0 + c] = w * gc[c];
         }
       }
-      float* pw = part + ((size_t)warp * kRows + j) * NV;
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) {
-          if (k == kSDepth) continue;     // the DEPTH column gets no gradient
-          const float s = warp_sum(v[k]);
-          if (lane == 0) pw[k] = s;
-        }
-        if (lane == 0) pw[kSDepth] = 0.f;
-      } else if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) pw[k] = 0.f;
+      const unsigned hits = __ballot_sync(kFullMask, hit);
+      if (hits) {
+        store_warp_sum<NV, NP, kSDepth>(v, hits, lane, part + (warp * kBwdRows + j) * NP);
+        mine |= RowBits(1) << j;
       }
     }
-    __syncthreads();                    // partials of this chunk complete
-    for (int i = p; i < n * F; i += blockDim.x) {
-      const int j = i / F, col = i - j * F;
-      float s = 0.f;
-      if (col < NV)
-        for (int w = 0; w < n_warps; ++w) s += part[((size_t)w * kRows + j) * NV + col];
-      to[(size_t)base * F + i] = s;
-    }
+    if (lane == 0) touched[warp] = mine;
+    __syncthreads();                    // partials and touched words of this chunk complete
+    write_chunk<NV, NP, kSDepth>(part, touched, n, F, n_warps, warp, lane,
+                                 to + (size_t)base * F);
     reached = base + n;
     if (!__syncthreads_or(!done)) break;   // every pixel has crossed
   }
@@ -281,30 +280,47 @@ __global__ void __launch_bounds__(1024) surfel_bwd_kernel(
   for (size_t i = (size_t)reached * F + p; i < (size_t)owned * F; i += blockDim.x) to[i] = 0.f;
 }
 
-template <int C, bool kWindows>
+template <int C, bool kWindows, int kMaxThreads, int kMin>
 cudaError_t launch_as(const float* inst, const int* starts, const int* counts,
                       const float* pix, const float* res, const float* g, float* dinst, int T,
                       int K, int F, int npix, const SurfelConsts& kc, cudaStream_t stream) {
+  constexpr int NP = (kSFeat0 + C + 2 + 3) / 4 * 4;
   const int threads = (npix + 31) / 32 * 32;
+  const int n_warps = threads / 32;
   const size_t smem =
-      ((size_t)kRows * F + (size_t)(threads / 32) * kRows * (kSFeat0 + C + 2)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(surfel_bwd_kernel<C, kWindows>,
+      ((size_t)kBwdRows * F + (size_t)n_warps * kBwdRows * NP) * sizeof(float) +
+      n_warps * sizeof(RowBits);
+  cudaError_t err = cudaFuncSetAttribute(surfel_bwd_kernel<C, kWindows, kMaxThreads, kMin>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  surfel_bwd_kernel<C, kWindows><<<T, threads, smem, stream>>>(
+  surfel_bwd_kernel<C, kWindows, kMaxThreads, kMin><<<T, threads, smem, stream>>>(
       inst, starts, counts, pix, res, g, dinst, K, F, npix, kc);
   return cudaGetLastError();
+}
+
+// The instance bounded at 128 threads where the tile has 128 pixels or
+// fewer, else the one bounded at 1024.
+template <int C, bool kWindows>
+cudaError_t launch_sized(const float* inst, const int* starts, const int* counts,
+                         const float* pix, const float* res, const float* g, float* dinst,
+                         int T, int K, int F, int npix, const SurfelConsts& kc,
+                         cudaStream_t stream) {
+  return npix <= 128
+      ? launch_as<C, kWindows, 128, kMinBlocks>(inst, starts, counts, pix, res, g, dinst, T, K,
+                                                F, npix, kc, stream)
+      : launch_as<C, kWindows, 1024, 1>(inst, starts, counts, pix, res, g, dinst, T, K, F,
+                                        npix, kc, stream);
 }
 
 template <int C>
 cudaError_t launch(const float* inst, const int* starts, const int* counts, const float* pix,
                    const float* res, const float* g, float* dinst, int T, int K, int F,
                    int npix, const SurfelConsts& kc, cudaStream_t stream) {
-  return starts ? launch_as<C, true>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
-                                     kc, stream)
-                : launch_as<C, false>(inst, starts, counts, pix, res, g, dinst, T, K, F, npix,
-                                      kc, stream);
+  return starts ? launch_sized<C, true>(inst, starts, counts, pix, res, g, dinst, T, K, F,
+                                        npix, kc, stream)
+                : launch_sized<C, false>(inst, starts, counts, pix, res, g, dinst, T, K, F,
+                                         npix, kc, stream);
 }
 
 // K6 where starts is null, K8 otherwise.

@@ -5,8 +5,10 @@ line.
 `walked_pairs` counts, with tensor ops over whole tiles, the pixel-instance
 pairs that K1's sequential walk visits, split into applied pairs (K2's
 backward chain runs on these alone), other pairs inside the parity rect,
-and pairs outside it, and the rows of the tiles' lists that some pixel
-visits (the rows behind the kernels' byte counts). Here it is held to a walk written out pixel by pixel
+and pairs outside it, the rows of the tiles' lists that some pixel
+visits (the rows behind the kernels' byte counts), and the (tile, warp of
+32 pixels, row) visits in which some lane applies the row (the row
+reductions K2 runs). Here it is held to a walk written out pixel by pixel
 and row by row in float32 numpy, on the instances, counts and pixel blocks
 of the JAX render path, for a sample of pixels. `walked_surfel_pairs` does
 the same for K5's walk over surfels (split at the valid flag and the rect
@@ -20,6 +22,7 @@ as the wrapper does: every phase's control flow, launch count check and
 comparison runs, and the last line is the contract's.
 """
 import json
+import re
 
 import numpy as np
 import pytest
@@ -40,10 +43,11 @@ C = 2
 
 
 def _walk(inst, counts, pix, cfg):
-    """(applied, other in rect, out of rect, rows some pixel visits) from a
-    sequential walk."""
+    """(applied, other in rect, out of rect, rows some pixel visits,
+    (tile, warp, row) visits some lane applies) from a sequential walk."""
     rc = PC.rect(C).start
-    n = [0, 0, 0, 0]
+    n = [0, 0, 0, 0, 0]
+    reduced = set()                                 # (tile, warp, row) with an applied lane
     f32 = np.float32
     for t in range(inst.shape[0]):
         reach = 0                                   # rows [0, reach) visited by some pixel
@@ -69,8 +73,10 @@ def _walk(inst, counts, pix, cfg):
                     n[1] += 1                       # the crossing: visited, not applied
                     break
                 n[0] += 1
+                reduced.add((t, p // 32, k))
                 T = T_next
         n[3] += reach
+    n[4] = len(reduced)
     return tuple(n)
 
 
@@ -84,27 +90,30 @@ def test_walked_pairs_counts_the_sequential_walk(case):
     seed, n, H, W = (case.pop(k) for k in ("seed", "n", "H", "W"))
     scale_px = case.pop("scale_px", 2.0)
     _, inst, counts, pix = _kernel_inputs(seed, n, H, W, scale_px, **case)
-    pix = np.ascontiguousarray(pix[:, :, ::23])               # a sample of each tile's pixels
+    pix = np.ascontiguousarray(pix[:, :, ::3])                # 43 of each tile's pixels
     cfg = TCfg(**case)
     got = chip_smoke.walked_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
                                   torch.from_numpy(pix), C, cfg)
     want = _walk(inst, counts, pix, cfg)
     assert got == want
     assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
+    assert 0 < want[4] < want[0]                    # the warps' lanes share rows
 
 
 def _walk_surfels(inst, counts, pix, cfg):
     """(applied, other past the valid and rect tests, stopped by them, rows
-    some pixel visits) from a sequential walk; each pair's alpha and pass
-    flag come from `pair_geometry`, the walk, its stop rule and the split
-    are written out."""
+    some pixel visits, (tile, warp, row) visits some lane applies) from a
+    sequential walk; each pair's alpha and pass flag come from
+    `pair_geometry`, the walk, its stop rule and the split are written
+    out."""
     rc, vf = S.rect(C).start, S.validf(C)
     it, ip = torch.from_numpy(inst), torch.from_numpy(pix)
     d = lambda i: ip[:, i, None, :]
     g = pair_geometry(it, d(0), d(1), d(2), d(3), d(4), C, cfg)
     alpha, passed = g.alpha.numpy(), g.passed.numpy()
     f32 = np.float32
-    n = [0, 0, 0, 0]
+    n = [0, 0, 0, 0, 0]
+    reduced = set()                                 # (tile, warp, row) with an applied lane
     for t in range(inst.shape[0]):
         reach = 0                                   # rows [0, reach) visited by some pixel
         for p in range(pix.shape[2]):
@@ -125,8 +134,10 @@ def _walk_surfels(inst, counts, pix, cfg):
                     n[1] += 1                       # the crossing: visited, not applied
                     break
                 n[0] += 1
+                reduced.add((t, p // 32, k))
                 T = T_next
         n[3] += reach
+    n[4] = len(reduced)
     return tuple(n)
 
 
@@ -140,13 +151,14 @@ def test_walked_surfel_pairs_counts_the_sequential_walk(case):
     seed, n, H, W = (case.pop(k) for k in ("seed", "n", "H", "W"))
     extra = {k: case.pop(k) for k in ("scale", "opaque") if k in case}
     _, inst, counts, pix = _surfel_inputs(seed, n, H, W, **extra, **case)
-    pix = np.ascontiguousarray(pix[:, :, ::7])                # a sample of each tile's pixels
+    pix = np.ascontiguousarray(pix[:, :, ::3])                # 43 of each tile's pixels
     cfg = TCfg(**case)
     got = chip_smoke.walked_surfel_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
                                          torch.from_numpy(pix), C, cfg)
     want = _walk_surfels(inst, counts, pix, cfg)
     assert got == want
     assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
+    assert 0 < want[4] < want[0]                    # the warps' lanes share rows
 
 
 def test_kernel_ab_needs_labelled_source_trees():
@@ -154,6 +166,41 @@ def test_kernel_ab_needs_labelled_source_trees():
         kernel_ab.main([])
     with pytest.raises(SystemExit, match="LABEL=CSRC_DIR"):
         kernel_ab.main(["out", "lidargs_torch/csrc"])
+
+
+@pytest.mark.parametrize("name", sorted(kernel_ab.KERNELS))
+def test_kernel_ab_binds_exported_launch_functions(name):
+    """Each launch function `KERNELS` names is an `extern "C"` function of
+    its source, with the tensor pointers and float constants `_bind`
+    declares for it (a text check: the sources build only on the card)."""
+    symbol, n_ptr, n_float = kernel_ab.KERNELS[name]
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    exported = src[src.index('extern "C" {'):]
+    m = re.search(rf"\bint {symbol}\(([^)]*)\)\s*{{", exported)
+    assert m, f"{symbol} is not an extern \"C\" function of {name}.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert [p.split()[0] for p in params[n_ptr:n_ptr + 5]] == ["int"] * 5
+    assert len(params) == n_ptr + 5 + n_float + 1 and params[-1] == "void* stream"
+    assert all("*" in p for p in params[:n_ptr])
+    assert all(p.split()[0] == "float" for p in params[n_ptr + 5:-1])
+
+
+def test_kernel_ab_reads_resources_and_scales_columns():
+    log = ("ptxas info    : Function properties for _ZN49_GLOBAL__N__1_20surfel_bwd_kernelILi2ELb1"
+           "ELi128ELi4EEEvPKfPKiS4_S2_S2_S2_PfiiiN7lidargs12SurfelConstsE\n"
+           "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+           "ptxas info    : Used 96 registers, used 1 barriers\n")
+    assert kernel_ab.resources(log) == {"2,1,128,4": [96, 12, 16]}
+    want = torch.zeros(3, 4, 8)
+    want[..., :5] = torch.randn(3, 4, 5, generator=torch.Generator().manual_seed(0))
+    assert kernel_ab.column_scaled(want.clone(), want, 5)["within_tol"]
+    moved = want.clone()
+    moved[0, 0, 1] += 1e-2 * want[..., 1].abs().max()       # 1% of the column's scale
+    err = kernel_ab.column_scaled(moved, want, 5)
+    assert not err["within_tol"] and err["far_count"] == 1
+    moved = want.clone()
+    moved[0, 0, 6] = 1.0                                    # a column past the gradients
+    assert not kernel_ab.column_scaled(moved, want, 5)["within_tol"]
 
 
 def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -199,6 +246,8 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     surfel = timing["surfel"]
     assert surfel["k5_launches_train"] == surfel["k6_launches"] == 2
     assert surfel["k5_bound"]["pairs_applied"] > 0
+    for bound in (timing["train"]["k2_bound"], surfel["k6_bound"]):
+        assert 0 < bound["warp_rows_reduced"] <= bound["pairs_applied"]
     assert timing["windows"]["train_launches"] == {"K1": 0, "K2": 0, "K3": 2, "K4": 2}
     assert timing["surfel_windows"]["render_launches"] == {"K5": 0, "K6": 0, "K7": 3, "K8": 0}
     # the window kernels' bounds count the same pairs as the tile kernels'

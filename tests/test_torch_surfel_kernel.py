@@ -31,7 +31,18 @@ Tolerances, each with its reason:
     the backward's with at most 64 elements beyond 2e-5, as `chip_smoke.py`
     allows K6 (a pixel at the threshold can stop one surfel apart).
 
-The CUDA case needs a card and nvcc; it is marked `cuda` and skips here.
+The backward bound also holds the plain version to the Pallas body on
+inputs made for K6's row reduction (`_edge_inputs`): every other row's rect
+shrunk to one pixel, so at most one lane of a warp applies it, and six
+opaque rows in front of every list, so every pixel is done within the
+kernel's first chunk of rows. A block of 100 pixels (the last warp partial)
+has no Pallas counterpart: the plain version on those pixels is held to it
+on the whole block with a zero cotangent on the others.
+
+The CUDA cases need a card and nvcc; they are marked `cuda` and skip here.
+On the card, K6 on the three edge cases is held to the plain version, two
+launches to each other bit for bit, and K8 on windows of one buffer holding
+the same rows to K6 scattered to the windows, bit for bit.
 """
 import functools
 
@@ -48,6 +59,7 @@ from lidargs_tpu.ops.pallas_surfel import OUT_ROWS, _bwd_call, surfel_composite_
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene
+from test_torch_composite_bwd import EDGE_KINDS, N_FRONT, _windows_of
 
 C = 2
 NV = 16 + C          # gradient columns through the center
@@ -152,6 +164,53 @@ def _cotangent(shape, seed):
     return g
 
 
+def _edge_inputs(kind):
+    """CASES[0]'s inputs (copied), made for one path of K6's row reduction:
+      partial_warp: the first 100 pixels of each tile's 128;
+      single_lane: every other row's parity rect shrunk to the one pixel at
+        its center;
+      first_chunk: a scene 2048 columns wide (a tile spans 22.5 degrees),
+        with N_FRONT rows in front of each list, each a plane facing the
+        tile's mean ray 10 m out with 100 m axes (rho < 1e-3, alpha ~
+        opacity 0.8 on every pixel) and a rect over the whole tile, so every
+        pixel crosses at the last of them, and every list full;
+    with a random cotangent on every row the forward writes."""
+    jcfg, tcfg, inst, counts, pix = _case_at(0)
+    if kind == "first_chunk":
+        jcfg, inst, counts, pix = _surfel_inputs(0, 160, 8, 2048, tile_capacity=64)
+    inst, counts = inst.copy(), counts.copy()
+    S = js.SurfelCols
+    rc = S.rect(C)
+    T, K, _ = inst.shape
+    g = _cotangent((T, OUT_ROWS, pix.shape[2]), 12)
+    if kind == "partial_warp":
+        return jcfg, tcfg, inst, counts, np.ascontiguousarray(pix[:, :, :100]), g[:, :, :100]
+    if kind == "single_lane":
+        r = inst[:, ::2, rc]
+        xc = np.clip(np.floor((r[..., 0] + r[..., 1]) / 2), r[..., 0], r[..., 1] - 1)
+        yc = np.clip(np.floor((r[..., 2] + r[..., 3]) / 2), r[..., 2], r[..., 3] - 1)
+        inst[:, ::2, rc] = np.stack([xc, xc + 1, yc, yc + 1], -1)
+        return jcfg, tcfg, inst, counts, pix, g
+    m = pix[:, 0:3].mean(-1)
+    m /= np.linalg.norm(m, axis=-1, keepdims=True)               # [T, 3] mean ray
+    u = np.cross(m, [0.0, 0.0, 1.0])
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    v = np.cross(m, u)
+    front = np.zeros((T, N_FRONT, inst.shape[2]), np.float32)
+    front[..., S.TU] = 100.0 * u[:, None]
+    front[..., S.TV] = 100.0 * v[:, None]
+    front[..., S.TW] = 10.0 * m[:, None]
+    front[..., S.NORMAL] = -m[:, None]
+    front[..., S.OPACITY] = 0.8
+    front[..., S.DEPTH] = 10.0
+    front[..., S.FEAT0:S.FEAT0 + C] = np.random.default_rng(5).uniform(size=(T, N_FRONT, C))
+    front[..., S.center(C)] = np.stack([pix[:, 3].mean(-1), pix[:, 4].mean(-1)], -1)[:, None]
+    front[..., rc] = [-1e6, 1e6, -1e6, 1e6]
+    front[..., S.validf(C)] = 1.0
+    inst = np.concatenate([front, inst[:, :K - N_FRONT]], 1)
+    return jcfg, tcfg, inst, np.full_like(counts, K), pix, g
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_plain_fwd_matches_pallas_kernel_body(case):
     _, tcfg, inst, counts, pix = _case(case)
@@ -185,6 +244,38 @@ def test_plain_bwd_matches_pallas_kernel_body(case):
         walked = np.abs(want).max(-1) > 0
         last = np.where(walked.any(1), walked.shape[1] - 1 - np.argmax(walked[:, ::-1], 1), -1)
         assert (last < counts - 1).any()
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_plain_bwd_on_the_reduction_edge_cases(kind):
+    """Each side at its own forward's output, as above."""
+    jcfg, tcfg, inst, counts, pix, g = _edge_inputs(kind)
+    ti, tn, tp = _t(inst, counts, pix)
+    res_t = sk.surfel_composite_tiles_plain(ti, tn, tp, C, tcfg)
+    got = sk.surfel_composite_tiles_bwd_plain(ti, tn, tp, res_t, torch.from_numpy(g), C,
+                                              tcfg).numpy()
+    if kind == "partial_warp":
+        _, _, _, _, pix_all = _case_at(0)
+        g_all = _cotangent((pix_all.shape[0], OUT_ROWS, pix_all.shape[2]), 12)
+        g_all[:, :, 100:] = 0.0
+        ta, tg = _t(pix_all, g_all)
+        full = sk.surfel_composite_tiles_bwd_plain(
+            ti, tn, ta, sk.surfel_composite_tiles_plain(ti, tn, ta, C, tcfg), tg, C,
+            tcfg).numpy()
+        assert pix.shape[2] % 32 != 0
+        _compare_dinst(got, full)
+        return
+    res_j = np.asarray(jax.jit(lambda a, b, c: surfel_composite_tiles(a, b, c, C, jcfg))(
+        inst, counts, pix))
+    want = np.asarray(jax.jit(lambda *a: _bwd_call(*a, C, jcfg))(inst, counts, pix, res_j, g))
+    _compare_dinst(got, want)
+    touched = np.abs(want[..., :NV]).max(-1) > 0
+    if kind == "single_lane":
+        assert touched[:, ::2].sum() > 20             # one-pixel rows that a pixel applied
+    else:
+        live = counts > 0
+        assert touched[live, :N_FRONT - 1].all()      # every pixel applied the opaque rows
+        assert not touched[:, N_FRONT - 1:].any()     # and crossed at the last of them
 
 
 def test_plain_bwd_matches_autograd_of_plain_fwd():
@@ -278,3 +369,29 @@ def test_cuda_kernels_match_plain_on_card():
     _compare_dinst(d1.cpu().numpy(), ref.cpu().numpy(), far_count=64)
     with pytest.raises(TypeError, match="int32"):
         sk.surfel_composite_tiles(args[0], args[1].long(), args[2], C, tcfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_cuda_bwd_reduction_paths_on_card(kind):
+    """K6 on the edge cases of its row reduction (a partial warp, rows one
+    lane applies, every pixel done in the first chunk), at K5's output,
+    against the plain version, two launches bit for bit, and K8 on windows
+    of one buffer holding the same rows equal to K6 scattered to the
+    windows, every other row zero, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    _, tcfg, inst, counts, pix, g = _edge_inputs(kind)
+    dev = torch.device("cuda")
+    ti, tc, tp, tg = [x.to(dev) for x in _t(inst, counts, pix, g)]
+    res = sk.surfel_composite_tiles(ti, tc, tp, C, tcfg)
+    d1 = sk.surfel_composite_tiles_bwd(ti, tc, tp, res, tg, C, tcfg)
+    d2 = sk.surfel_composite_tiles_bwd(ti, tc, tp, res, tg, C, tcfg)
+    buf, starts = _windows_of(ti, tc)
+    w1 = sk.surfel_composite_windows_bwd(buf, starts, tc, tp, res, tg, C, tcfg)
+    w2 = sk.surfel_composite_windows_bwd(buf, starts, tc, tp, res, tg, C, tcfg)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and torch.equal(w1, w2)
+    assert torch.equal(w1, sk.scatter_windows(d1, starts, tc, buf.shape[0]))
+    ref = sk.surfel_composite_tiles_bwd_plain(ti, tc, tp, res, tg, C, tcfg)
+    _compare_dinst(d1.cpu().numpy(), ref.cpu().numpy(), far_count=64)

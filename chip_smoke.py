@@ -21,8 +21,10 @@ then:
      (plain PyTorch) on a small scene;
   4. holds K1 against its plain PyTorch version on the inputs that the main
      path gave it for one frame;
-  5. times the render, K1 and the plain version with CUDA events, and
-     computes K1's bound from this run's inputs;
+  5. times the render, K1 and the plain version with CUDA events, computes
+     K1's bound from this run's inputs and counts the (tile, warp of 32
+     pixels, row) visits of K1's walk: of a walk over every row, those with
+     a lane inside the row's rect, and those of the kernel's masked walk;
   6. lists the render's costliest device kernels from torch.profiler;
   7. trains: N_STEPS `Trainer.step`s of the same scene against random GT
      images (as the JAX package's train-step benchmark draws them) from
@@ -56,8 +58,9 @@ then:
      parameter gradients through K5/K6 against those through the plain
      versions;
  14. times the surfel frame and step, K5, K6 and both plain versions with
-     CUDA events, computes K5's and K6's bounds (and K6's row reductions)
-     from this run's inputs and profiles a frame and a step;
+     CUDA events, computes K5's and K6's bounds (and K6's row reductions,
+     K5's warp visits as K1's) from this run's inputs and profiles a frame
+     and a step;
  15. renders the same frames through the fused-window gather of the beam
      variant, `measure_fps` with `fused_gather=True` at h4/K768/cap8, with
      the counts set to 0 just before and read just after, requiring one K3
@@ -267,36 +270,61 @@ def tile_bytes(counts, rows_walked: int, cols: int, pix, *elements: int) -> int:
     return 4 * (rows_walked * cols + counts.numel() + T * 5 * npix + sum(elements))
 
 
-def warp_rows(applied) -> int:
-    """(tile, warp of 32 pixels, row) visits in which some lane applies the
-    row, of an [tiles, rows, NPIX] mask of applied pairs: the row
-    reductions a backward kernel runs (its warps are 32 consecutive pixels
-    of a tile, the last one padded)."""
+def warp_rows(pairs) -> int:
+    """(tile, warp of 32 pixels, row) triples in which some lane's pair is
+    set, of an [tiles, rows, NPIX] mask of pairs (the kernels' warps are 32
+    consecutive pixels of a tile, the last one padded). Of the applied
+    pairs: the row reductions a backward kernel runs; of the visited pairs:
+    the rows a warp walks; of the visited pairs inside the rect: those in
+    which a lane does more than the rect test."""
     import torch
 
-    g, K, npix = applied.shape
-    lanes = torch.nn.functional.pad(applied.to(torch.uint8), (0, -npix % 32))
+    g, K, npix = pairs.shape
+    lanes = torch.nn.functional.pad(pairs.to(torch.uint8), (0, -npix % 32))
     return int(lanes.view(g, K, -1, 32).amax(-1).sum())
+
+
+def masked_warp_rows(mask, visited) -> int:
+    """(tile, warp, row) visits of the forward kernels' masked walk: the
+    rows of an [tiles, rows, n_warps] `warp_row_mask` in each chunk of
+    FWD_CHUNK rows that the warp walks, which it does unless all its lanes
+    are done when the chunk lands, i.e. iff one of its lanes visits the
+    chunk's first row ([tiles, rows, NPIX] `visited`)."""
+    import torch
+
+    from lidargs_torch.ops.composite_kernel import FWD_CHUNK
+
+    g, K, npix = visited.shape
+    lanes = torch.nn.functional.pad(visited.to(torch.uint8), (0, -npix % 32))
+    walks = lanes.view(g, K, -1, 32).amax(-1)[:, ::FWD_CHUNK]         # [g, chunks, n_warps]
+    walks = walks.repeat_interleave(FWD_CHUNK, dim=1)[:, :K].bool()
+    return int((mask & walks).sum())
 
 
 def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-instance pairs that K1's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
     crossing), as (applied, other in rect, out of rect, rows, reducing warp
-    rows): the pairs that pass and are blended (K2 runs its backward chain
-    and reduction on these alone), the other pairs inside the instance's
-    parity rect (the alpha arithmetic, then a failed test or the crossing),
-    the pairs outside it (the rect test alone), the rows of the tiles' lists
-    that some pixel visits (the rows the function must read), and the
-    `warp_rows` of the applied pairs (K2's row reductions)."""
+    rows, warp rows visited, warp rows visited in rect, warp rows of the
+    masked walk): the pairs that pass and are blended (K2 runs its backward
+    chain and reduction on these alone), the other pairs inside the
+    instance's parity rect (the alpha arithmetic, then a failed test or the
+    crossing), the pairs outside it (the rect test alone), the rows of the
+    tiles' lists that some pixel visits (the rows the function must read),
+    the `warp_rows` of the applied pairs (K2's row reductions), of the
+    visited pairs (what a warp walks when it visits every row, as K2 does)
+    and of the visited pairs inside the rect, and the visits of K1's masked
+    walk (`masked_warp_rows`): at least the last, as it also counts the
+    masked rows of a chunk after the warp's last lane has stopped."""
     import torch
 
+    from lidargs_torch.ops.composite_kernel import warp_row_mask
     from lidargs_torch.ops.projection import PackedCols as PC
 
     T, K, _ = inst.shape
     rc = PC.rect(C).start
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = n_warp = 0
+    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -319,7 +347,11 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         n_out += int((visited & ~in_rect).sum())
         n_rows += int(visited.any(dim=2).sum())
         n_warp += warp_rows(applied)
-    return n_app, n_in - n_app, n_out, n_rows, n_warp
+        n_wvis += warp_rows(visited)
+        n_wrect += warp_rows(visited & in_rect)
+        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc)
+        n_wmask += masked_warp_rows(mask, visited)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
 def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
@@ -383,20 +415,24 @@ def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     """Pixel-surfel pairs that K5's sequential walk visits on these inputs
     (each pixel's live rows up to and including its first transmittance
     crossing), as (applied, other past the valid and rect tests, stopped by
-    them, rows, reducing warp rows): the pairs blended (K5's accumulators
-    and K6's chain run on these alone), the other pairs that reach the pair
-    geometry, the pairs that cost the cheap tests alone, the rows of the
-    tiles' lists that some pixel visits, and the `warp_rows` of the applied
-    pairs (K6's row reductions)."""
+    them, rows, reducing warp rows, warp rows visited, warp rows visited
+    past the valid and rect tests, warp rows of the masked walk): the pairs
+    blended (K5's accumulators and K6's chain run on these alone), the
+    other pairs that reach the pair geometry, the pairs that cost the cheap
+    tests alone, the rows of the tiles' lists that some pixel visits, the
+    `warp_rows` of the applied pairs (K6's row reductions), of the visited
+    pairs and of the visited pairs past the cheap tests, and the visits of
+    K5's masked walk (`masked_warp_rows`; its mask folds the valid flag in)."""
     import torch
 
+    from lidargs_torch.ops.composite_kernel import warp_row_mask
     from lidargs_torch.ops.surfel import SurfelCols as S
     from lidargs_torch.ops.surfel import pair_geometry
 
     T, K, _ = inst.shape
     rc, vf = S.rect(C).start, S.validf(C)
     k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = n_warp = 0
+    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
     for t0 in range(0, T, group):
         r = inst[t0:t0 + group]
         col = lambda i: r[:, :, i, None]                            # [g,K,1]
@@ -415,7 +451,11 @@ def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
         n_out += int((visited & ~cheap).sum())
         n_rows += int(visited.any(dim=2).sum())
         n_warp += warp_rows(applied)
-    return n_app, n_in - n_app, n_out, n_rows, n_warp
+        n_wvis += warp_rows(visited)
+        n_wrect += warp_rows(visited & cheap)
+        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc, vf)
+        n_wmask += masked_warp_rows(mask, visited)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
 def grad_diff(a: dict, b: dict) -> dict:
@@ -537,9 +577,12 @@ def time_vs_plain(kernel, plain, args) -> tuple:
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, ms: float,
                  plain_ms: float, b: dict, **errors) -> dict:
-    """One kernel's entry of the `kernels` line."""
+    """One kernel's entry of the `kernels` line; a forward kernel's carries
+    its bound's (tile, warp, row) visits."""
+    visits = {k: b[k] for k in ("warp_row_visits", "warp_row_visits_in_rect",
+                                "warp_row_visits_masked") if k in b}
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, **errors, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, **errors, **visits, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
@@ -706,13 +749,19 @@ def run(dev) -> None:
                                         (inst, counts, pix, C, rcfg))
         render = lambda: render_field(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
-        n_app, n_other, n_out, n_rows, _ = walked_pairs(inst, counts, pix, C, rcfg)
+        n_app, n_other, n_out, n_rows, _, n_wvis, n_wrect, n_wmask = walked_pairs(
+            inst, counts, pix, C, rcfg)
         prof = profile_render(render)
     n_in = n_app + n_other
     # K1 reads the columns up to the rect's (PackedCols) of each row
     b1 = bound(tile_bytes(counts, n_rows, PC.rect(C).stop, pix, out_k.numel()),
                OPS_IN_RECT * n_in + OPS_OUT_RECT * n_out)
-    b1.update(pairs_in_rect=n_in, pairs_applied=n_app, pairs_out_rect=n_out, rows=n_rows)
+    b1.update(pairs_in_rect=n_in, pairs_applied=n_app, pairs_out_rect=n_out, rows=n_rows,
+              warp_row_visits=n_wvis, warp_row_visits_in_rect=n_wrect,
+              warp_row_visits_masked=n_wmask)
+    print(f"# K1 bound {b1['bound_ms']:.4f} ms ({b1['bound_by']}); (tile, warp, row) visits of "
+          f"a walk over every row: {n_wvis}, with a lane in the rect: {n_wrect}, of the masked "
+          f"walk: {n_wmask}", file=sys.stderr)
     med = lambda xs: float(np.median(xs))
 
     # --- 7-9. training, K2 against plain, timing ---
@@ -861,7 +910,7 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     step_ms = time_ms(one_step, TRAIN_TIMED, 3)
     k2_ms, plain_bwd_ms = time_vs_plain(ck.composite_tiles_bwd, ck.composite_tiles_bwd_plain,
                                         bwd_args)
-    n_app, n_other, n_out, n_rows, n_warp = walked_pairs(inst, counts, pix, C, rcfg)
+    n_app, n_other, n_out, n_rows, n_warp, *_ = walked_pairs(inst, counts, pix, C, rcfg)
     # profile_render reports per call; a call here is one step
     prof = profile_render(one_step, frames=3)
     # K2 reads K1's columns of each row, rows 0..C+1 of res and g
@@ -1047,7 +1096,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
         render = lambda: render_field_surfel(params, valid, frames[0], mcfg, rcfg, bg)
         render_ms = time_ms(render, 30, 3)
         prof_r = profile_render(render)
-        a5, o5, x5, r5, _ = walked_surfel_pairs(inst, counts, pix, C, rcfg)
+        a5, o5, x5, r5, _, v5, vr5, vm5 = walked_surfel_pairs(inst, counts, pix, C, rcfg)
     held = [state]
 
     def one_step():
@@ -1058,7 +1107,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     k6_ms, p6_ms = time_vs_plain(sk.surfel_composite_tiles_bwd,
                                  sk.surfel_composite_tiles_bwd_plain, bwd_args)
     b_counts, b_pix = bwd_args[1:3]
-    a6, o6, x6, r6, w6 = walked_surfel_pairs(*bwd_args[:3], C, rcfg)
+    a6, o6, x6, r6, w6, *_ = walked_surfel_pairs(*bwd_args[:3], C, rcfg)
     T6, _, npix = b_pix.shape
 
     # bytes: of each row the kernels read every column up to the valid flag
@@ -1067,7 +1116,11 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     b5 = bound(tile_bytes(counts, r5, S.validf(C), pix, out_k.numel()),
                (OPS_S_IN_RECT + OPS_S_FWD_APPLIED + 2 * C) * a5 + OPS_S_IN_RECT * o5
                + OPS_S_OUT_RECT * x5)
-    b5.update(pairs_applied=a5, pairs_in_rect_other=o5, pairs_out_rect=x5, rows=r5)
+    b5.update(pairs_applied=a5, pairs_in_rect_other=o5, pairs_out_rect=x5, rows=r5,
+              warp_row_visits=v5, warp_row_visits_in_rect=vr5, warp_row_visits_masked=vm5)
+    print(f"# K5 bound {b5['bound_ms']:.4f} ms ({b5['bound_by']}); (tile, warp, row) visits of "
+          f"a walk over every row: {v5}, with a lane past the valid and rect tests: {vr5}, of "
+          f"the masked walk: {vm5}", file=sys.stderr)
     b6 = bound(tile_bytes(b_counts, r6, S.validf(C), b_pix, 2 * T6 * (C + 9) * npix,
                           d_k.numel()),
                (OPS_S_BWD_APPLIED + 4 * C) * a6 + OPS_S_IN_RECT * o6 + OPS_S_OUT_RECT * x6)
@@ -1302,7 +1355,8 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
             "buf_mb": buf.numel() * 4 / 1e6, "inst_mb": inst.numel() * 4 / 1e6,
         }
         prof_r = profile_render(lambda: render(rcfg))
-        a_f, o_f, x_f, r_f, _ = walked(ck.window_rows(buf, starts, K), counts, pix, C, rcfg)
+        a_f, o_f, x_f, r_f, _, v_f, vr_f, vm_f = walked(ck.window_rows(buf, starts, K), counts,
+                                                        pix, C, rcfg)
     b_ms, pb_ms = time_vs_plain(getattr(mod, wins + "_bwd"), getattr(mod, wins + "_bwd_plain"),
                                 bwd_args)
     tb_ms = med(time_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res,
@@ -1321,7 +1375,7 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     step_ms = ab_ms({"fused": step_with(trainer, "fused"),
                      "materialized": step_with(trainer_m, "materialized")}, TRAIN_TIMED)
     prof_s = profile_render(step_with(trainer, "fused"), frames=3)
-    a_b, o_b, x_b, r_b, w_b = walked(b_inst, b_counts, b_pix, C, rcfg)
+    a_b, o_b, x_b, r_b, w_b, *_ = walked(b_inst, b_counts, b_pix, C, rcfg)
     T, _, npix = pix.shape
     if surfel:
         ops_f = ((OPS_S_IN_RECT + OPS_S_FWD_APPLIED + 2 * C) * a_f + OPS_S_IN_RECT * o_f
@@ -1333,7 +1387,8 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     # each kernel reads the rows some pixel's walk reaches and writes its
     # output once: K3/K7 the [T, rows, NPIX] image, K4/K8 the owned rows
     b_f = bound(tile_bytes(counts, r_f, read_cols, pix, out_w.numel()), ops_f)
-    b_f.update(pairs_applied=a_f, pairs_in_rect_other=o_f, pairs_out_rect=x_f, rows=r_f)
+    b_f.update(pairs_applied=a_f, pairs_in_rect_other=o_f, pairs_out_rect=x_f, rows=r_f,
+               warp_row_visits=v_f, warp_row_visits_in_rect=vr_f, warp_row_visits_masked=vm_f)
     b_b = bound(tile_bytes(b_counts, r_b, read_cols, b_pix, 2 * T * res_rows * npix,
                            int(b_counts.sum()) * b_buf.shape[1]), ops_b)
     b_b.update(pairs_applied=a_b, pairs_in_rect_other=o_b, pairs_out_rect=x_b, rows=r_b,

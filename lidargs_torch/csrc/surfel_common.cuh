@@ -71,29 +71,52 @@ __device__ __forceinline__ float dot3_rn(float a0, float a1, float a2, float b0,
 // max(x, lo) that keeps a NaN, as torch.clamp_min does.
 __device__ __forceinline__ float clamp_lo(float x, float lo) { return x < lo ? lo : x; }
 
-// Everything up to `power` for the row `r` (kCen: its center column) and a
-// pixel with unit ray (dirx, diry, dirz) at column px, row py.
-__device__ __forceinline__ void surfel_pair(const float* __restrict__ r, int kCen, float dirx,
-                                            float diry, float dirz, float px, float py,
-                                            float fis, SurfelGeom& g) {
+// What a pair's geometry needs of its row alone. K5/K7 compute it once per
+// staged row (surfel_fwd.cu); K6 per pair, through `surfel_pair`.
+struct SurfelRow {
+  float rho_r;         // sqrt(max(|Tw|^2, 1e-20)): the center range
+  float lam;           // Tw . n
+  float tu_tu, tv_tv;  // |Tu|^2, |Tv|^2 clamped below at 1e-20
+};
+
+// The row part of `surfel_pair`: q, and the squares |Tw|^2, |Tu|^2, |Tv|^2
+// before their clamps (K6's chain reads them).
+__device__ __forceinline__ void surfel_row(const float* __restrict__ r, SurfelRow& q,
+                                           float& tw_sq, float& tu_sq, float& tv_sq) {
+  const float tux = r[kTu], tuy = r[kTu + 1], tuz = r[kTu + 2];
+  const float tvx = r[kTv], tvy = r[kTv + 1], tvz = r[kTv + 2];
+  const float twx = r[kTw], twy = r[kTw + 1], twz = r[kTw + 2];
+  tw_sq = dot3_rn(twx, twy, twz, twx, twy, twz);
+  q.rho_r = __fsqrt_rn(clamp_lo(tw_sq, 1e-20f));
+  q.lam = dot3_rn(twx, twy, twz, r[kNrm], r[kNrm + 1], r[kNrm + 2]);
+  tu_sq = dot3_rn(tux, tuy, tuz, tux, tuy, tuz);
+  tv_sq = dot3_rn(tvx, tvy, tvz, tvx, tvy, tvz);
+  q.tu_tu = clamp_lo(tu_sq, 1e-20f);
+  q.tv_tv = clamp_lo(tv_sq, 1e-20f);
+}
+
+// The pair part of `surfel_pair`: everything up to `power` from the row's
+// part q, for the row `r` (kCen: its center column) and a pixel with unit
+// ray (dirx, diry, dirz) at column px, row py. Leaves g.tw_sq, g.tu_sq and
+// g.tv_sq as they were. Every operation rounds on its own, so the order in
+// which the two parts run does not change a bit.
+__device__ __forceinline__ void surfel_pair_at(const float* __restrict__ r, const SurfelRow& q,
+                                               int kCen, float dirx, float diry, float dirz,
+                                               float px, float py, float fis, SurfelGeom& g) {
   const float tux = r[kTu], tuy = r[kTu + 1], tuz = r[kTu + 2];
   const float tvx = r[kTv], tvy = r[kTv + 1], tvz = r[kTv + 2];
   const float twx = r[kTw], twy = r[kTw + 1], twz = r[kTw + 2];
   const float nx = r[kNrm], ny = r[kNrm + 1], nz = r[kNrm + 2];
-  g.tw_sq = dot3_rn(twx, twy, twz, twx, twy, twz);
-  g.rho_r = __fsqrt_rn(clamp_lo(g.tw_sq, 1e-20f));
-  const float lam = dot3_rn(twx, twy, twz, nx, ny, nz);
+  g.rho_r = q.rho_r;
+  g.tu_tu = q.tu_tu;
+  g.tv_tv = q.tv_tv;
   const float cos2 = dot3_rn(nx, ny, nz, dirx, diry, dirz);
   g.hit = cos2 != 0.f;
   g.cos2s = g.hit ? cos2 : 1.f;
-  g.lam2 = __fdiv_rn(lam, g.cos2s);
+  g.lam2 = __fdiv_rn(q.lam, g.cos2s);
   g.dpx = __fadd_rn(__fmul_rn(g.lam2, dirx), -twx);
   g.dpy = __fadd_rn(__fmul_rn(g.lam2, diry), -twy);
   g.dpz = __fadd_rn(__fmul_rn(g.lam2, dirz), -twz);
-  g.tu_sq = dot3_rn(tux, tuy, tuz, tux, tuy, tuz);
-  g.tv_sq = dot3_rn(tvx, tvy, tvz, tvx, tvy, tvz);
-  g.tu_tu = clamp_lo(g.tu_sq, 1e-20f);
-  g.tv_tv = clamp_lo(g.tv_sq, 1e-20f);
   g.sx = __fdiv_rn(dot3_rn(g.dpx, g.dpy, g.dpz, tux, tuy, tuz), g.tu_tu);
   g.sy = __fdiv_rn(dot3_rn(g.dpx, g.dpy, g.dpz, tvx, tvy, tvz), g.tv_tv);
   const float rho3d = __fadd_rn(__fmul_rn(g.sx, g.sx), __fmul_rn(g.sy, g.sy));
@@ -110,6 +133,16 @@ __device__ __forceinline__ void surfel_pair(const float* __restrict__ r, int kCe
   const float rho = pos ? (rho3d > rho2d ? rho2d : rho3d) : rho2d;
   g.depth = g.use3d ? g.lam2 : g.rho_r;
   g.power = __fmul_rn(-0.5f, rho);
+}
+
+// Everything up to `power` for the row `r` and a pixel: the row part, then
+// the pair part.
+__device__ __forceinline__ void surfel_pair(const float* __restrict__ r, int kCen, float dirx,
+                                            float diry, float dirz, float px, float py,
+                                            float fis, SurfelGeom& g) {
+  SurfelRow q;
+  surfel_row(r, q, g.tw_sq, g.tu_sq, g.tv_sq);
+  surfel_pair_at(r, q, kCen, dirx, diry, dirz, px, py, fis, g);
 }
 
 // e, araw and alpha of a pair. NaN stays NaN and fails the caller's

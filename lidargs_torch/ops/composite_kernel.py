@@ -51,7 +51,9 @@ from .projection import PackedCols as PC
 
 OUT_ROWS = 8
 PIX_ROWS = 8             # rows of a pixel block
-MAX_NPIX = 1024          # one thread per pixel, one block per tile
+MAX_NPIX = 1024          # one thread per pixel; a backward kernel's block holds a tile
+FWD_CHUNK = 64           # rows a shared-memory stage of the forward kernels holds
+FWD_SMEM = 48 * 1024     # bytes of shared memory a block gets without opting in
 
 # Launches of the CUDA kernels since the last reset (plain counts; the CPU
 # path does not add to them): K1, K2, K3 and K4.
@@ -115,6 +117,51 @@ def _check_inputs(rows, ints: dict, pix, T: int, C: int, max_c: int, row_width: 
     if not (rows.is_contiguous() and pix.is_contiguous()
             and all(x.is_contiguous() for x in ints.values())):
         raise ValueError("inputs must be contiguous")
+
+
+def check_rows_aligned(rows: torch.Tensor) -> None:
+    """Raise unless the forward kernels' bulk copies can stage `rows`
+    (`csrc/fwd_stage.cuh`): rows of F floats with F % 4 == 0 (whole 16-byte
+    units) from a 16-byte aligned base, so every row and every window
+    starts on a 16-byte boundary, and two stages of FWD_CHUNK rows within
+    FWD_SMEM bytes."""
+    F = rows.shape[-1]
+    if F % 4 or rows.data_ptr() % 16:
+        raise ValueError(f"rows of {F} floats at {rows.data_ptr():#x}: the forward kernels "
+                         "stage 16-byte units and need F % 4 == 0 and a 16-byte aligned base")
+    if 2 * FWD_CHUNK * F * 4 > FWD_SMEM:
+        raise ValueError(f"rows of {F} floats: two stages of {FWD_CHUNK} exceed {FWD_SMEM} "
+                         "bytes of shared memory")
+
+
+def warp_row_mask(rows: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor, rect: int,
+                  valid: int | None = None) -> torch.Tensor:
+    """The forward kernels' per-warp row masks (`warp_rows` in
+    `csrc/fwd_stage.cuh`), written plainly: [T, K, n_warps] bool, row k of
+    tile t set for warp w iff k < counts[t], the row is valid where `valid`
+    names its flag's column (flag > 0), and its parity rect [x0, x1) x
+    [y0, y1) (columns rect .. rect + 3) meets the box of warp w's pixel
+    columns and rows: pixels [32 w, 32 w + 32) of the tile, the last warp's
+    padding adding nothing. A lane's rect test can pass only on a row its
+    warp's mask holds."""
+    T, K, _ = rows.shape
+    npix = pix.shape[2]
+    pad = -npix % 32
+    inf = float("inf")
+
+    def box(v):                                                # [T, NPIX] -> 2 x [T, 1, n_warps]
+        lo = torch.nn.functional.pad(v, (0, pad), value=inf).view(T, -1, 32).amin(-1)
+        hi = torch.nn.functional.pad(v, (0, pad), value=-inf).view(T, -1, 32).amax(-1)
+        return lo[:, None], hi[:, None]
+
+    (x_lo, x_hi), (y_lo, y_hi) = box(pix[:, 3]), box(pix[:, 4])
+    x0, x1, y0, y1 = (rows[:, :, rect + i, None] for i in range(4))        # [T, K, 1]
+    mask = (x0 <= x_hi) & (x1 > x_lo) & (y0 <= y_hi) & (y1 > y_lo)
+    mask &= (torch.arange(K, device=rows.device)[None, :, None]
+             < counts.to(torch.int64)[:, None, None])
+    if valid is not None:
+        mask &= rows[:, :, valid, None] > 0.0
+    return mask
 
 
 def check_tile_inputs(inst, counts, pix, C: int, max_c: int, row_width: int):
@@ -203,6 +250,7 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
     if inst.device.type != "cuda":
         raise ValueError(f"composite_tiles: unsupported device {inst.device}")
     check_tile_inputs(inst, counts, pix, C, OUT_ROWS - 2, PC.rect(C).stop)
+    check_rows_aligned(inst)
     T, K, Fw = inst.shape
     npix = pix.shape[2]
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
@@ -371,6 +419,7 @@ def composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Ten
         raise ValueError(f"composite_windows: unsupported device {buf.device}")
     K = cfg.tile_capacity
     check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 2, PC.rect(C).stop)
+    check_rows_aligned(buf)
     T, npix = pix.shape[0], pix.shape[2]
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=buf.device)
     if T == 0:

@@ -38,8 +38,8 @@ import torch
 
 from ..config import RasterConfig
 from ..utils import cuda_build
-from .composite_kernel import (check_saved, check_tile_inputs, check_window_inputs,
-                               scatter_windows, window_rows)
+from .composite_kernel import (check_rows_aligned, check_saved, check_tile_inputs,
+                               check_window_inputs, scatter_windows, window_rows)
 from .surfel import SurfelCols as S
 from .surfel import pair_geometry, surfel_composite
 
@@ -96,6 +96,7 @@ def surfel_composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.
     if inst.device.type != "cuda":
         raise ValueError(f"surfel_composite_tiles: unsupported device {inst.device}")
     check_tile_inputs(inst, counts, pix, C, OUT_ROWS - 9, S.validf(C) + 1)
+    check_rows_aligned(inst)
     T, K, Fw = inst.shape
     npix = pix.shape[2]
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=inst.device)
@@ -305,6 +306,7 @@ def surfel_composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: to
         raise ValueError(f"surfel_composite_windows: unsupported device {buf.device}")
     K = cfg.tile_capacity
     check_window_inputs(buf, starts, counts, pix, K, C, OUT_ROWS - 9, S.validf(C) + 1)
+    check_rows_aligned(buf)
     T, npix = pix.shape[0], pix.shape[2]
     out = torch.empty((T, OUT_ROWS, npix), dtype=torch.float32, device=buf.device)
     if T == 0:

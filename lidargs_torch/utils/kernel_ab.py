@@ -13,13 +13,17 @@ launches, CUDA events, the order reversed every other turn), and compares
 each build's output with that of the first build that has the kernel: bit
 for bit and, for a backward kernel, each gradient column scaled by its
 largest magnitude against `BWD_TOL` (the bounds `chip_smoke.py` holds K2 and
-K6 to against their plain versions), since a redesign may sum a row's
-pixels in another order. The inputs are frame 0 of `chip_smoke.py`'s
-full-width scene (64x2650, 60,000 shell anchors, k=6) at the beam render
-tiling (h4/K768/cap8) for K1/K2 and at the surfel CLI tiling (h1/K384/cap32)
-for K5/K6; a backward kernel takes the first build's forward output as `res`
-and a cotangent drawn from a seed on every row the forward writes. Prints
-one JSON line with the card's name and power limit.
+K6 to against their plain versions). The inputs are frame 0 of
+`chip_smoke.py`'s full-width scene (64x2650, 60,000 shell anchors, k=6) at
+the beam render tiling (h4/K768/cap8) for K1/K2 and at the surfel CLI
+tiling (h1/K384/cap32) for K5/K6; a backward kernel takes the first build's
+forward output as `res` and a cotangent drawn from a seed on every row the
+forward writes. Prints one JSON line with the card's name and power limit.
+
+It judges the bits: it exits non-zero, after the JSON line, when any
+build's output, forward or backward, differs from the first build's by a
+single bit. The column-scaled comparison is reported beside, for a
+redesign that sums a backward row's pixels in another order.
 
 Compare two versions of the repository by unpacking one (`git archive`)
 into a git-ignored directory and naming both `csrc` directories.
@@ -134,6 +138,27 @@ def _inputs(dev) -> dict:
             "surfel": (*surfel, C, sk._consts(scfg), sk.OUT_ROWS, C + 9, 16 + C)}
 
 
+def judge(outs: dict, nvs: dict) -> tuple[dict, list]:
+    """Each build's output against the first build's of the same kernel.
+    `outs` maps (label, kernel) to an output, in build order; `nvs` maps a
+    backward kernel to its gradient columns. Returns ({"label.kernel":
+    comparison}, [the "label.kernel"s whose output is not the first build's
+    bit for bit]); a backward kernel's comparison adds `column_scaled`."""
+    import torch
+
+    first, same, failed = {}, {}, []
+    for (lab, name), o in outs.items():
+        ref = first.setdefault(name, o)
+        key = f"{lab}.{name}"
+        same[key] = {"bit_equal": bool(torch.equal(o, ref)),
+                     "max_abs_diff": float((o - ref).abs().max())}
+        if name in nvs:
+            same[key]["column_scaled"] = column_scaled(o, ref, nvs[name])
+        if not same[key]["bit_equal"]:
+            failed.append(key)
+    return same, failed
+
+
 def main(argv) -> None:
     import torch
 
@@ -201,20 +226,15 @@ def main(argv) -> None:
     for turn in range(TURNS):
         for lab, name in (order if turn % 2 == 0 else order[::-1]):
             ms[f"{lab}.{name}"].append(_time_ms(calls[(lab, name)], ITERS, WARMUP))
-    first = {}
-    same = {}
-    for (lab, name), o in outs.items():
-        ref = first.setdefault(name, o)
-        same[f"{lab}.{name}"] = {"bit_equal": bool(torch.equal(o, ref)),
-                                 "max_abs_diff": float((o - ref).abs().max())}
-        if name in nvs:
-            same[f"{lab}.{name}"]["column_scaled"] = column_scaled(o, ref, nvs[name])
+    same, failed = judge(outs, nvs)
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(json.dumps({"card": card, "inputs": shapes, "ms_median_per_turn": ms,
-                      "vs_first_build": same,
+                      "vs_first_build": same, "failed": failed,
                       "registers_spill_stores_loads": res_usage}))
+    if failed:
+        sys.exit(f"kernel_ab: outputs differ from the first build's: {', '.join(failed)}")
 
 
 if __name__ == "__main__":

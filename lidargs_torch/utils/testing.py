@@ -114,6 +114,26 @@ def assert_close_up_to_flips(got, want, atol: float, flip_atol: float,
     assert d.max() <= flip_atol, f"{what}: max |d| {d.max():.3g} beyond {flip_atol:g}"
 
 
+def one_torch_thread():
+    """PyTorch on one thread until the generator is closed, then the count
+    it had before: the body of the module-scoped autouse fixture that every
+    `tests/test_torch_*.py` file declares (`yield from
+    one_torch_thread()`).
+
+    Several test processes share the machine's cores, each at PyTorch's
+    default of one thread per core, so they oversubscribe it many times
+    over; and with several threads, about one fresh process in twenty that
+    had run the JAX pipeline first computed one worker thread's share of
+    its first plain composite wrong (up to 2.5e-4 in T), which none of 80
+    did on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def sensor_poses(n: int, seed: int = 0) -> list:
     """`n` lidar->world 4x4 poses near the origin: a yaw and a small shift
     each, as a car moving through the scene would give."""

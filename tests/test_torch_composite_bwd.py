@@ -34,8 +34,15 @@ from lidargs_tpu.ops.pallas_composite import _bwd_call, composite_tiles_pallas
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops.projection import PackedCols as PC
-from lidargs_torch.utils.testing import assert_close_up_to_flips
+from lidargs_torch.utils.testing import assert_close_up_to_flips, one_torch_thread
 from test_torch_composite_kernel import _kernel_inputs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 C = 2
 NV = 14 + C          # gradient columns: mean, u1, u2, conic, opacity, depth, feat

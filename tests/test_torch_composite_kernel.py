@@ -26,7 +26,14 @@ from lidargs_tpu.ops.pallas_composite import composite_tiles_pallas
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops import projection as tp
-from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene
+from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 C = 2
 

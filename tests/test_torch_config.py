@@ -17,6 +17,14 @@ from lidargs_tpu.lidar import beams as jbeams
 from lidargs_tpu.lidar.frames import LidarFrame as JFrame
 from lidargs_torch.lidar import beams as tbeams
 from lidargs_torch.lidar.frames import LidarFrame as TFrame
+from lidargs_torch.utils.testing import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PALLAS_ONLY = {"pallas_chunk", "pallas_tiles_per_block", "backend"}

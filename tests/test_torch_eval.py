@@ -16,7 +16,13 @@ from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.train import evaluate_frame, mean_metrics, measure_fps, run_eval
 from lidargs_torch.train.metrics import eval_ssim
-from lidargs_torch.utils.testing import sensor_poses, shell_field
+from lidargs_torch.utils.testing import one_torch_thread, sensor_poses, shell_field
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
 
 
 def _images(seed, H=16, W=64):

@@ -25,8 +25,15 @@ from lidargs_torch.lidar import LidarFrame as TFrame
 from lidargs_torch.lidar import uniform_beam_inclinations
 from lidargs_torch.models import field as tf
 from lidargs_torch.utils.params import load_params_npz, params_from_jax
-from lidargs_torch.utils.testing import (assert_close_up_to_flips, sensor_poses,
+from lidargs_torch.utils.testing import (assert_close_up_to_flips, one_torch_thread, sensor_poses,
                                          shell_anchors)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 N_ANCHORS, CAP = 400, 512
 RASTER = dict(tile_h=4, tile_capacity=128, max_tiles_per_gaussian=8, max_visible=2048)

@@ -18,8 +18,16 @@ from lidargs_tpu.lidar.beams import kitti_beam_inclinations, uniform_beam_inclin
 from lidargs_tpu.ops import projection as jp
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import projection as tp
+from lidargs_torch.utils.testing import one_torch_thread
 
 from oracle_projection import oracle_preprocess_one
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 JC, TC = JCfg(), TCfg()
 

@@ -18,8 +18,16 @@ import torch
 from lidargs_tpu.ops.projection import preprocess_gaussians_hv as j_pg_hv
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops.projection import preprocess_gaussians, preprocess_gaussians_hv
+from lidargs_torch.utils.testing import one_torch_thread
 from test_projection_vjp import RCFG as JCFG
 from test_projection_vjp import W, _scene
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 TCFG = TCfg(max_visible=2048, tile_capacity=64, chunk=8)
 OUT_FIELDS = ("depth", "sphere_mean", "u1", "u2", "conic", "opacity", "feat", "center")

@@ -27,7 +27,14 @@ from lidargs_torch.ops import rasterize as tr
 from lidargs_torch.ops.composite import pixel_rays as t_pixel_rays
 from lidargs_torch.ops.projection import PackedCols, Splats
 from lidargs_torch.ops.reference import render_reference as t_reference
-from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene
+from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 BASE = dict(max_visible=512, max_tiles_per_gaussian=64, tile_capacity=256, chunk=8)
 BG = np.asarray([0.3, 0.7], np.float32)

@@ -36,18 +36,46 @@ from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.utils import cuda_build, kernel_ab
 from lidargs_torch.ops.surfel import SurfelCols as S
 from lidargs_torch.ops.surfel import pair_geometry
+from lidargs_torch.utils.testing import one_torch_thread
 from test_torch_composite_kernel import _kernel_inputs
 from test_torch_surfel_kernel import _surfel_inputs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 C = 2
 
 
+def _masked(inst, counts, pix, walked, rc, vf=None):
+    """(tile, warp, row) visits of the forward kernels' masked walk: for each
+    warp and chunk of 64 rows that one of its lanes reaches (`walked`, the
+    (tile, warp, row) visits), the chunk's live rows, valid where `vf` names
+    the flag, whose rect meets the box of the warp's pixel columns and rows."""
+    n = 0
+    for t in range(inst.shape[0]):
+        for w in range(-(-pix.shape[2] // 32)):
+            x, y = pix[t, 3, 32 * w:32 * w + 32], pix[t, 4, 32 * w:32 * w + 32]
+            for k in range(int(counts[t])):
+                r = inst[t, k]
+                if ((t, w, k - k % 64) in walked and r[rc] <= x.max() and r[rc + 1] > x.min()
+                        and r[rc + 2] <= y.max() and r[rc + 3] > y.min()
+                        and (vf is None or r[vf] > 0)):
+                    n += 1
+    return n
+
+
 def _walk(inst, counts, pix, cfg):
     """(applied, other in rect, out of rect, rows some pixel visits,
-    (tile, warp, row) visits some lane applies) from a sequential walk."""
+    (tile, warp, row) visits some lane applies, visits, visits with a lane
+    in the rect, visits of the masked walk) from a sequential walk."""
     rc = PC.rect(C).start
-    n = [0, 0, 0, 0, 0]
+    n = [0] * 8
     reduced = set()                                 # (tile, warp, row) with an applied lane
+    walked, in_rect = set(), set()                  # ... visited, visited inside the rect
     f32 = np.float32
     for t in range(inst.shape[0]):
         reach = 0                                   # rows [0, reach) visited by some pixel
@@ -57,9 +85,11 @@ def _walk(inst, counts, pix, cfg):
             for k in range(int(counts[t])):
                 r = inst[t, k]
                 reach = max(reach, k + 1)
+                walked.add((t, p // 32, k))
                 if not (px >= r[rc] and px < r[rc + 1] and py >= r[rc + 2] and py < r[rc + 3]):
                     n[2] += 1
                     continue
+                in_rect.add((t, p // 32, k))
                 dx, dy, dz = r[0] - dirx, r[1] - diry, r[2] - dirz
                 ddx = dx * r[3] + dy * r[4] + dz * r[5]
                 ddy = dx * r[6] + dy * r[7] + dz * r[8]
@@ -76,7 +106,8 @@ def _walk(inst, counts, pix, cfg):
                 reduced.add((t, p // 32, k))
                 T = T_next
         n[3] += reach
-    n[4] = len(reduced)
+    n[4:7] = len(reduced), len(walked), len(in_rect)
+    n[7] = _masked(inst, counts, pix, walked, rc)
     return tuple(n)
 
 
@@ -98,6 +129,9 @@ def test_walked_pairs_counts_the_sequential_walk(case):
     assert got == want
     assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
     assert 0 < want[4] < want[0]                    # the warps' lanes share rows
+    # the mask keeps every row with a lane in the rect and drops others; a
+    # warp walks its masked rows to the end of the chunk where its last lane stops
+    assert want[4] <= want[6] <= want[7] and want[6] < want[5]
 
 
 def _walk_surfels(inst, counts, pix, cfg):
@@ -112,8 +146,9 @@ def _walk_surfels(inst, counts, pix, cfg):
     g = pair_geometry(it, d(0), d(1), d(2), d(3), d(4), C, cfg)
     alpha, passed = g.alpha.numpy(), g.passed.numpy()
     f32 = np.float32
-    n = [0, 0, 0, 0, 0]
+    n = [0] * 8
     reduced = set()                                 # (tile, warp, row) with an applied lane
+    walked, cheap = set(), set()                    # ... visited, visited past the cheap tests
     for t in range(inst.shape[0]):
         reach = 0                                   # rows [0, reach) visited by some pixel
         for p in range(pix.shape[2]):
@@ -122,10 +157,12 @@ def _walk_surfels(inst, counts, pix, cfg):
             for k in range(int(counts[t])):
                 r = inst[t, k]
                 reach = max(reach, k + 1)
+                walked.add((t, p // 32, k))
                 if not (r[vf] > 0 and px >= r[rc] and px < r[rc + 1] and py >= r[rc + 2]
                         and py < r[rc + 3]):
                     n[2] += 1
                     continue
+                cheap.add((t, p // 32, k))
                 if not passed[t, k, p]:
                     n[1] += 1
                     continue
@@ -137,7 +174,8 @@ def _walk_surfels(inst, counts, pix, cfg):
                 reduced.add((t, p // 32, k))
                 T = T_next
         n[3] += reach
-    n[4] = len(reduced)
+    n[4:7] = len(reduced), len(walked), len(cheap)
+    n[7] = _masked(inst, counts, pix, walked, rc, vf)
     return tuple(n)
 
 
@@ -159,6 +197,9 @@ def test_walked_surfel_pairs_counts_the_sequential_walk(case):
     assert got == want
     assert want[0] > 0 and want[1] > 0 and want[2] > 0 and 0 < want[3] <= counts.sum()
     assert 0 < want[4] < want[0]                    # the warps' lanes share rows
+    # the mask keeps every row with a lane in the rect and drops others; a
+    # warp walks its masked rows to the end of the chunk where its last lane stops
+    assert want[4] <= want[6] <= want[7] and want[6] < want[5]
 
 
 def test_kernel_ab_needs_labelled_source_trees():
@@ -201,6 +242,36 @@ def test_kernel_ab_reads_resources_and_scales_columns():
     moved = want.clone()
     moved[0, 0, 6] = 1.0                                    # a column past the gradients
     assert not kernel_ab.column_scaled(moved, want, 5)["within_tol"]
+
+
+def test_kernel_ab_judges_every_bit():
+    """A build whose output differs from the first build's by one bit
+    fails, forward or backward; a backward one is also compared column by
+    column."""
+    gen = torch.Generator().manual_seed(0)
+    fwd = torch.randn(4, 8, 32, generator=gen)
+    bwd = torch.zeros(4, 16, 24)
+    bwd[..., :16] = torch.randn(4, 16, 16, generator=gen)
+
+    def flip(x):                                    # the lowest bit of the first element
+        y = x.clone()
+        y.view(-1).view(torch.int32)[0] ^= 1
+        return y
+
+    outs = {("old", "composite_fwd"): fwd, ("old", "composite_bwd"): bwd,
+            ("new", "composite_fwd"): fwd.clone(), ("new", "composite_bwd"): bwd.clone()}
+    nvs = {"composite_bwd": 16}
+    same, failed = kernel_ab.judge(outs, nvs)
+    assert failed == [] and same["new.composite_fwd"]["bit_equal"]
+    assert "column_scaled" not in same["new.composite_fwd"]
+    outs[("new", "composite_bwd")] = flip(bwd)
+    same, failed = kernel_ab.judge(outs, nvs)
+    assert failed == ["new.composite_bwd"] and not same["new.composite_bwd"]["bit_equal"]
+    assert same["new.composite_bwd"]["column_scaled"]["within_tol"]
+    outs[("new", "composite_fwd")] = flip(fwd)
+    assert kernel_ab.judge(outs, nvs)[1] == ["new.composite_fwd", "new.composite_bwd"]
+    outs[("old", "composite_fwd")] = outs[("new", "composite_fwd")]     # the first build rules
+    assert kernel_ab.judge(outs, nvs)[1] == ["new.composite_bwd"]
 
 
 def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -250,6 +321,12 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
         assert 0 < bound["warp_rows_reduced"] <= bound["pairs_applied"]
     assert timing["windows"]["train_launches"] == {"K1": 0, "K2": 0, "K3": 2, "K4": 2}
     assert timing["surfel_windows"]["render_launches"] == {"K5": 0, "K6": 0, "K7": 3, "K8": 0}
+    # the forward kernels carry the warp walk's counts: the masked walk
+    # keeps every visit with a lane in the rect and drops others
+    for k in (kernels[0], kernels[2], kernels[4], kernels[6]):
+        assert 0 < k["warp_row_visits_in_rect"] <= k["warp_row_visits_masked"]
+        assert k["warp_row_visits_in_rect"] < k["warp_row_visits"]
+    assert kernels[0]["warp_row_visits"] == timing["k1_bound"]["warp_row_visits"]
     # the window kernels' bounds count the same pairs as the tile kernels'
     assert timing["windows"]["K3_bound"]["pairs_applied"] == timing["k1_bound"]["pairs_applied"]
     assert (timing["surfel_windows"]["K7_bound"]["pairs_applied"]

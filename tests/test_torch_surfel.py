@@ -24,7 +24,14 @@ from lidargs_tpu.config import RasterConfig as JR
 from lidargs_tpu.ops import surfel as js
 from lidargs_torch.config import RasterConfig as TR
 from lidargs_torch.ops import surfel as ts
-from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene
+from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 C = 2
 RASTER = dict(max_visible=512, max_tiles_per_gaussian=64, tile_capacity=64, chunk=8)

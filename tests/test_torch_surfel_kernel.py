@@ -58,8 +58,15 @@ from lidargs_tpu.ops import surfel as js
 from lidargs_tpu.ops.pallas_surfel import OUT_ROWS, _bwd_call, surfel_composite_tiles
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import surfel_kernel as sk
-from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene
+from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
 from test_torch_composite_bwd import EDGE_KINDS, N_FRONT, _windows_of
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 C = 2
 NV = 16 + C          # gradient columns through the center

@@ -46,7 +46,14 @@ from lidargs_torch.train import losses as tl
 from lidargs_torch.train import trainer as tt
 from lidargs_torch.train.evaluate import measure_fps, run_eval
 from lidargs_torch.utils.params import train_state_from_jax
-from lidargs_torch.utils.testing import sensor_poses
+from lidargs_torch.utils.testing import one_torch_thread, sensor_poses
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 H, W = 16, 256
 MODEL = dict(feat_dim=8, n_offsets=2, mlp_hidden=8, anchor_capacity=1024)

@@ -47,7 +47,7 @@ from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops import surfel as ts
 from lidargs_torch.ops import surfel_kernel as sk
-from lidargs_torch.utils.testing import make_scene
+from lidargs_torch.utils.testing import make_scene, one_torch_thread
 from test_torch_surfel import _inputs
 from test_torch_surfel_kernel import _compare_dinst, _compare_out, _cotangent
 from test_torch_windows import _owned, _t
@@ -57,11 +57,8 @@ C = 2
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """Run PyTorch on one thread here (see the module docstring)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
 
 
 CASES = [

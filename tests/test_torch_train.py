@@ -58,7 +58,14 @@ from lidargs_torch.train import optim as to
 from lidargs_torch.train import schedule as ts
 from lidargs_torch.train import trainer as tt
 from lidargs_torch.utils.params import train_state_from_jax
-from lidargs_torch.utils.testing import sensor_poses, shell_anchors
+from lidargs_torch.utils.testing import one_torch_thread, sensor_poses, shell_anchors
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
+
 
 CAP, N_ANCHORS = 512, 400
 MODEL = dict(feat_dim=16, n_offsets=4, mlp_hidden=16, anchor_capacity=CAP)

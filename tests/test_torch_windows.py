@@ -56,8 +56,8 @@ from lidargs_torch.ops import rasterize as tr
 from lidargs_torch.ops.projection import PackedCols, preprocess_gaussians
 from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps, run_eval
 from lidargs_torch.train.optim import tree_leaves
-from lidargs_torch.utils.testing import (assert_close_up_to_flips, make_scene, sensor_poses,
-                                         shell_field)
+from lidargs_torch.utils.testing import (assert_close_up_to_flips, make_scene, one_torch_thread,
+                                         sensor_poses, shell_field)
 from test_torch_rasterize import BASE, _bin_inputs, _jax_bin_inputs, _splats
 
 C = 2
@@ -66,11 +66,8 @@ NV = 14 + C          # gradient columns: mean, u1, u2, conic, opacity, depth, fe
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """Run PyTorch on one thread here (see the module docstring)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    """PyTorch on one thread in this module (`one_torch_thread`)."""
+    yield from one_torch_thread()
 
 
 CASES = [

@@ -78,7 +78,28 @@ then:
      `buf` gather against the `[T, K, F]` gather and the zeroing of `dbuf`;
      computes K3's and K4's bounds and profiles a fused frame and step;
  17-18. the same for the surfel variant at h1/K384/cap32: K7 against K5 and
-     K8 against K6.
+     K8 against K6;
+ 19. writes the procedural street dataset (`data/synthetic.py`
+     `make_street_dataset`, 50 frames of 64x2650: 46 train, 4 test) under
+     `build/chip_smoke_cli/` and times it;
+ 20. trains it through the CLI, `lidargs_torch.train.cli.main`, at its
+     defaults (h4/K768/cap8, anchor capacity 2**17, max_visible 2**18,
+     k=6) with `--voxel_size 0.2` (~53k anchors from the 500k-point init
+     cloud): CLI_ITERS iterations, a checkpoint at half, a densify, the test
+     and final evaluations with the chamfer distance and F-score, FPS, the
+     dumps and a torch.profiler trace of CLI_PROFILE_STEPS steps; with the
+     counts set to 0 just before and read just after, every
+     `Trainer.step` call must launch K1 and K2 once each; `results.json`
+     must hold finite metrics;
+ 21. holds `mean_sq_dist_3nn` on the init cloud (KNN_POINTS points) and
+     `chamfer_distance`/`fscore` on test frame 0's dumped render against
+     its GT against a float64 k-d tree (scipy.spatial.cKDTree), and counts
+     the init cloud's voxels at 0.2 m and at the median 3-NN estimate;
+ 22. resumes from the checkpoint to the end (`--start_checkpoint`: K1 and
+     K2 once per step again, a densify) and evaluates the snapshot alone
+     (`--load_iteration`: metrics with chamfer, FPS, 12 PNG renders);
+ 23. trains the surfel variant through the CLI at its defaults
+     (h1/K384/cap32), CLI_SURFEL_ITERS iterations, K5 and K6 once per step.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -118,6 +139,12 @@ stop one instance earlier or later.
     315,277 touched rows.
   * K3, K7 (window forms): bit for bit equal to K1, K5 on the same rows, and
     against their plain versions K1's and K5's bounds above.
+  * The 3-NN and chamfer distances against the k-d tree (float64): each
+    point's squared distance within 1e-6 (|x|^2 + |y|^2) + 1e-6 m^2 of the
+    tree's (`gram_tol`: the float32 Gram form rounds ~13 terms of that
+    size; TF32 would be ~1e3 times off), the chamfer distance within the
+    mean of those bounds, the F-score within the share of points whose
+    distance lies within its bound of tau = 0.05.
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
     on the same inputs and every other row of dbuf exactly zero; the owned
     rows against the plain versions' within K2_TOL. A fused step's
@@ -128,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +205,18 @@ OPS_S_FWD_APPLIED = 28         # + 2 C: K5's accumulators (w, features, depth, n
 OPS_S_BWD_APPLIED = 288        # + 4 C: K6 per applied pair: the replayed pair (85), the
 #                                chain (188 + 3 C) and one add per gradient column
 #                                (15 + C) for the reduction
+# the training CLI on a dataset (phases 19-23): the procedural street at the
+# sensor's width, 46 train and 4 test frames, the CLI's defaults but the
+# voxel (0.2 m: ~53k anchors of the 131,072 capacity)
+CLI_SCENE = dict(n_frames=50, H=64, W=2650, seed=0)
+CLI_NUM_FRAMES = 50           # frames the CLI reads (--num_frames), in the reference's order
+CLI_VOXEL = "0.2"
+CLI_EXTRA: list = []          # more CLI flags (the CPU rehearsal shrinks the field)
+CLI_ITERS = 200               # checkpoint and densify at half and at the end
+CLI_SURFEL_ITERS = 20
+CLI_LOG_EVERY = 50
+CLI_PROFILE_STEPS = 5
+KNN_POINTS = 500_000          # init-cloud points held against the k-d tree
 
 
 def fail(msg: str) -> None:
@@ -774,6 +814,11 @@ def run(dev) -> None:
     windows, k3, k4 = window_phases(dev, params, valid, mcfg, beams, frames, "beam")
     surfel_windows, k7, k8 = window_phases(dev, params, valid, mcfg, beams, frames, "surfel")
 
+    # --- 19-23. the training CLI on a dataset: train, resume, eval-only ---
+    cli = cli_phases(dev)
+    for entry, run_, key in ((k2, "beam", "K2"), (k5, "surfel", "K5"), (k6, "surfel", "K6")):
+        entry["launches_cli"] = cli[run_]["launches"][key]
+
     timing = {
         "card": card_csv,
         "render_ms_per_frame_median": med(render_ms),
@@ -791,6 +836,7 @@ def run(dev) -> None:
         "surfel": surfel,
         "windows": windows,
         "surfel_windows": surfel_windows,
+        "cli": cli,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
@@ -799,7 +845,7 @@ def run(dev) -> None:
         "kernels": [kernel_entry(
             "composite_fwd", "lidargs_torch/csrc/composite_fwd.cu",
             "lidargs_tpu/ops/pallas_composite.py:175", k1_launches, k1_ms, plain_ms, b1,
-            launches_train=train["k1_launches"],
+            launches_train=train["k1_launches"], launches_cli=cli["beam"]["launches"]["K1"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
         ), k2, k3, k4, k5, k6, k7, k8],
@@ -1435,6 +1481,270 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
         tpu + ("418" if surfel else "385"), train_counts[3], b_ms, pb_ms, b_b,
         warp_rows_reduced=w_b, **dinst_errors(err_b), bit_equal_to=f"{k_tb} on the owned rows")
     return summary, e_f, e_b
+
+
+@contextlib.contextmanager
+def probe(owner, name: str, counters=()):
+    """Wrap `owner.name` while the block runs: each call's host seconds
+    (start and duration), its result, and how far each of `counters` (zero-
+    argument functions reading a launch count) moved during it."""
+    orig = getattr(owner, name)
+    calls = []
+
+    def wrapped(*a, **k):
+        before = [c() for c in counters]
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        calls.append({"start": t0, "s": time.perf_counter() - t0, "result": out,
+                      "launches": [c() - b for c, b in zip(counters, before)]})
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, orig)
+
+
+def trace_device_ms(trace_json: Path, steps: int) -> dict:
+    """Device ms and device-side launches per step from the CLI's
+    `--profile_steps` Chrome trace (the kernels, copies and memsets), and
+    the costliest kernels by name."""
+    events = (json.loads(trace_json.read_text()).get("traceEvents", [])
+              if trace_json.exists() else [])
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return {"device_ms_per_step": "not measured", "device_launches_per_step": "not measured"}
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    return {"device_ms_per_step": sum(e.get("dur", 0.0) for e in dev) / 1e3 / steps,
+            "device_launches_per_step": len(dev) / steps,
+            "top_ms_per_step": {k[:90]: v / 1e3 / steps for k, v in top}}
+
+
+def gram_tol(x, y):
+    """Per-row bound on the Gram form's float32 error, |x|^2 + |y|^2 - 2 x.y
+    with |x| ~ |y| ~ R: about 13 roundings of R^2 (the two norms, the dot
+    product, the two sums), so 2**-24 * 13 * R^2 < 1e-6 (|x|^2 + |y|^2); plus
+    1e-6 m^2 absolute. TF32 (2**-11) gives errors ~1e3 times this."""
+    return 1e-6 * ((x * x).sum(-1) + (y * y).sum(-1)) + 1e-6
+
+
+def knn_oracle(dev, points):
+    """`mean_sq_dist_3nn` on the card against a float64 k-d tree
+    (scipy.spatial.cKDTree) on the same float32 points: every row within
+    `gram_tol` (the sorted k smallest move by at most the largest error)."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from lidargs_torch.ops.knn import mean_sq_dist_3nn
+
+    pts = torch.from_numpy(points).to(dev)
+    mean_sq_dist_3nn(pts)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mean_sq_dist_3nn(pts)
+    torch.cuda.synchronize()
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    got = got.cpu().numpy().astype(np.float64)
+    p64 = points.astype(np.float64)
+    t0 = time.perf_counter()
+    d, idx = cKDTree(p64).query(p64, k=4, workers=-1)
+    tree_s = time.perf_counter() - t0
+    want = (d[:, 1:] ** 2).mean(1)
+    tol = gram_tol(p64, p64[idx[:, 3]])
+    err = np.abs(got - want)
+    out = {"points": len(points), "ms": knn_ms, "ckdtree_s": tree_s,
+           "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+           "max_err_over_tol": float((err / tol).max()), "max_tol": float(tol.max()),
+           "median_port": float(np.median(got)), "median_oracle": float(np.median(want))}
+    if not out["max_err_over_tol"] <= 1.0:
+        fail(f"mean_sq_dist_3nn against cKDTree: {out}")
+    return out
+
+
+def chamfer_oracle(dev, dump: Path, beams, depth_min: float, depth_max: float):
+    """`chamfer_distance` and `fscore` on the card, on one dumped frame's
+    render against its GT (the clouds `evaluate_frame` builds), against a
+    float64 k-d tree: each point's squared distance within `gram_tol`, the
+    chamfer distance within the mean of the bounds, the F-score within the
+    share of points whose distance lies within its bound of tau."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from lidargs_torch.lidar.pano import pano_to_lidar
+    from lidargs_torch.ops.knn import chamfer_distance, fscore
+
+    tau = 0.05
+    r = torch.from_numpy(np.load(dump)).to(dev)            # [6, H, W]
+    b = torch.as_tensor(beams, dtype=torch.float32, device=dev)
+    pred = pano_to_lidar(r[2].clamp(depth_min, depth_max) * (r[1] > 0.5).float(), b)
+    gt = pano_to_lidar(r[5] * r[3], b)
+    cd, d1, d2, _, _ = chamfer_distance(pred, gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cd, d1, d2, v1, v2 = chamfer_distance(pred, gt)
+    f = fscore(d1, d2, tau, v1, v2)[0]
+    chamfer_ms = (time.perf_counter() - t0) * 1e3
+    a32, b32 = (x.float().cpu().numpy().astype(np.float64) for x in (pred, gt))
+    e1, i1 = cKDTree(b32).query(a32, workers=-1)
+    e2, i2 = cKDTree(a32).query(b32, workers=-1)
+    w1, w2 = e1 ** 2, e2 ** 2
+    t1, t2 = gram_tol(a32, b32[i1]), gram_tol(b32, a32[i2])
+    err1 = np.abs(d1.cpu().numpy() - w1)
+    err2 = np.abs(d2.cpu().numpy() - w2)
+    cd_want = w1.mean() + w2.mean()
+    p1, p2 = (w1 < tau).mean(), (w2 < tau).mean()
+    f_want = 2 * p1 * p2 / (p1 + p2) if p1 + p2 > 0 else 0.0
+    near = float((np.abs(w1 - tau) <= t1).mean() + (np.abs(w2 - tau) <= t2).mean())
+    out = {"pred_points": len(a32), "gt_points": len(b32), "chamfer_ms": chamfer_ms,
+           "cd": cd, "cd_oracle": float(cd_want), "cd_tol": float(t1.mean() + t2.mean()),
+           "fscore": f, "fscore_oracle": float(f_want), "fscore_tol": near,
+           "max_err_over_tol": float(max((err1 / t1).max(), (err2 / t2).max())),
+           "max_abs_err": float(max(err1.max(), err2.max()))}
+    if not (out["max_err_over_tol"] <= 1.0 and abs(cd - cd_want) <= out["cd_tol"]
+            and abs(f - f_want) <= near + 1e-6):
+        fail(f"chamfer/F-score against cKDTree: {out}")
+    return out
+
+
+def cli_results(out: Path, split: str = "test") -> dict:
+    """`results.json` of a CLI run: its split's metrics, which must be
+    finite, with the depth chamfer distance and F-score when asked for."""
+    import numpy as np
+
+    m = json.loads((out / "results.json").read_text())[split]
+    for k in ("intensity_psnr", "depth_rmse", "depth_cd", "depth_fscore"):
+        if k in m and not np.isfinite(m[k]):
+            fail(f"{out}: {split} {k} = {m[k]} is not finite")
+    return m
+
+
+def cli_phases(dev):
+    """Phases 19-23, the training CLI on a dataset (a summary for the timing
+    line, and each kernel's launches in the CLI runs)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lidargs_torch.data.ply import read_point_cloud
+    from lidargs_torch.data.synthetic import make_street_dataset
+    from lidargs_torch.data.waymo import WAYMO_TEST_IDX
+    from lidargs_torch.models.field import voxelize_points
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.train import cli, metrics
+    from lidargs_torch.train.trainer import Trainer
+
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    root, out, out_s = work / "street", work / "beam", work / "surfel"
+
+    # --- 19. the dataset: the procedural street at the sensor's width ---
+    t0 = time.perf_counter()
+    make_street_dataset(str(root), **CLI_SCENE)
+    dataset_s = time.perf_counter() - t0
+    print(f"# cli: street dataset {CLI_SCENE} written in {dataset_s:.1f} s", file=sys.stderr)
+    half = CLI_ITERS // 2
+    n_test = sum(i < CLI_NUM_FRAMES for i in WAYMO_TEST_IDX)
+    base = ["-s", str(root), "--num_frames", str(CLI_NUM_FRAMES), "--device", str(dev),
+            "--voxel_size", CLI_VOXEL, *CLI_EXTRA]
+    argv = base + ["-m", str(out), "--iterations", str(CLI_ITERS),
+                   "--start_stat", "1", "--update_from", str(half),
+                   "--update_interval", str(half), "--test_iterations", str(CLI_ITERS),
+                   "--save_iterations", str(CLI_ITERS), "--checkpoint_iterations", str(half),
+                   "--eval_chamfer", "--log_every", str(CLI_LOG_EVERY)]
+    beam_counts = (lambda: ck.launches, lambda: ck.bwd_launches)
+
+    # --- 20. the beam variant trains, evaluates, saves and profiles ---
+    ck.launches = ck.bwd_launches = 0
+    with probe(Trainer, "step", beam_counts) as steps, \
+            probe(cli, "run_eval") as evals, probe(cli, "measure_fps") as fps, \
+            probe(metrics, "_chamfer_metrics") as chamfers:
+        cli.main(argv + ["--dump_renders", "--profile_steps", str(CLI_PROFILE_STEPS)])
+    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    per_step = {tuple(c["launches"]) for c in steps}
+    if len(steps) != CLI_ITERS or per_step != {(1, 1)}:
+        fail(f"CLI beam run: {len(steps)} steps launching (K1, K2) {per_step} times each")
+    log = (out / "outputs.log").read_text()
+    if f"iter {CLI_ITERS}: densify" not in log:
+        fail("CLI beam run: no densify at the last iteration")
+    for f in ("points3d.ply", f"chkpnt{half}.npz", "renders/test_000.npy", "cfg_args.json",
+              f"point_cloud/iteration_{CLI_ITERS}/point_cloud.ply", "per_view.json",
+              "point_cloud/iteration_best/mlp_checkpoints.npz"):
+        if not (out / f).exists():
+            fail(f"CLI beam run wrote no {f}")
+    test = cli_results(out)
+    if not all(k in test for k in ("depth_cd", "depth_fscore")):
+        fail(f"CLI beam run: no chamfer metrics in results.json: {test}")
+    gaps = np.diff([c["start"] for c in steps]) * 1e3
+    beam = {
+        "steps": len(steps), "launches": launches,
+        "host_ms_per_step_median": float(np.median(gaps)),
+        "host_ms_per_step_mean": float(gaps.mean()),
+        **trace_device_ms(out / "trace" / "trace.json", CLI_PROFILE_STEPS),
+        "profiled_steps": CLI_PROFILE_STEPS,
+        "fps": fps[-1]["result"], "eval_s": [c["s"] for c in evals],
+        "chamfer_ms_per_frame_median": float(np.median([c["s"] for c in chamfers]) * 1e3),
+        "anchors": int(re.search(r"(\d+) anchors, voxel", log).group(1)), "test": test,
+    }
+    print(f"# cli beam: {json.dumps(beam)}", file=sys.stderr)
+
+    # --- 21. the distance code against a float64 k-d tree ---
+    init = read_point_cloud(str(out / "points3d.ply"))
+    knn = knn_oracle(dev, np.ascontiguousarray(init[:KNN_POINTS]))
+    voxels = {v: int(voxelize_points(torch.from_numpy(init).to(dev), v).shape[0])
+              for v in (float(CLI_VOXEL), knn["median_port"])}
+    beams = json.loads((root / "transforms_train.json").read_text())["beam_inclinations"]
+    chamfer = chamfer_oracle(dev, out / "renders" / "test_000.npy", beams, 5.0, 80.0)
+    print(f"# cli oracle: 3-NN {knn}; voxels {voxels}; chamfer {chamfer}", file=sys.stderr)
+
+    # --- 22. resume from the checkpoint, then evaluate the snapshot alone ---
+    ck.launches = ck.bwd_launches = 0
+    with probe(Trainer, "step", beam_counts) as steps:
+        cli.main(argv + ["--start_checkpoint", str(half), "--test_iterations"])
+    if len(steps) != CLI_ITERS - half or {tuple(c["launches"]) for c in steps} != {(1, 1)}:
+        fail(f"CLI resume: {len(steps)} steps, launches {[c['launches'] for c in steps][:4]}")
+    log = (out / "outputs.log").read_text()
+    if f"resumed from iteration {half}" not in log or f"iter {CLI_ITERS}: densify" not in log:
+        fail("CLI resume: no resume or no densify in its log")
+    resumed = cli_results(out)
+    with probe(cli, "run_eval") as evals:
+        cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--eval_chamfer"])
+    eval_only = cli_results(out)
+    n_png = len(list((out / "test_renders").glob("*.png")))
+    if n_png != 3 * n_test:
+        fail(f"CLI eval-only: {n_png} test renders, not {3 * n_test}")
+    if not all(k in eval_only for k in ("depth_cd", "depth_fscore")):
+        fail(f"CLI eval-only: no chamfer metrics: {eval_only}")
+
+    # --- 23. the surfel variant at its defaults ---
+    sk.launches = sk.bwd_launches = 0
+    with probe(Trainer, "step", (lambda: sk.launches, lambda: sk.bwd_launches)) as s_steps:
+        cli.main(base + ["-m", str(out_s), "--surfel", "--iterations", str(CLI_SURFEL_ITERS),
+                         "--test_iterations", "--save_iterations", str(CLI_SURFEL_ITERS),
+                         "--log_every", str(CLI_SURFEL_ITERS)])
+    s_launches = {"K5": sk.launches, "K6": sk.bwd_launches}
+    per_step = {tuple(c["launches"]) for c in s_steps}
+    if len(s_steps) != CLI_SURFEL_ITERS or per_step != {(1, 1)}:
+        fail(f"CLI surfel run: {len(s_steps)} steps launching (K5, K6) {per_step} times each")
+    s_test = cli_results(out_s)
+    s_gaps = np.diff([c["start"] for c in s_steps]) * 1e3
+    summary = {
+        "scene": CLI_SCENE, "dataset_s": dataset_s, "beam": beam,
+        "knn_oracle": knn, "voxels": voxels, "chamfer_oracle": chamfer,
+        "resume": {"steps": len(steps), "test": resumed},
+        "eval_only": {"eval_s": evals[-1]["s"], "test": eval_only},
+        "surfel": {"steps": len(s_steps), "launches": s_launches, "test": s_test,
+                   "host_ms_per_step_median": float(np.median(s_gaps))},
+    }
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ evaluation metrics, `measure_fps` and `run_eval`), the beam training step
 Adam, the densification statistics and `densify_step`), and the surfel
 (2DGS) variant's render and training step (`variant="surfel"`: the surfel
 preprocess, kernels K5 and K6, the distortion and normal-consistency
-terms).
+terms), the fused-window gather of both (K3/K4, K7/K8), and the data layer
+and training CLI (`python -m lidargs_torch.train.cli`: the AlignMiF reader,
+the field from the fused point cloud, the chamfer/F-score evaluation,
+snapshots, checkpoints and resume, in the JAX package's file formats).
 
 Matrix products stay in full float32 (no TF32), as the JAX package computes
 its geometry at `Precision.HIGHEST`.

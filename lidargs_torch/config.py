@@ -5,7 +5,8 @@ defaults, so a configuration means the same thing in both packages. The
 Pallas-only knobs (`pallas_chunk`, `pallas_tiles_per_block` and the
 `backend` switch) have no counterpart here: a composite call runs the CUDA
 kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor.
-`DataConfig`, `ParallelConfig` and `TrainConfig` arrive with the CLI.
+`ParallelConfig` is carried so that `TrainConfig` holds the same tree; the
+port trains on one device and its CLI refuses any other setting.
 """
 from __future__ import annotations
 
@@ -153,6 +154,42 @@ class OptConfig:
     # budget, push the decoded set's positive opacities down in proportion
     # to the overflow (off by default)
     overflow_lambda: float = 0.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    source_path: str = ""
+    data_label: str = "waymo"
+    white_background: bool = False
+    num_frames: int = 50
+    init_points: int = 500_000
+    resolution_scales: Tuple[float, ...] = (1.0,)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's mesh axes: frames over `data_axis`, azimuth tiles
+    over `tile_axis`. The port runs one device (1 and 1)."""
+
+    data_parallel: int = 1
+    tile_parallel: int = 1
+    data_axis: str = "data"
+    tile_axis: str = "tile"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    opt: OptConfig = field(default_factory=OptConfig)
+    raster: RasterConfig = field(default_factory=RasterConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    model_path: str = "output/run"
+    seed: int = 1234
+    test_iterations: Tuple[int, ...] = (2000, 3000, 4000, 5000, 6000, 7000)
+    save_iterations: Tuple[int, ...] = (4000, 10000)
+    checkpoint_iterations: Tuple[int, ...] = ()
+    log_every: int = 10
 
 
 def replace(cfg, **kw):

@@ -10,13 +10,14 @@ per-gaussian row line up with the JAX package's.
 `render_field_surfel` is the surfel (2DGS) variant's render path: the same
 decode, the first two decoded covariance scales as the surfel's scales.
 
-Not ported yet: `init_field_from_points` (needs the 3-NN and the voxel
-dedup).
+`init_field_from_points` builds the field from a point cloud: the voxel
+dedup of `voxelize_points` and the initial scales of `ops/knn.py`'s 3-NN.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -81,6 +82,60 @@ def init_field_params(cfg: ModelConfig, num_cameras: int = 0,
             params[name] = torch.randn((num_cameras, cfg.appearance_dim),
                                        generator=gen).to(dev)
     return params
+
+
+def voxelize_points(points, voxel_size: float) -> torch.Tensor:
+    """Unique voxel-rounded points, float64, in lexicographic row order:
+    round(points * (1/voxel)) (half to even), unique rows, times the voxel.
+    The JAX package's native dedup rounds the same product; its numpy
+    fallback rounds `points / voxel`, which can pick the other cell at a
+    half-voxel tie. The rows are ordered by three stable sorts (z, then y,
+    then x), which is faster than `torch.unique(dim=0)` and gives its
+    order."""
+    pts = torch.as_tensor(points).to(torch.float64)
+    cells = torch.round(pts * (1.0 / voxel_size))
+    order = torch.arange(cells.shape[0], device=cells.device)
+    for col in (2, 1, 0):
+        order = order[torch.argsort(cells[order, col], stable=True)]
+    cells = cells[order]
+    new = torch.ones(cells.shape[0], dtype=torch.bool, device=cells.device)
+    new[1:] = (cells[1:] != cells[:-1]).any(1)
+    return cells[new] * voxel_size
+
+
+def init_field_from_points(cfg: ModelConfig, points, voxel_size: Optional[float] = None,
+                           num_cameras: int = 0,
+                           generator: Optional[torch.Generator] = None,
+                           device="cuda") -> AnchorField:
+    """The field of a point cloud [N, 3] (the reference's create_from_pcd):
+    every `cfg.ratio`-th point, voxelized at `voxel_size` (else
+    `cfg.voxel_size`; <= 0: the median of the points' mean squared 3-NN
+    distances), log sqrt of the anchors' mean squared 3-NN distance as all
+    six initial scales, identity rotations, opacity 0 (sigmoid 0.5). The
+    heads come from `init_field_params` with `generator`. Raises when the
+    anchors exceed `cfg.anchor_capacity`."""
+    from ..ops.knn import mean_sq_dist_3nn
+
+    dev = resolve_device(device)
+    pts = torch.as_tensor(points).to(device=dev, dtype=torch.float64)[::cfg.ratio]
+    vs = cfg.voxel_size if voxel_size is None else voxel_size
+    if vs <= 0:
+        # numpy's median (the mean of the two middle values), on the host
+        vs = float(np.median(mean_sq_dist_3nn(pts.to(torch.float32)).cpu().numpy()))
+    anchors = voxelize_points(pts, vs).to(torch.float32)
+    n = anchors.shape[0]
+    if n > cfg.anchor_capacity:
+        raise ValueError(f"{n} anchors exceed capacity {cfg.anchor_capacity}; raise "
+                         "ModelConfig.anchor_capacity")
+    d2 = mean_sq_dist_3nn(anchors).clamp_min(1e-7)
+    scales = torch.log(torch.sqrt(d2))[:, None].repeat(1, 6)
+
+    params = init_field_params(cfg, num_cameras, generator=generator, device=dev)
+    params["anchor"][:n] = anchors
+    params["scaling"][:n] = scales
+    params["opacity"][:n] = 0.0             # inverse_sigmoid(0.5)
+    valid = torch.arange(cfg.anchor_capacity, device=dev) < n
+    return AnchorField(params=params, valid=valid, voxel_size=vs)
 
 
 class NeuralGaussians(NamedTuple):

@@ -1,0 +1,458 @@
+"""Training CLI: read a LiDAR sequence, build the anchor field from its fused
+point cloud, train, evaluate, save snapshots and checkpoints, and resume.
+
+    python -m lidargs_torch.train.cli -s <data> --data_label waymo -m <out> \\
+        --iterations 10000
+
+Counterpart of `lidargs_tpu/train/cli.py` on one device (the card unless
+`--device cpu`): the same flags and defaults, the same frame schedule
+(Python's `random.Random(seed)`), and the same files (`cfg_args.json`,
+`outputs.log`, `points3d.ply`, `point_cloud/iteration_<it>/`,
+`chkpnt<it>.npz`, `results.json`, `per_view.json`, `test_renders/`,
+`renders/`), which either package loads. The step runs eager on the card:
+kernels K1 and K2 per beam step, K5 and K6 with `--surfel`, and their
+window forms (K3/K4, K7/K8) with `--fused_gather`.
+
+The flags of paths not ported yet raise rather than being ignored:
+data-parallel and multi-host training (ROADMAP.md queue 1 item 6), the
+ray-drop refiner and the `refine` subcommand (item 4), LPIPS (item 5), and
+`--pallas_chunk`, a knob of the TPU kernels only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import math
+import os
+import random
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def get_logger(model_path: str, suffix: str = "") -> logging.Logger:
+    logger = logging.getLogger("lidargs_torch")
+    logger.setLevel(logging.INFO)
+    for h in logger.handlers:
+        h.close()
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+    os.makedirs(model_path, exist_ok=True)
+    fh = logging.FileHandler(os.path.join(model_path, f"outputs{suffix}.log"))
+    fh.setFormatter(fmt)
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(fmt)
+    logger.addHandler(fh)
+    logger.addHandler(sh)
+    return logger
+
+
+def _refuse_unported(args) -> None:
+    """Raise for a flag whose path the port does not have yet."""
+    unported = (
+        (args.data_parallel > 1, f"--data_parallel {args.data_parallel}", 6),
+        (args.dp_batch != 0, f"--dp_batch {args.dp_batch}", 6),
+        (args.num_processes > 1, f"--num_processes {args.num_processes}", 6),
+        (args.process_id != 0, f"--process_id {args.process_id}", 6),
+        (args.coordinator is not None, "--coordinator", 6),
+        (args.mp_platform is not None, "--mp_platform", 6),
+        (args.mp_local_devices is not None, "--mp_local_devices", 6),
+        (args.raydrop_refiner is not None, "--raydrop_refiner", 4),
+        (args.lpips_weights is not None, "--lpips_weights", 5),
+    )
+    for given, flag, item in unported:
+        if given:
+            raise NotImplementedError(
+                f"{flag}: not ported to lidargs_torch yet (ROADMAP.md queue 1 item {item})")
+    if args.pallas_chunk is not None:
+        raise ValueError("--pallas_chunk is a knob of the TPU kernels; the CUDA kernels "
+                         "of lidargs_torch have none")
+
+
+def build_config(argv=None):
+    from ..config import DataConfig, ModelConfig, OptConfig, RasterConfig, TrainConfig, replace
+
+    p = argparse.ArgumentParser("lidargs_torch trainer")
+    p.add_argument("--source_path", "-s", required=True)
+    p.add_argument("--model_path", "-m", default="output/run")
+    p.add_argument("--data_label", default="waymo")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; raises without a card)")
+    p.add_argument("--iterations", type=int, default=10_000)
+    p.add_argument("--num_frames", type=int, default=50)
+    p.add_argument("--voxel_size", type=float, default=0.0)
+    p.add_argument("--anchor_capacity", type=int, default=2**17)
+    p.add_argument("--max_visible", type=int, default=2**18)
+    p.add_argument("--tile_capacity", type=int, default=None,
+                   help="depth-sorted instances composited per tile "
+                        "(default: 768 beam / 384 surfel)")
+    p.add_argument("--tile_h", type=int, default=None,
+                   help="pixel rows per tile (1/2/4/8; default 4 beam / 1 surfel)")
+    p.add_argument("--max_tiles_per_gaussian", type=int, default=None,
+                   help="per-gaussian touched-tile cap (default 8 beam / the "
+                        "RasterConfig default surfel)")
+    p.add_argument("--pallas_chunk", type=int, default=None,
+                   help="a TPU-kernel knob; refused here")
+    p.add_argument("--instance_capacity", type=int, default=None,
+                   help="rank-search instance emission budget (0 = exact dense)")
+    p.add_argument("--remat_projection", type=int, default=None, choices=(0, 1),
+                   help="recompute the projection in the backward instead of the "
+                        "hand VJP (default 0)")
+    p.add_argument("--fused_gather", action="store_true",
+                   help="per-tile windows of one sorted buffer (kernels K3/K4, "
+                        "K7/K8) instead of the [T,K,F] gather")
+    p.add_argument("--raydrop_lambda", type=float, default=None)
+    p.add_argument("--raydrop_refiner", default=None, help="not ported yet; refused")
+    p.add_argument("--lpips_weights", default=None, help="not ported yet; refused")
+    p.add_argument("--surfel", action="store_true",
+                   help="train/render through the 2DGS surfel rasterizer with the "
+                        "distortion and normal-consistency regularizers")
+    p.add_argument("--depth_min", type=float, default=None,
+                   help="depth-metric lower clamp (default: 5 for waymo, 1 otherwise)")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="0/1 = single device; more is not ported yet")
+    p.add_argument("--dp_batch", type=int, default=0, help="not ported yet; refused")
+    p.add_argument("--coordinator", default=None, help="not ported yet; refused")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--mp_platform", default=None, help="not ported yet; refused")
+    p.add_argument("--mp_local_devices", type=int, default=None,
+                   help="not ported yet; refused")
+    p.add_argument("--update_from", type=int, default=None,
+                   help="densify schedule start (OptConfig default 500)")
+    p.add_argument("--update_until", type=int, default=None,
+                   help="densify schedule end (OptConfig default 7000)")
+    p.add_argument("--update_interval", type=int, default=None,
+                   help="densify cadence (OptConfig default 100)")
+    p.add_argument("--start_stat", type=int, default=None,
+                   help="densification-statistics start iteration")
+    p.add_argument("--test_iterations", type=int, nargs="*", default=None)
+    p.add_argument("--save_iterations", type=int, nargs="*", default=None)
+    p.add_argument("--checkpoint_iterations", type=int, nargs="*", default=[])
+    p.add_argument("--start_checkpoint", type=int, default=None)
+    p.add_argument("--eval_chamfer", action="store_true")
+    p.add_argument("--dump_renders", action="store_true",
+                   help="save per-frame renders as npy (raydrop refiner input)")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--config", default=None,
+                   help="load argument defaults from a saved cfg_args.json")
+    p.add_argument("--init_ply", default=None,
+                   help="initialize anchors from this PLY instead of the fused frames "
+                        "(used by --warmup phase 2)")
+    p.add_argument("--warmup", action="store_true",
+                   help="two-phase restart: train, then re-train from the saved PLY")
+    p.add_argument("--load_iteration", type=int, default=None,
+                   help="eval-only: load a saved snapshot, run the metric sweep + FPS, "
+                        "save test renders as PNGs")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="log scalars/images to <model_path>/tb")
+    p.add_argument("--wandb", default=None, metavar="PROJECT",
+                   help="log train/eval scalars to Weights & Biases; inactive when "
+                        "the package is unavailable")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="capture a torch.profiler trace of N steps into <model_path>/trace")
+    args, _ = p.parse_known_args(argv)
+    if args.config:
+        with open(args.config) as f:
+            saved = json.load(f)
+        p.set_defaults(**{k: v for k, v in saved.items()
+                          if k in {a.dest for a in p._actions}})
+    args = p.parse_args(argv)
+    _refuse_unported(args)
+
+    # kitti's ray-drop weight and depth clamp differ from waymo's
+    rd_lambda = args.raydrop_lambda
+    if rd_lambda is None:
+        rd_lambda = 10.0 if args.data_label == "waymo" else 1.0
+    depth_min = args.depth_min
+    if depth_min is None:
+        depth_min = 5.0 if args.data_label == "waymo" else 1.0
+    eff_cap = (args.tile_capacity if args.tile_capacity is not None
+               else (384 if args.surfel else 768))
+    eff_tile_h = args.tile_h if args.tile_h is not None else (1 if args.surfel else 4)
+    remat_proj = bool(args.remat_projection) if args.remat_projection is not None else False
+
+    cfg = TrainConfig(
+        model=ModelConfig(voxel_size=args.voxel_size, anchor_capacity=args.anchor_capacity),
+        opt=replace(OptConfig(), iterations=args.iterations,
+                    raydrop_lambda=rd_lambda, depth_min=depth_min,
+                    **{k: v for k, v in (
+                        ("update_from", args.update_from),
+                        ("update_until", args.update_until),
+                        ("update_interval", args.update_interval),
+                        ("start_stat", args.start_stat),
+                    ) if v is not None}),
+        raster=replace(
+            RasterConfig(), max_visible=args.max_visible,
+            **{k: v for k, v in (
+                ("tile_h", eff_tile_h),
+                ("tile_capacity", eff_cap),
+                ("max_tiles_per_gaussian", args.max_tiles_per_gaussian
+                 if args.max_tiles_per_gaussian is not None
+                 else (None if args.surfel else 8)),
+                ("instance_capacity", args.instance_capacity),
+                ("remat_projection", remat_proj),
+            ) if v is not None},
+            **({"fused_gather": True} if args.fused_gather else {}),
+        ),
+        data=DataConfig(source_path=args.source_path, data_label=args.data_label,
+                        num_frames=args.num_frames),
+        model_path=args.model_path,
+        seed=args.seed,
+        test_iterations=tuple(args.test_iterations if args.test_iterations is not None
+                              else range(2000, args.iterations + 1, 1000)),
+        save_iterations=tuple(args.save_iterations if args.save_iterations is not None
+                              else (args.iterations,)),
+        checkpoint_iterations=tuple(args.checkpoint_iterations),
+        log_every=args.log_every,
+    )
+    return cfg, args
+
+
+def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None, step=0):
+    """The metric sweep over the test and train frames (`train/evaluate.py`
+    `run_eval`), writing `results.json` and `per_view.json` under the model
+    path; with an active TensorBoard logger, the first four test frames'
+    depth, intensity and GT images too."""
+    from .evaluate import run_eval as eval_splits
+
+    t0 = time.perf_counter()
+    results = eval_splits(
+        state.params, state.valid,
+        {"test": scene.data.test_frames, "train": scene.data.train_frames},
+        trainer.mcfg, trainer.rcfg, trainer.bg, cfg.model_path,
+        depth_min=trainer.ocfg.depth_min, depth_max=trainer.ocfg.depth_max,
+        device=state.valid.device, variant=trainer.variant, compute_chamfer=compute_chamfer)
+    n = len(scene.data.test_frames) + len(scene.data.train_frames)
+    logger.info(f"[eval] {n} frames in {time.perf_counter() - t0:.2f} s")
+    if tb is not None and tb.active:
+        gray = lambda x: np.repeat(np.asarray(x)[..., None], 3, -1)
+        with torch.no_grad():
+            for idx, fr in enumerate(scene.data.test_frames[:4]):
+                out = trainer.render(state.params, state.valid, fr)
+                tb.depth_image(f"eval/test_{idx}/depth", out.depth.cpu().numpy(), step,
+                               vmax=trainer.ocfg.depth_max)
+                tb.image(f"eval/test_{idx}/render",
+                         gray(out.color[0].clamp(0, 1).cpu().numpy()), step)
+                tb.image(f"eval/test_{idx}/gt",
+                         gray((fr.gt_image[1] * fr.gt_image[0]).cpu().numpy()), step)
+    return results
+
+
+def measure_fps(scene, state, trainer, warmup: int = 5) -> float:
+    """Per-frame wall clock of the render over every train and test frame,
+    each ending in a device synchronize; the mean of 1/t after `warmup`
+    frames (`train/evaluate.py` `measure_fps`, which logs it)."""
+    from .evaluate import measure_fps as fps_of
+
+    with torch.no_grad():
+        return fps_of(state.params, state.valid,
+                      scene.data.train_frames + scene.data.test_frames,
+                      trainer.mcfg, trainer.rcfg, trainer.bg, warmup=warmup,
+                      device=state.valid.device, variant=trainer.variant).fps
+
+
+def main(argv=None):
+    cfg, args = build_config(argv)
+    logger = get_logger(cfg.model_path)
+    with open(os.path.join(cfg.model_path, "cfg_args.json"), "w") as f:
+        json.dump(vars(args), f, indent=2, default=str)
+
+    from ..data.scene import Scene
+    from ..utils.device import resolve_device
+    from .trainer import Trainer, init_train_state
+
+    dev = resolve_device(args.device)
+    scene = Scene.create(cfg, load_iteration=args.load_iteration, init_ply=args.init_ply,
+                         device=dev)
+    logger.info(
+        f"scene: {len(scene.data.train_frames)} train / "
+        f"{len(scene.data.test_frames)} test frames, "
+        f"{int(scene.field.valid.sum())} anchors, voxel {scene.field.voxel_size:.4f}"
+    )
+
+    bg = torch.zeros((cfg.model.color_channel,), dtype=torch.float32, device=dev)
+    trainer = Trainer(variant="surfel" if args.surfel else "beam", mcfg=cfg.model,
+                      ocfg=cfg.opt, rcfg=cfg.raster, bg=bg)
+    state = init_train_state(scene.field, cfg.model)
+
+    if args.load_iteration is not None:
+        # eval-only: metric sweep + FPS + saved PNG renders
+        run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer)
+        measure_fps(scene, state, trainer)
+        render_sets(scene, state, trainer, cfg, logger)
+        if args.dump_renders:
+            dump_renders(scene, state, trainer, cfg, logger)
+        return state
+    first_iter = 0
+    if args.start_checkpoint is not None:
+        state = scene.load_train_state(args.start_checkpoint, like=state)
+        first_iter = args.start_checkpoint
+        logger.info(f"resumed from iteration {first_iter}")
+
+    from ..utils.profiling import StepTimer, TensorBoardLogger, WandbLogger, trace
+
+    tb = TensorBoardLogger(os.path.join(cfg.model_path, "tb") if args.tensorboard else None)
+    wb = WandbLogger(args.wandb, run_name=os.path.basename(cfg.model_path),
+                     config=vars(args))
+    timer = StepTimer().start()
+    profile_ctx = None
+
+    rng = random.Random(cfg.seed)
+    frame_stack = None
+    ema = None
+    densify_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    t_start = time.time()
+    best_test_psnr, best_test_it = float("-inf"), 0
+    for it in range(first_iter + 1, cfg.opt.iterations + 1):
+        if args.profile_steps and it == first_iter + 2:     # after the first step
+            profile_ctx = trace(os.path.join(cfg.model_path, "trace"))
+            profile_ctx.__enter__()
+        if not frame_stack:
+            frame_stack = list(range(len(scene.data.train_frames)))
+        fidx = frame_stack.pop(rng.randint(0, len(frame_stack) - 1))
+        state, metrics = trainer.step(state, scene.data.train_frames[fidx], it)
+        if profile_ctx is not None and it >= first_iter + 1 + args.profile_steps:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            profile_ctx.__exit__(None, None, None)
+            profile_ctx = None
+            logger.info(f"profiler trace written to {cfg.model_path}/trace")
+
+        if it % cfg.log_every == 0:
+            loss = float(metrics.loss.total)                # the host reads the device here
+            if not math.isfinite(loss):
+                from ..utils.debug import snapshot_if_nonfinite
+
+                snapshot_if_nonfinite(loss, cfg.model_path, it, state.params, state.valid,
+                                      scene.data.train_frames[fidx], logger)
+            dt_ms = timer.tick()
+            ema = loss if ema is None else 0.4 * loss + 0.6 * ema
+            logger.info(
+                f"iter {it}: loss={ema:.5f} anchors={int(metrics.n_anchors)} "
+                f"visible={int(metrics.n_visible)} "
+                f"overflow={int(metrics.n_overflow)} "
+                f"({(time.time() - t_start) / (it - first_iter) * 1e3:.0f} ms/it avg)"
+            )
+            if tb.active:
+                lt = metrics.loss
+                tb.scalars({
+                    "total_loss": lt.total, "depth_l1": lt.depth,
+                    "intensity": lt.intensity, "raydrop": lt.raydrop,
+                    "l1_loss": lt.l1_intensity, "ssim": lt.ssim_intensity,
+                }, it, prefix="train_loss/")
+                tb.scalar("iter_time", dt_ms / cfg.log_every, it)
+                tb.scalar("anchors", int(metrics.n_anchors), it)
+            if wb.active:
+                wb.log({"total_loss": loss, "anchors": int(metrics.n_anchors)},
+                       step=it, prefix="train/")
+        # should_densify needs the cadence first: read the anchor count (a
+        # device sync) only on a densify iteration
+        if (it % cfg.opt.update_interval == 0
+                and trainer.should_densify(int(metrics.n_anchors), it)):
+            state, dstats = trainer.densify(state, densify_gen, scene.field.voxel_size)
+            logger.info(f"iter {it}: densify +{int(dstats.n_grown)} "
+                        f"-{int(dstats.n_pruned)} anchors")
+        elif trainer.should_maintain(it):
+            state = trainer.maintain(state)
+
+        if it in cfg.test_iterations:
+            res = run_eval(scene, state, trainer, cfg, logger,
+                           compute_chamfer=args.eval_chamfer, tb=tb, step=it)
+            if wb.active:
+                wb.log(res["test"], step=it, prefix="test/")
+            # keep the best test-PSNR snapshot beside the fixed saves
+            p = (res.get("test") or {}).get("intensity_psnr")
+            if p is not None and p > best_test_psnr:
+                best_test_psnr, best_test_it = float(p), it
+                path = scene.save(state.params, state.valid, "best")
+                logger.info(f"new best test psnr {p:.3f} at iter {it} -> {path}")
+        if it in cfg.save_iterations:
+            path = scene.save(state.params, state.valid, it)
+            logger.info(f"saved snapshot to {path}")
+        if it in cfg.checkpoint_iterations:
+            path = scene.save_train_state(state, it)
+            logger.info(f"saved training checkpoint to {path}")
+
+    if profile_ctx is not None:
+        profile_ctx.__exit__(None, None, None)
+    res = run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer)
+    if wb.active:
+        wb.log(res["test"], step=cfg.opt.iterations, prefix="test/")
+    final_p = (res.get("test") or {}).get("intensity_psnr")
+    if best_test_it and final_p is not None:
+        logger.info(f"best test psnr {best_test_psnr:.3f} @ iter {best_test_it} "
+                    f"(saved at point_cloud/iteration_best) vs final "
+                    f"{final_p:.3f} @ {cfg.opt.iterations}")
+    measure_fps(scene, state, trainer)
+    if args.dump_renders:
+        dump_renders(scene, state, trainer, cfg, logger)
+    tb.close()
+    wb.finish()
+    if args.warmup and args.init_ply is None:
+        # two-phase restart: re-train with the saved PLY as the init cloud
+        # instead of the raw back-projected frames. The restart's --init_ply
+        # marks it as the second phase, also when --warmup comes from a
+        # --config file (the JAX package restarts such a run forever).
+        logger.info("warmup finished — rebooting from the saved point cloud")
+        argv2 = [a for a in (argv if argv is not None else sys.argv[1:]) if a != "--warmup"]
+        ply = os.path.join(cfg.model_path, "point_cloud",
+                           f"iteration_{cfg.opt.iterations}", "point_cloud.ply")
+        return main(argv2 + ["--init_ply", ply])
+    return state
+
+
+def render_sets(scene, state, trainer, cfg, logger):
+    """Save the test renders as PNGs: intensity and turbo depth under the
+    rendered ray-drop mask, and the GT intensity, per frame."""
+    from ..utils.visualize import depth_to_rgb, intensity_to_rgb, save_image
+
+    out_dir = os.path.join(cfg.model_path, "test_renders")
+    os.makedirs(out_dir, exist_ok=True)
+    with torch.no_grad():
+        for i, fr in enumerate(scene.data.test_frames):
+            out = trainer.render(state.params, state.valid, fr)
+            inten = out.color[0].cpu().numpy()
+            drop = (out.color[1] > 0.5).to(torch.float32).cpu().numpy()
+            save_image(os.path.join(out_dir, f"{i:03d}_intensity.png"),
+                       intensity_to_rgb(inten * drop))
+            save_image(os.path.join(out_dir, f"{i:03d}_depth.png"),
+                       depth_to_rgb(out.depth.cpu().numpy() * drop))
+            save_image(os.path.join(out_dir, f"{i:03d}_gt_intensity.png"),
+                       intensity_to_rgb((fr.gt_image[1] * fr.gt_image[0]).cpu().numpy()))
+    logger.info(f"saved test renders to {out_dir}")
+
+
+def dump_renders(scene, state, trainer, cfg, logger):
+    """Per-frame [intensity, raydrop, depth, gt raydrop, gt intensity, gt
+    depth] npy dumps and the shared per-pixel ray directions `dir.npy`: the
+    training input of the offline ray-drop refiner."""
+    from ..ops.composite import pixel_rays
+
+    out_dir = os.path.join(cfg.model_path, "renders")
+    os.makedirs(out_dir, exist_ok=True)
+    fr0 = scene.data.train_frames[0]
+    H, W, dev = fr0.H, fr0.W, fr0.device
+    rows = torch.arange(H, device=dev).repeat_interleave(W)
+    cols = torch.arange(W, device=dev).repeat(H)
+    np.save(os.path.join(out_dir, "dir.npy"), pixel_rays(rows, cols, fr0.beams, W).cpu().numpy())
+    with torch.no_grad():
+        for name, frames in (("train", scene.data.train_frames),
+                             ("test", scene.data.test_frames)):
+            for i, fr in enumerate(frames):
+                out = trainer.render(state.params, state.valid, fr)
+                np.save(os.path.join(out_dir, f"{name}_{i:03d}.npy"),
+                        torch.stack([out.color[0], out.color[1], out.depth, fr.gt_image[0],
+                                     fr.gt_image[1], fr.gt_image[2]]).float().cpu().numpy())
+    logger.info(f"dumped renders to {out_dir}")
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "refine":
+        raise SystemExit("refine: the ray-drop refiner is not ported to lidargs_torch yet "
+                         "(ROADMAP.md queue 1 item 4)")
+    main()

@@ -1,15 +1,15 @@
 """Render-only entry points: frame rate and the evaluation sweep.
 
 Counterparts of `measure_fps` and `run_eval` in `lidargs_tpu/train/cli.py`,
-taking the field (params + anchor mask) and the frames directly, since the
-scene loaders are not ported yet. Each renders through the variant's
+taking the field (params + anchor mask) and the frames directly; the CLI's
+`train/cli.py` calls them with a scene's. Each renders through the variant's
 render path, as the JAX package's `Trainer.render` dispatches it:
 `render_field` for `variant="beam"` (the default), `render_field_surfel`
 for `variant="surfel"`; on the card unless the caller passes
 `device="cpu"`.
 
-Left out here: the ray-drop refiner, LPIPS, TensorBoard images and the
-chamfer/F-score depth metrics (they wait for their own modules).
+Left out here: the ray-drop refiner and LPIPS (they wait for their own
+modules).
 """
 from __future__ import annotations
 
@@ -77,9 +77,10 @@ def run_eval(params: dict, valid: torch.Tensor,
              splits: Dict[str, List[LidarFrame]], mcfg: ModelConfig,
              rcfg: RasterConfig, bg: torch.Tensor, model_path: str,
              depth_min: float = 5.0, depth_max: float = 80.0,
-             device="cuda", variant: str = "beam") -> dict:
+             device="cuda", variant: str = "beam", compute_chamfer: bool = False) -> dict:
     """Render every frame of each split (e.g. {"test": [...], "train":
-    [...]}), score it with `evaluate_frame`, and write the per-split means to
+    [...]}), score it with `evaluate_frame` (with the chamfer distance and
+    F-score when `compute_chamfer`), and write the per-split means to
     `<model_path>/results.json` and the per-frame metrics to
     `<model_path>/per_view.json`. Returns both in one dict."""
     render = render_fn(variant)
@@ -95,15 +96,18 @@ def run_eval(params: dict, valid: torch.Tensor,
             fr = fr.to(dev)
             out = render(params, valid, fr, mcfg, rcfg, bg)[0]
             pv = evaluate_frame(out.color, out.depth, fr.gt_image, fr.beams,
-                                depth_min=depth_min, depth_max=depth_max)
+                                depth_min=depth_min, depth_max=depth_max,
+                                compute_chamfer=compute_chamfer)
             pv["visible_count"] = float(out.visible.sum())
             per.append(pv)
         m = mean_metrics(per)
         results[name] = m
         results[f"per_view_{name}"] = {f"{i:05d}": pv for i, pv in enumerate(per)}
-        log.info("[eval %s] psnr=%.3f ssim=%.4f rd_acc=%.4f d_rmse=%.4f d_medae=%.4f",
+        log.info("[eval %s] psnr=%.3f ssim=%.4f rd_acc=%.4f d_rmse=%.4f d_medae=%.4f%s",
                  name, m["intensity_psnr"], m["intensity_ssim"], m["raydrop_acc"],
-                 m["depth_rmse"], m["depth_medae"])
+                 m["depth_rmse"], m["depth_medae"],
+                 f" cd={m['depth_cd']:.5f} f={m['depth_fscore']:.4f}" if compute_chamfer
+                 else "")
     os.makedirs(model_path, exist_ok=True)
     with open(os.path.join(model_path, "results.json"), "w") as f:
         json.dump({k: v for k, v in results.items() if not k.startswith("per_view_")},

@@ -1,20 +1,25 @@
-"""Evaluation metrics of a rendered range view (host side, numpy/scipy).
+"""Evaluation metrics of a rendered range view.
 
 Counterpart of `lidargs_tpu/train/metrics.py`: intensity L1/PSNR/SSIM/
 MAE/RMSE/MedAE under the rendered ray-drop mask, ray-drop accuracy, and
-depth MAE/RMSE/MedAE with the depth clamped to [depth_min, depth_max]. The
-eval SSIM follows skimage.structural_similarity's defaults (uniform 7x7
-window, unbiased covariance, border crop).
-
-Chamfer distance and F-score wait for the port of `ops/knn.py`; until then
-`evaluate_frame` takes only `compute_chamfer=False`.
+depth MAE/RMSE/MedAE with the depth clamped to [depth_min, depth_max]
+(host side, numpy/scipy). The eval SSIM follows
+skimage.structural_similarity's defaults (uniform 7x7 window, unbiased
+covariance, border crop). With `compute_chamfer` (the default, as in the
+JAX package) it adds the depth chamfer distance and F-score (tau = 0.05 on
+squared distances) of the back-projected clouds: those are computed on the
+device of the render, and only their scalars come to the host.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 from scipy import ndimage
+
+from ..lidar.pano import pano_to_lidar
+from ..ops.knn import chamfer_distance, fscore
 
 
 def _host(x) -> np.ndarray:
@@ -54,10 +59,11 @@ def evaluate_frame(
     beams,
     depth_min: float = 5.0,
     depth_max: float = 80.0,
-    compute_chamfer: bool = False,
+    compute_chamfer: bool = True,
 ) -> Dict[str, float]:
     if compute_chamfer:
-        raise NotImplementedError("chamfer/F-score need ops/knn.py, not ported yet")
+        depth_cd, depth_fscore = _chamfer_metrics(render_color, render_depth, gt_image,
+                                                  beams, depth_min, depth_max)
     render_color = _host(render_color)
     render_depth = _host(render_depth)
     gt_image = _host(gt_image)
@@ -88,7 +94,29 @@ def evaluate_frame(
         depth_rmse=float(np.sqrt((derr**2).mean())),
         depth_medae=float(np.median(derr)),
     )
+    if compute_chamfer:
+        out["depth_cd"] = depth_cd
+        out["depth_fscore"] = depth_fscore
     return out
+
+
+def _chamfer_metrics(render_color, render_depth, gt_image, beams, depth_min: float,
+                     depth_max: float):
+    """(depth_cd, depth_fscore) of the masked, clamped rendered depth against
+    the GT depth, on the device of `render_depth` (the CPU for numpy
+    inputs); an empty cloud on either side gives (inf, 0)."""
+    depth = torch.as_tensor(render_depth)
+    dev = depth.device
+    color = torch.as_tensor(render_color, device=dev)
+    gt = torch.as_tensor(gt_image, device=dev)
+    beams = torch.as_tensor(beams, device=dev)
+    rd_mask = (color[1] > 0.5).to(torch.float32)
+    pred_pts = pano_to_lidar(depth.clamp(depth_min, depth_max) * rd_mask, beams)
+    gt_pts = pano_to_lidar(gt[2] * gt[0], beams)
+    if len(pred_pts) == 0 or len(gt_pts) == 0:
+        return float("inf"), 0.0
+    cd, d1, d2, v1, v2 = chamfer_distance(pred_pts, gt_pts)
+    return cd, fscore(d1, d2, threshold=0.05, v1=v1, v2=v2)[0]
 
 
 def mean_metrics(per_frame: list[Dict[str, float]]) -> Dict[str, float]:

@@ -40,7 +40,8 @@ def _defaults(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["RasterConfig", "ModelConfig", "OptConfig", "LrSchedule"])
+@pytest.mark.parametrize("name", ["RasterConfig", "ModelConfig", "OptConfig", "LrSchedule",
+                                  "DataConfig", "ParallelConfig"])
 def test_shared_defaults_equal(name):
     j = _defaults(getattr(jcfg, name))
     t = _defaults(getattr(tcfg, name))

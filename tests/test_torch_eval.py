@@ -2,7 +2,9 @@
 entry points (`measure_fps`, `run_eval`) on the CPU.
 
 The metrics are numpy/scipy code in both packages, fed the same float32
-images: they must agree to 1e-9 (float64 sums, same order).
+images: they must agree to 1e-9 (float64 sums, same order). The chamfer
+distance sums float32 distances in another order: 1e-5 relative; the
+F-score flips only for points within 1e-3 m^2 of tau.
 """
 import json
 
@@ -36,20 +38,22 @@ def _images(seed, H=16, W=64):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_metrics_match_jax(seed):
+    """With default arguments both packages return the same keys, the depth
+    chamfer distance and F-score among them (the JAX default)."""
     color, depth, gt = _images(seed)
     beams = uniform_beam_inclinations(2.4, 20.9, 16)
-    j = jm.evaluate_frame(color, depth, gt, beams, depth_min=5.0, depth_max=80.0,
-                          compute_chamfer=False)
-    t = evaluate_frame(torch.from_numpy(color), torch.from_numpy(depth), gt, beams,
-                       depth_min=5.0, depth_max=80.0)
-    assert set(t) == set(j)
-    for k in j:
+    j = jm.evaluate_frame(color, depth, gt, beams)
+    t = evaluate_frame(torch.from_numpy(color), torch.from_numpy(depth), gt, beams)
+    assert set(t) == set(j) and {"depth_cd", "depth_fscore"} <= set(t)
+    for k in set(j) - {"depth_cd", "depth_fscore"}:
         assert t[k] == pytest.approx(j[k], rel=1e-9, abs=1e-12), k
+    assert t["depth_cd"] == pytest.approx(j["depth_cd"], rel=1e-5)
+    assert t["depth_fscore"] == pytest.approx(j["depth_fscore"], abs=1e-3)
+    no_cd = evaluate_frame(color, depth, gt, beams, compute_chamfer=False)
+    assert set(no_cd) == set(j) - {"depth_cd", "depth_fscore"}
     assert eval_ssim(color[0], gt[1]) == pytest.approx(jm.eval_ssim(color[0], gt[1]), abs=1e-12)
     per = [t, evaluate_frame(*_images(seed + 5)[:2], gt, beams)]
     assert mean_metrics(per) == pytest.approx(jm.mean_metrics(per))
-    with pytest.raises(NotImplementedError):
-        evaluate_frame(color, depth, gt, beams, compute_chamfer=True)
 
 
 def _scene(n_frames=3, H=8, W=256):

@@ -281,7 +281,16 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                              max_visible=2048),
                  SURFEL_RASTER=dict(tile_h=1, tile_capacity=64, max_tiles_per_gaussian=32,
                                     max_visible=2048),
-                 OPT=dict(start_stat=0, update_from=0, update_interval=2, update_until=10 ** 6))
+                 OPT=dict(start_stat=0, update_from=0, update_interval=2, update_until=10 ** 6),
+                 # the CLI phases: an 8x128 street of 42 frames (the fewest with
+                 # the 4 test frames), of which the CLI reads the first 12 (11
+                 # train, test frame 0), a field of at most 4,096 anchors
+                 CLI_SCENE=dict(n_frames=42, H=8, W=128, seed=0), CLI_NUM_FRAMES=12,
+                 CLI_VOXEL="1.0",
+                 CLI_EXTRA=["--anchor_capacity", "4096", "--max_visible", "4096",
+                            "--tile_capacity", "64"],
+                 CLI_ITERS=4, CLI_SURFEL_ITERS=2, CLI_LOG_EVERY=2, CLI_PROFILE_STEPS=1,
+                 KNN_POINTS=3000)
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
@@ -290,6 +299,16 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "profile_render",
                         lambda fn, frames=3: {"frames": frames, "device_ms_per_frame": "n/a"})
     monkeypatch.setattr(cuda_build, "build", lambda names, csrc=None: {})
+    # four CLI steps leave the ray-drop channel untrained, so a test frame's
+    # render can be empty and its chamfer distance inf (the reference's value
+    # for an empty cloud): require the metrics, finite but for that
+    strict_results = chip_smoke.cli_results
+
+    def cli_results(out, split="test"):
+        m = json.loads((out / "results.json").read_text())[split]
+        assert not any(np.isnan(v) for v in m.values())
+        return strict_results(out, split) if np.isfinite(m.get("depth_cd", 0.0)) else m
+    monkeypatch.setattr(chip_smoke, "cli_results", cli_results)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     for mod, name, counter in ((ck, "composite_tiles", "launches"),
@@ -331,3 +350,18 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert timing["windows"]["K3_bound"]["pairs_applied"] == timing["k1_bound"]["pairs_applied"]
     assert (timing["surfel_windows"]["K7_bound"]["pairs_applied"]
             == surfel["k5_bound"]["pairs_applied"])
+    # the CLI phases: every step launched each kernel once; the distance
+    # code held against the k-d tree; finite chamfer metrics after the
+    # resume and in the eval-only run
+    cli = timing["cli"]
+    assert cli["beam"]["steps"] == 4 and cli["resume"]["steps"] == 2
+    assert cli["surfel"]["steps"] == 2 and cli["surfel"]["launches"]["K6"] == 2
+    assert cli["beam"]["launches"]["K2"] == 4 and cli["beam"]["launches"]["K1"] > 4
+    assert [k.get("launches_cli") for k in kernels] == [
+        cli["beam"]["launches"]["K1"], 4, None, None, cli["surfel"]["launches"]["K5"], 2,
+        None, None]
+    assert cli["knn_oracle"]["points"] == 3000 and cli["knn_oracle"]["max_err_over_tol"] <= 1
+    assert cli["chamfer_oracle"]["max_err_over_tol"] <= 1
+    for run in (cli["beam"], cli["resume"], cli["eval_only"]):
+        assert {"depth_cd", "depth_fscore"} <= set(run["test"])
+        assert np.isfinite(run["test"]["intensity_psnr"])

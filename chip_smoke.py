@@ -99,7 +99,24 @@ then:
      K2 once per step again, a densify) and evaluates the snapshot alone
      (`--load_iteration`: metrics with chamfer, FPS, 12 PNG renders);
  23. trains the surfel variant through the CLI at its defaults
-     (h1/K384/cap32), CLI_SURFEL_ITERS iterations, K5 and K6 once per step.
+     (h1/K384/cap32), CLI_SURFEL_ITERS iterations, K5 and K6 once per step;
+ 24. dumps the beam snapshot's renders (`--load_iteration --dump_renders`),
+     with the counts set to 0 just before and read just after: one K1
+     launch per evaluated, timed, PNG-rendered and dumped frame, and the 50
+     `train_*`/`test_*` frames [6, 64, 2650] plus `dir.npy`;
+ 25. trains the offline ray-drop refiner on those dumps through `cli
+     refine`, `--arch mlp` (128x4 on 169,600 rays a step) and `--arch unet`
+     (channels 32 on 64x2656), REFINE_EPOCHS epochs (JAX's default is 100:
+     listed as `reduced`): finite losses, the last epoch's below the first
+     step's; times one step of each (CUDA events) and profiles 3; holds the
+     UNet's output and parameter gradients on one dumped frame on the card
+     against the same on the CPU;
+ 26. evaluates the snapshot with each refiner and a random LPIPS npz in the
+     converter's layout (`--raydrop_refiner`, `--lpips_weights`, no
+     chamfer): finite `intensity_lpips` and the refined ray-drop metrics in
+     `results.json`, the refined `raydrop_acc` beside phase 22's unrefined
+     one; times one frame's LPIPS (CUDA events) and holds it against the
+     CPU's.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -145,6 +162,16 @@ stop one instance earlier or later.
     size; TF32 would be ~1e3 times off), the chamfer distance within the
     mean of those bounds, the F-score within the share of points whose
     distance lies within its bound of tau = 0.05.
+  * The UNet on the card against the CPU (phase 25, UNET_CARD_TOL): its
+    output within 1e-4 (float32 gives ~1e-5; TF32's rounding unit, 4.9e-4,
+    would show); its parameter gradients within 3e-2 of the whole's norm,
+    each leaf within 5e-2 of its own plus 1e-5 of the whole's: BatchNorm's
+    backward takes each channel's mean out of the cotangent and the weight
+    gradients above it sum that against positive activations, so a rounding
+    error in the mean returns multiplied by about sqrt(pixels)
+    (`tests/test_torch_raydrop.py` measures the spread on the CPU).
+  * LPIPS of one frame on the card against the CPU: 1e-4 relative (float32
+    convolutions and means in another order).
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
     on the same inputs and every other row of dbuf exactly zero; the owned
     rows against the plain versions' within K2_TOL. A fused step's
@@ -217,6 +244,10 @@ CLI_SURFEL_ITERS = 20
 CLI_LOG_EVERY = 50
 CLI_PROFILE_STEPS = 5
 KNN_POINTS = 500_000          # init-cloud points held against the k-d tree
+REFINE_EPOCHS = 5             # refiner epochs over the dumps (JAX's default: 100)
+REFINE_TIMED = 20             # refine steps timed per arch after warm-up
+UNET_CARD_TOL = {"out_max": 1e-4, "rel": 5e-2, "global_rel": 1e-5, "whole": 3e-2}
+LPIPS_CARD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -649,13 +680,21 @@ def profile_render(render, frames: int = 3) -> dict:
     # that launched them would count the same time again
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # host-side runtime calls (a host scalar written to the card is a
+    # pageable copy and a synchronize, which a CUDA graph could not hold)
+    # and the copies by kind
+    runtime = {e.key: e.count / frames for e in prof.key_averages()
+               if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync")
+               or e.key.startswith("Memcpy")}
     if not kernels:
-        return {"frames": frames, "device_ms_per_frame": "not measured"}
+        return {"frames": frames, "device_ms_per_frame": "not measured",
+                "runtime_calls_per_frame": runtime}
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {
         "frames": frames,
         "device_ms_per_frame": sum(dev_us(e) for e in kernels) / 1e3 / frames,
         "device_launches_per_frame": sum(e.count for e in kernels) / frames,
+        "runtime_calls_per_frame": runtime,
         "top": [{"name": e.key[:90], "ms_per_frame": dev_us(e) / 1e3 / frames,
                  "calls_per_frame": e.count / frames} for e in top],
     }
@@ -846,6 +885,7 @@ def run(dev) -> None:
             "composite_fwd", "lidargs_torch/csrc/composite_fwd.cu",
             "lidargs_tpu/ops/pallas_composite.py:175", k1_launches, k1_ms, plain_ms, b1,
             launches_train=train["k1_launches"], launches_cli=cli["beam"]["launches"]["K1"],
+            launches_dump=cli["refine"]["dump"]["k1_launches"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
         ), k2, k3, k4, k5, k6, k7, k8],
@@ -1735,6 +1775,8 @@ def cli_phases(dev):
         fail(f"CLI surfel run: {len(s_steps)} steps launching (K5, K6) {per_step} times each")
     s_test = cli_results(out_s)
     s_gaps = np.diff([c["start"] for c in s_steps]) * 1e3
+    # --- 24-26. dump, refine and evaluate with the refiner and LPIPS ---
+    refine = refine_phases(dev, base, out, n_test, eval_only)
     summary = {
         "scene": CLI_SCENE, "dataset_s": dataset_s, "beam": beam,
         "knn_oracle": knn, "voxels": voxels, "chamfer_oracle": chamfer,
@@ -1742,9 +1784,168 @@ def cli_phases(dev):
         "eval_only": {"eval_s": evals[-1]["s"], "test": eval_only},
         "surfel": {"steps": len(s_steps), "launches": s_launches, "test": s_test,
                    "host_ms_per_step_median": float(np.median(s_gaps))},
+        "refine": refine,
     }
     shutil.rmtree(work, ignore_errors=True)
     return summary
+
+
+def unet_card_vs_cpu(model, x, gt) -> dict:
+    """The UNet's output and parameter gradients (the MSE over the real
+    pixels of one padded frame `x`) on its device against a copy on the
+    CPU, within UNET_CARD_TOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    H, W = gt.shape
+    runs = []
+    for m in (model, copy.deepcopy(model).cpu()):
+        dev = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
+        out = m(x.to(dev)[None])
+        torch.mean((out[0, 0, :H, :W] - gt.to(dev)) ** 2).backward()
+        runs.append((out.detach().cpu().numpy(),
+                     {k: p.grad.detach().cpu().numpy() for k, p in m.named_parameters()}))
+    (o_k, g_k), (o_c, g_c) = runs
+    total = np.sqrt(sum(float((g ** 2).sum()) for g in g_c.values()))
+    errs = {k: float(np.linalg.norm(g_k[k] - g)) for k, g in g_c.items()}
+    leaf = {k: e / (UNET_CARD_TOL["rel"] * float(np.linalg.norm(g_c[k]))
+                    + UNET_CARD_TOL["global_rel"] * total) for k, e in errs.items()}
+    worst = max(leaf, key=leaf.get)
+    res = {"out_max_abs": float(np.abs(o_k - o_c).max()),
+           "grad_whole_rel": float(np.sqrt(sum(e * e for e in errs.values())) / total),
+           "grad_worst_leaf": worst,
+           "grad_worst_leaf_rel": errs[worst] / max(float(np.linalg.norm(g_c[worst])), 1e-30),
+           "grad_worst_leaf_over_tol": leaf[worst], "tol": UNET_CARD_TOL}
+    if not (res["out_max_abs"] <= UNET_CARD_TOL["out_max"]
+            and res["grad_whole_rel"] <= UNET_CARD_TOL["whole"] and leaf[worst] <= 1.0):
+        fail(f"UNet on the card against the CPU: {res}")
+    return res
+
+
+def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> dict:
+    """Phases 24-26 on the CLI run's beam snapshot: dump its renders, train
+    both refiners on them, and evaluate with each refiner and LPIPS."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from lidargs_torch.models import raydrop
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.train import cli
+    from lidargs_torch.train import lpips as lp
+
+    H, W = CLI_SCENE["H"], CLI_SCENE["W"]
+    med = lambda xs: float(np.median(xs))
+
+    # --- 24. dump: the refiner's input, one K1 launch per rendered frame ---
+    renders = out / "renders"
+    shutil.rmtree(renders, ignore_errors=True)
+    ck.launches = 0
+    t0 = time.perf_counter()
+    cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--dump_renders"])
+    dump_s = time.perf_counter() - t0
+    k1 = ck.launches
+    names = sorted(p.name for p in renders.iterdir())
+    frames = [n for n in names if n != "dir.npy"]
+    n_train = sum(n.startswith("train_") for n in frames)
+    # run_eval, measure_fps and the dump render every frame, render_sets the test frames
+    if len(frames) != CLI_NUM_FRAMES or "dir.npy" not in names or k1 != 3 * len(frames) + n_test:
+        fail(f"dump: {len(names)} files, K1 launched {k1} times for {len(frames)} frames")
+    shapes = {np.load(renders / n, mmap_mode="r").shape for n in frames}
+    if shapes != {(6, H, W)} or np.load(renders / "dir.npy").shape != (H * W, 3):
+        fail(f"dump: frame shapes {shapes}")
+    dump = {"s": dump_s, "files": len(names), "k1_launches": k1}
+    print(f"# dump: {json.dumps(dump)}", file=sys.stderr)
+
+    # --- 25. refine: both archs through `cli refine`, one step timed ---
+    d = cli.read_dumps(str(renders))
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    inputs = {
+        "mlp": (raydrop.mlp_loss, (on(np.load(renders / "dir.npy")), on(d["intensity"][0].ravel()),
+                                   on(d["depth"][0].ravel()), on(d["gt"][0].ravel()))),
+        "unet": (raydrop.unet_loss, (raydrop._pad16(torch.stack(
+            [on(d["raydrop"][0]), on(d["intensity"][0]), on(d["depth"][0])]))[0],
+            on(d["gt"][0]))),
+    }
+    refine = {"reduced": {"epochs": REFINE_EPOCHS, "of": 100}, "train_frames": n_train}
+    for arch, (loss_fn, args) in inputs.items():
+        with probe(raydrop, "refine_step") as steps:
+            t0 = time.perf_counter()
+            model, hist = cli.refine_main([
+                "--renders", str(renders), "--arch", arch, "--epochs", str(REFINE_EPOCHS),
+                "--device", str(dev), "--out", str(out / f"refiner_{arch}.npz")])
+            total_s = time.perf_counter() - t0
+        first = float(steps[0]["result"])
+        if (len(steps) != REFINE_EPOCHS * n_train or not np.isfinite(hist).all()
+                or not hist[-1] < first):
+            fail(f"refine {arch}: {len(steps)} steps, first loss {first}, history {hist}")
+        opt, sched = raydrop.refiner_optimizer(model)
+        step = lambda: raydrop.refine_step(model, opt, sched, loss_fn, *args)
+        step_ms = time_ms(step, REFINE_TIMED, 3)
+        prof = profile_render(step, frames=3)
+        with FlopCounterMode(display=False) as flops:
+            step()
+        refine[arch] = {
+            "steps": len(steps), "s": total_s, "first_step_loss": first, "history": hist,
+            "host_ms_per_step_median": med(np.diff([c["start"] for c in steps]) * 1e3),
+            "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
+            "step_samples": len(step_ms),
+            # the products' operations (torch's flop counter), at FP32's peak
+            "gflop_per_step": flops.get_total_flops() / 1e9,
+            "flop_bound_ms": flops.get_total_flops() / PEAK_FP32_OPS_PER_S * 1e3,
+            "device_ms_per_step": prof.get("device_ms_per_frame"),
+            "device_launches_per_step": prof.get("device_launches_per_frame"),
+            "runtime_calls_per_step": prof.get("runtime_calls_per_frame"),
+        }
+        if arch == "unet":
+            refine["unet_card_vs_cpu"] = unet_card_vs_cpu(model, *args)
+        print(f"# refine {arch}: {json.dumps(refine[arch])}", file=sys.stderr)
+
+    # --- 26. evaluate with each refiner and a random LPIPS npz ---
+    lp_path = out / "lpips_random.npz"
+    lp.save_lpips_params(str(lp_path), lp.random_lpips_params(0))
+    evals = {"raydrop_acc_unrefined": unrefined["raydrop_acc"]}
+    for arch in ("mlp", "unet"):
+        ck.launches = 0
+        with probe(cli, "run_eval") as runs:
+            cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS),
+                             "--raydrop_refiner", str(out / f"refiner_{arch}.npz"),
+                             "--lpips_weights", str(lp_path)])
+        if ck.launches != 2 * len(frames) + n_test:       # eval, FPS, PNGs
+            fail(f"eval with the {arch} refiner: K1 launched {ck.launches} times")
+        res = json.loads((out / "results.json").read_text())
+        for split, m in res.items():
+            if not all(np.isfinite(m.get(k, np.nan)) for k in (
+                    "intensity_lpips", "raydrop_acc", "intensity_psnr", "depth_rmse")):
+                fail(f"eval with the {arch} refiner and LPIPS: {split} {m}")
+        evals[arch] = {"eval_s": runs[-1]["s"], "k1_launches": ck.launches, "test": res["test"],
+                       "raydrop_acc_train": res["train"]["raydrop_acc"]}
+    fr = np.load(renders / "test_000.npy")
+    a, b = np.clip(fr[0], 0.0, 1.0), fr[4] * fr[3]
+    params = lp.random_lpips_params(0)
+    with torch.no_grad():
+        net = lp.lpips_net(params, dev)
+        ta, tb = on(a), on(b)
+        lpips_ms = time_ms(lambda: lp.lpips_single(net, ta, tb), 10, 2)
+        card_v = float(lp.lpips_single(net, ta, tb))
+        net_cpu = lp.lpips_net(params, "cpu")
+        cpu_v = float(lp.lpips_single(net_cpu, torch.from_numpy(a), torch.from_numpy(b)))
+        # the five tapped VGG maps of the intensity image, card against CPU
+        x3 = lambda img: img[None, None].repeat(1, 3, 1, 1)
+        taps = zip(net.features(x3(ta)), net_cpu.features(x3(torch.from_numpy(a))))
+        tap_err = [float((f.cpu() - g).abs().max() / g.abs().max()) for f, g in taps]
+    evals["lpips_frame"] = {"ms_median": med(lpips_ms), "card": card_v, "cpu": cpu_v,
+                            "rel_err": abs(card_v - cpu_v) / abs(cpu_v),
+                            "tap_max_rel_err": tap_err}
+    if not abs(card_v - cpu_v) <= LPIPS_CARD_RTOL * abs(cpu_v):
+        fail(f"LPIPS on the card against the CPU: {evals['lpips_frame']}")
+    print(f"# refined eval: {json.dumps(evals)}", file=sys.stderr)
+    return {"dump": dump, "refine": refine, "eval": evals}
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ preprocess, kernels K5 and K6, the distortion and normal-consistency
 terms), the fused-window gather of both (K3/K4, K7/K8), and the data layer
 and training CLI (`python -m lidargs_torch.train.cli`: the AlignMiF reader,
 the field from the fused point cloud, the chamfer/F-score evaluation,
-snapshots, checkpoints and resume, in the JAX package's file formats).
+snapshots, checkpoints and resume, in the JAX package's file formats), and
+the offline ray-drop refiner (the frequency-encoding MLP and LiDAR4D's
+UNet, `cli refine`), its segmentation losses and the LPIPS metric.
 
 Matrix products stay in full float32 (no TF32), as the JAX package computes
 its geometry at `Precision.HIGHEST`.

@@ -13,14 +13,21 @@ Counterpart of `lidargs_tpu/train/cli.py` on one device (the card unless
 kernels K1 and K2 per beam step, K5 and K6 with `--surfel`, and their
 window forms (K3/K4, K7/K8) with `--fused_gather`.
 
+The offline ray-drop refiner trains on the `--dump_renders` output, and an
+evaluation then applies it and adds LPIPS:
+
+    python -m lidargs_torch.train.cli refine --renders <out>/renders --arch mlp|unet
+    python -m lidargs_torch.train.cli -s <data> -m <out> --load_iteration N \\
+        --raydrop_refiner <out>/renders/raydrop_refiner.npz --lpips_weights <lpips.npz>
+
 The flags of paths not ported yet raise rather than being ignored:
-data-parallel and multi-host training (ROADMAP.md queue 1 item 6), the
-ray-drop refiner and the `refine` subcommand (item 4), LPIPS (item 5), and
+data-parallel and multi-host training (ROADMAP.md queue 1 item 6), and
 `--pallas_chunk`, a knob of the TPU kernels only.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import math
@@ -60,8 +67,6 @@ def _refuse_unported(args) -> None:
         (args.coordinator is not None, "--coordinator", 6),
         (args.mp_platform is not None, "--mp_platform", 6),
         (args.mp_local_devices is not None, "--mp_local_devices", 6),
-        (args.raydrop_refiner is not None, "--raydrop_refiner", 4),
-        (args.lpips_weights is not None, "--lpips_weights", 5),
     )
     for given, flag, item in unported:
         if given:
@@ -105,8 +110,12 @@ def build_config(argv=None):
                    help="per-tile windows of one sorted buffer (kernels K3/K4, "
                         "K7/K8) instead of the [T,K,F] gather")
     p.add_argument("--raydrop_lambda", type=float, default=None)
-    p.add_argument("--raydrop_refiner", default=None, help="not ported yet; refused")
-    p.add_argument("--lpips_weights", default=None, help="not ported yet; refused")
+    p.add_argument("--raydrop_refiner", default=None,
+                   help="eval-only: refine each render's ray drop with this npz "
+                        "(written by `cli refine`, either package)")
+    p.add_argument("--lpips_weights", default=None,
+                   help="VGG-LPIPS weights npz (tools/convert_lpips_weights.py layout): "
+                        "adds intensity_lpips to every evaluation")
     p.add_argument("--surfel", action="store_true",
                    help="train/render through the 2DGS surfel rasterizer with the "
                         "distortion and normal-consistency regularizers")
@@ -213,20 +222,55 @@ def build_config(argv=None):
     return cfg, args
 
 
-def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None, step=0):
+def _frame_rays(fr) -> torch.Tensor:
+    """[H*W, 3] unit ray directions of a frame's pixels, row by row."""
+    from ..ops.composite import pixel_rays
+
+    rows = torch.arange(fr.H, device=fr.device).repeat_interleave(fr.W)
+    cols = torch.arange(fr.W, device=fr.device).repeat(fr.H)
+    return pixel_rays(rows, cols, fr.beams, fr.W)
+
+
+def _refiner(path: str, scene, depth_scale: float, dev):
+    """`refine(color, depth)` of the refiner saved at `path`: the UNet, or
+    the MLP on train frame 0's ray directions."""
+    from ..models.raydrop import UNet, load_refiner, refine_color
+
+    model = load_refiner(path, dev)
+    dirs = None
+    if not isinstance(model, UNet):
+        fr0 = scene.data.train_frames[0]
+        dirs = _frame_rays(fr0).reshape(fr0.H, fr0.W, 3)
+    return functools.partial(refine_color, model, depth_scale=depth_scale, ray_dirs_hw3=dirs)
+
+
+def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None, step=0,
+             refiner_path=None, lpips_weights=None):
     """The metric sweep over the test and train frames (`train/evaluate.py`
     `run_eval`), writing `results.json` and `per_view.json` under the model
     path; with an active TensorBoard logger, the first four test frames'
-    depth, intensity and GT images too."""
+    depth, intensity and GT images too. With `refiner_path`, each render's
+    ray drop is refined first (depth scaled by the far plane); with
+    `lpips_weights`, `intensity_lpips` joins the metrics."""
     from .evaluate import run_eval as eval_splits
 
+    dev = state.valid.device
+    refine = (_refiner(refiner_path, scene, trainer.ocfg.depth_max, dev)
+              if refiner_path else None)
+    lpips_fn = None
+    if lpips_weights:
+        from .lpips import load_lpips_params, lpips_net, lpips_single
+
+        lpips_fn = functools.partial(lpips_single, lpips_net(load_lpips_params(lpips_weights),
+                                                             dev))
     t0 = time.perf_counter()
     results = eval_splits(
         state.params, state.valid,
         {"test": scene.data.test_frames, "train": scene.data.train_frames},
         trainer.mcfg, trainer.rcfg, trainer.bg, cfg.model_path,
         depth_min=trainer.ocfg.depth_min, depth_max=trainer.ocfg.depth_max,
-        device=state.valid.device, variant=trainer.variant, compute_chamfer=compute_chamfer)
+        device=dev, variant=trainer.variant, compute_chamfer=compute_chamfer,
+        refine=refine, lpips_fn=lpips_fn)
     n = len(scene.data.test_frames) + len(scene.data.train_frames)
     logger.info(f"[eval] {n} frames in {time.perf_counter() - t0:.2f} s")
     if tb is not None and tb.active:
@@ -282,7 +326,8 @@ def main(argv=None):
 
     if args.load_iteration is not None:
         # eval-only: metric sweep + FPS + saved PNG renders
-        run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer)
+        run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
+                 refiner_path=args.raydrop_refiner, lpips_weights=args.lpips_weights)
         measure_fps(scene, state, trainer)
         render_sets(scene, state, trainer, cfg, logger)
         if args.dump_renders:
@@ -362,7 +407,8 @@ def main(argv=None):
 
         if it in cfg.test_iterations:
             res = run_eval(scene, state, trainer, cfg, logger,
-                           compute_chamfer=args.eval_chamfer, tb=tb, step=it)
+                           compute_chamfer=args.eval_chamfer, tb=tb, step=it,
+                           lpips_weights=args.lpips_weights)
             if wb.active:
                 wb.log(res["test"], step=it, prefix="test/")
             # keep the best test-PSNR snapshot beside the fixed saves
@@ -380,7 +426,8 @@ def main(argv=None):
 
     if profile_ctx is not None:
         profile_ctx.__exit__(None, None, None)
-    res = run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer)
+    res = run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
+                   lpips_weights=args.lpips_weights)
     if wb.active:
         wb.log(res["test"], step=cfg.opt.iterations, prefix="test/")
     final_p = (res.get("test") or {}).get("intensity_psnr")
@@ -431,15 +478,10 @@ def dump_renders(scene, state, trainer, cfg, logger):
     """Per-frame [intensity, raydrop, depth, gt raydrop, gt intensity, gt
     depth] npy dumps and the shared per-pixel ray directions `dir.npy`: the
     training input of the offline ray-drop refiner."""
-    from ..ops.composite import pixel_rays
-
     out_dir = os.path.join(cfg.model_path, "renders")
     os.makedirs(out_dir, exist_ok=True)
-    fr0 = scene.data.train_frames[0]
-    H, W, dev = fr0.H, fr0.W, fr0.device
-    rows = torch.arange(H, device=dev).repeat_interleave(W)
-    cols = torch.arange(W, device=dev).repeat(H)
-    np.save(os.path.join(out_dir, "dir.npy"), pixel_rays(rows, cols, fr0.beams, W).cpu().numpy())
+    np.save(os.path.join(out_dir, "dir.npy"),
+            _frame_rays(scene.data.train_frames[0]).cpu().numpy())
     with torch.no_grad():
         for name, frames in (("train", scene.data.train_frames),
                              ("test", scene.data.test_frames)):
@@ -451,8 +493,69 @@ def dump_renders(scene, state, trainer, cfg, logger):
     logger.info(f"dumped renders to {out_dir}")
 
 
+def read_dumps(renders: str, depth_scale: float = 80.0) -> dict:
+    """The `train_*.npy` dumps under `renders` as [N, H, W] float32 stacks:
+    `intensity`, `raydrop`, `depth` (divided by `depth_scale`) and `gt` (the
+    GT ray-drop mask)."""
+    import glob
+
+    files = sorted(glob.glob(os.path.join(renders, "train_*.npy")))
+    if not files:
+        raise FileNotFoundError(f"no train_*.npy under {renders} (written by --dump_renders)")
+    d = np.stack([np.load(f) for f in files])          # [N, 6, H, W]
+    return {"intensity": d[:, 0], "raydrop": d[:, 1], "depth": d[:, 2] / depth_scale,
+            "gt": d[:, 3]}
+
+
+def refine_main(argv=None):
+    """Train the offline ray-drop refiner on the renders `--dump_renders`
+    wrote, and save it in the npz layout of either package:
+
+        python -m lidargs_torch.train.cli refine --renders <model_path>/renders
+
+    `--arch mlp` is the frequency-encoding MLP on each ray, `--arch unet`
+    LiDAR4D's attention UNet on the [raydrop, intensity, depth] image. The
+    frames go to the device once; the weights start from torch seed 0.
+    Returns (model, loss history)."""
+    from ..models.raydrop import (
+        init_raydrop_mlp, init_unet, save_refiner, train_raydrop_refiner, train_unet_refiner,
+    )
+    from ..utils.device import resolve_device
+
+    p = argparse.ArgumentParser("lidargs_torch raydrop refiner")
+    p.add_argument("--renders", required=True, help="directory written by --dump_renders")
+    p.add_argument("--arch", choices=("mlp", "unet"), default="mlp",
+                   help="mlp = the reference's frequency-encoding MLP; unet = LiDAR4D's "
+                        "attention UNet on the full [raydrop, intensity, depth] image")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--out", default=None)
+    p.add_argument("--depth_scale", type=float, default=80.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; raises without a card)")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    d = read_dumps(args.renders, args.depth_scale)
+    gen = torch.Generator().manual_seed(0)
+    if args.arch == "unet":
+        model, hist = train_unet_refiner(
+            init_unet(gen, in_channels=3, device=dev), d["raydrop"], d["intensity"],
+            d["depth"], d["gt"], epochs=args.epochs, lr=args.lr, log_every=5)
+    else:
+        dirs = np.load(os.path.join(args.renders, "dir.npy")).reshape(-1, 3)
+        flat = lambda x: x.reshape(x.shape[0], -1)
+        model, hist = train_raydrop_refiner(
+            init_raydrop_mlp(gen, device=dev), dirs, flat(d["intensity"]), flat(d["depth"]),
+            flat(d["gt"]), epochs=args.epochs, lr=args.lr, log_every=5)
+    out = args.out or os.path.join(args.renders, "raydrop_refiner.npz")
+    save_refiner(out, model)
+    print(f"{args.arch} refiner saved to {out}; final loss {hist[-1]:.6f}")
+    return model, hist
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "refine":
-        raise SystemExit("refine: the ray-drop refiner is not ported to lidargs_torch yet "
-                         "(ROADMAP.md queue 1 item 4)")
-    main()
+        refine_main(sys.argv[2:])
+    else:
+        main()

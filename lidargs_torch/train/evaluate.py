@@ -6,10 +6,8 @@ taking the field (params + anchor mask) and the frames directly; the CLI's
 render path, as the JAX package's `Trainer.render` dispatches it:
 `render_field` for `variant="beam"` (the default), `render_field_surfel`
 for `variant="surfel"`; on the card unless the caller passes
-`device="cpu"`.
-
-Left out here: the ray-drop refiner and LPIPS (they wait for their own
-modules).
+`device="cpu"`. `run_eval` also takes the ray-drop refiner and the LPIPS
+distance as callables, which the CLI builds from their weights files.
 """
 from __future__ import annotations
 
@@ -17,7 +15,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, NamedTuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -77,12 +75,18 @@ def run_eval(params: dict, valid: torch.Tensor,
              splits: Dict[str, List[LidarFrame]], mcfg: ModelConfig,
              rcfg: RasterConfig, bg: torch.Tensor, model_path: str,
              depth_min: float = 5.0, depth_max: float = 80.0,
-             device="cuda", variant: str = "beam", compute_chamfer: bool = False) -> dict:
+             device="cuda", variant: str = "beam", compute_chamfer: bool = False,
+             refine: Optional[Callable] = None, lpips_fn: Optional[Callable] = None) -> dict:
     """Render every frame of each split (e.g. {"test": [...], "train":
     [...]}), score it with `evaluate_frame` (with the chamfer distance and
     F-score when `compute_chamfer`), and write the per-split means to
     `<model_path>/results.json` and the per-frame metrics to
-    `<model_path>/per_view.json`. Returns both in one dict."""
+    `<model_path>/per_view.json`. Returns both in one dict.
+
+    `refine(color, depth) -> color` replaces each render's [intensity,
+    raydrop] before it is scored (the ray-drop refiner); `lpips_fn(a, b)`
+    adds `intensity_lpips`, the distance of the clipped intensity render
+    from the GT intensity under the GT hit mask."""
     render = render_fn(variant)
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
@@ -94,10 +98,15 @@ def run_eval(params: dict, valid: torch.Tensor,
         per = []
         for fr in frames:
             fr = fr.to(dev)
-            out = render(params, valid, fr, mcfg, rcfg, bg)[0]
-            pv = evaluate_frame(out.color, out.depth, fr.gt_image, fr.beams,
-                                depth_min=depth_min, depth_max=depth_max,
-                                compute_chamfer=compute_chamfer)
+            with torch.no_grad():
+                out = render(params, valid, fr, mcfg, rcfg, bg)[0]
+                color = out.color if refine is None else refine(out.color, out.depth)
+                pv = evaluate_frame(color, out.depth, fr.gt_image, fr.beams,
+                                    depth_min=depth_min, depth_max=depth_max,
+                                    compute_chamfer=compute_chamfer)
+                if lpips_fn is not None:
+                    pv["intensity_lpips"] = float(lpips_fn(
+                        color[0].clamp(0.0, 1.0), fr.gt_image[1] * fr.gt_image[0]))
             pv["visible_count"] = float(out.visible.sum())
             per.append(pv)
         m = mean_metrics(per)

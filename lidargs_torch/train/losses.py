@@ -8,7 +8,9 @@ precision (cuDNN takes TF32 by default) lets conv(x^2) - mu^2 cancel below
 the c2 = 9e-4 stabilizer and drives the loss to +/-inf.
 
 The surfel (2DGS) regularizers: `depth_normals` and
-`normal_consistency_loss`. The ray-drop losses arrive with their slice.
+`normal_consistency_loss`. The ray-drop segmentation losses (weighted
+cross-entropy and Lovasz-softmax, `raydrop_lossf`): the JAX package defines
+and tests them, and neither package's training step uses them.
 """
 from __future__ import annotations
 
@@ -178,3 +180,58 @@ def normal_consistency_loss(normal: torch.Tensor, depth: torch.Tensor, beams: to
     cos = (nr * nd).sum(0)
     m = hit_mask * (depth > 0)
     return ((1.0 - cos.abs()) * m).sum() / m.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# ray-drop segmentation losses
+# ---------------------------------------------------------------------------
+
+def lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
+    """Gradient of the Lovasz extension with respect to sorted errors."""
+    gts = gt_sorted.sum()
+    intersection = gts - torch.cumsum(gt_sorted, 0)
+    union = gts + torch.cumsum(1.0 - gt_sorted, 0)
+    jaccard = 1.0 - intersection / union
+    return torch.cat([jaccard[:1], jaccard[1:] - jaccard[:-1]])
+
+
+def lovasz_softmax_flat(probas: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Multi-class Lovasz-softmax: probas [P, C], labels [P] in [0, C) or
+    -1 (ignored); the mean over the classes present in `labels`."""
+    P, C = probas.shape
+    losses, present = [], []
+    for c in range(C):
+        fg = ((labels == c) & (labels >= 0)).to(torch.float32)
+        errors = (fg - probas[:, c]).abs()
+        order = torch.sort(-errors, stable=True).indices
+        losses.append(torch.dot(errors[order], lovasz_grad(fg[order])))
+        present.append(fg.sum() > 0)
+    present = torch.stack(present).to(torch.float32)
+    return (torch.stack(losses) * present).sum() / present.sum().clamp_min(1.0)
+
+
+def get_ce_weights(gt_label: torch.Tensor, n_classes: int,
+                   max_weights: float = 50.0) -> torch.Tensor:
+    """Inverse-frequency class weights, sqrt, clipped at `max_weights`."""
+    counts = torch.stack([(gt_label == c).sum().to(torch.float32) + 1e-20
+                          for c in range(n_classes)])
+    return torch.sqrt(counts.sum() / counts).clamp(0.0, max_weights)
+
+
+def raydrop_lossf(est: torch.Tensor, gt: torch.Tensor, lambda_bce: float = 0.15,
+                  lambda_lov: float = 0.15, reweight: bool = True) -> torch.Tensor:
+    """Weighted cross-entropy plus Lovasz-softmax. est: [B, C] logits; gt:
+    [B] int labels (-1 = ignore)."""
+    B, C = est.shape
+    logp = F.log_softmax(est, dim=1)
+    ok = gt >= 0
+    gt_safe = torch.where(ok, gt, torch.zeros_like(gt))
+    nll = -logp.gather(1, gt_safe[:, None])[:, 0]
+    if reweight:
+        w = get_ce_weights(torch.where(ok, gt, torch.full_like(gt, C)), C)
+        ws = w[gt_safe] * ok
+    else:
+        ws = ok.to(torch.float32)
+    ce = (nll * ws).sum() / ws.sum().clamp_min(1e-20)
+    lov = lovasz_softmax_flat(F.softmax(est, dim=1), torch.where(ok, gt, torch.full_like(gt, -1)))
+    return lambda_bce * ce + lambda_lov * lov

@@ -14,20 +14,20 @@ import numpy as np
 import torch
 
 
-def _leaves(tree, prefix: str = ""):
+def tree_paths(tree, prefix: str = ""):
     """(path, leaf) of every leaf; None is an empty subtree."""
     join = lambda k: f"{prefix}/{k}" if prefix else str(k)
     if tree is None:
         return
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves(v, join(k))
+            yield from tree_paths(v, join(k))
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for k in tree._fields:
-            yield from _leaves(getattr(tree, k), join(k))
+            yield from tree_paths(getattr(tree, k), join(k))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, join(i))
+            yield from tree_paths(v, join(i))
     else:
         yield prefix, tree
 
@@ -37,7 +37,7 @@ def _numpy(x) -> np.ndarray:
 
 
 def save_pytree_npz(path: str, tree) -> None:
-    np.savez_compressed(path, **{k: _numpy(v) for k, v in _leaves(tree)})
+    np.savez_compressed(path, **{k: _numpy(v) for k, v in tree_paths(tree)})
 
 
 def load_pytree_npz(path: str, like):

@@ -4,10 +4,12 @@ the helpers it uses (`utils/debug.py`, `profiling.py`, `visualize.py`).
 
 One JAX CLI run (8 iterations, a checkpoint at 4, a snapshot at 8) serves
 the module. Tolerances: the port's eval of JAX's snapshot gives JAX's
-`results.json` to 1e-4 relative in the intensity and depth metrics and
-1e-3 relative in `depth_cd` (the chamfer sums run in float32 in another
-order), the F-score within 1e-3 and the counts equal; everything else
-(configs, frame schedules, file names, checkpoint keys) is equal.
+`results.json` to 1e-4 relative in the intensity and depth metrics (and
+`intensity_lpips`) and 1e-3 relative in `depth_cd` (the chamfer sums run
+in float32 in another order), the F-score within 1e-3 and the counts equal;
+everything else (configs, frame schedules, file names, checkpoint keys) is
+equal. The ray-drop refiner's `refine` subcommand of each package writes a
+file the other loads.
 """
 import dataclasses
 import json
@@ -17,13 +19,18 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from lidargs_tpu.models import raydrop as jr
 from lidargs_tpu.train import cli as jcli
 from lidargs_tpu.train import trainer as jtrainer
+from lidargs_tpu.utils.serialization import load_pytree_npz, save_pytree_npz
+from lidargs_torch.models import raydrop as tr
 from lidargs_torch.train import cli
+from lidargs_torch.train import lpips as tlp
 from lidargs_torch.train import trainer as ttrainer
 from lidargs_torch.utils.testing import one_torch_thread
 from test_data_cli import _make_dataset
@@ -75,17 +82,12 @@ def _files(root: Path) -> set:
     return {str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()}
 
 
-def test_port_evaluates_a_jax_snapshot_as_jax_does(jax_run):
-    out = jax_run["tmp"] / "port_eval"
-    shutil.copytree(jax_run["out"], out)
-    cli.main(["-s", str(jax_run["data"]), "-m", str(out), *BASE, "--load_iteration", "8",
-              "--eval_chamfer", "--device", "cpu"])
-    got = json.loads((out / "results.json").read_text())
-    want = jax_run["results"]
+def _assert_results_match(got: dict, want: dict):
+    """The port's `results.json` against JAX's, within the module's
+    tolerances."""
     assert set(got) == set(want) == {"test", "train"}
     for split in want:
         assert set(got[split]) == set(want[split])
-        assert {"depth_cd", "depth_fscore", "visible_count"} <= set(got[split])
         for k, w in want[split].items():
             g = got[split][k]
             if k == "depth_cd":
@@ -94,6 +96,16 @@ def test_port_evaluates_a_jax_snapshot_as_jax_does(jax_run):
                 assert g == pytest.approx(w, abs=1e-3), (split, k)
             else:
                 assert g == pytest.approx(w, rel=1e-4, abs=1e-9), (split, k)
+
+
+def test_port_evaluates_a_jax_snapshot_as_jax_does(jax_run):
+    out = jax_run["tmp"] / "port_eval"
+    shutil.copytree(jax_run["out"], out)
+    cli.main(["-s", str(jax_run["data"]), "-m", str(out), *BASE, "--load_iteration", "8",
+              "--eval_chamfer", "--device", "cpu"])
+    got = json.loads((out / "results.json").read_text())
+    _assert_results_match(got, jax_run["results"])
+    assert {"depth_cd", "depth_fscore", "visible_count"} <= set(got["test"])
     per_view = json.loads((out / "per_view.json").read_text())
     assert {s: set(v) for s, v in per_view.items()} == \
         {s: set(v) for s, v in jax_run["per_view"].items()}
@@ -219,7 +231,6 @@ def test_config_merge(tmp_path):
     (["--data_parallel", "2"], 6), (["--dp_batch", "4"], 6), (["--num_processes", "2"], 6),
     (["--coordinator", "localhost:1234"], 6), (["--mp_platform", "cpu"], 6),
     (["--mp_local_devices", "2"], 6), (["--process_id", "1"], 6),
-    (["--raydrop_refiner", "r.npz"], 4), (["--lpips_weights", "w.npz"], 5),
 ])
 def test_unported_flags_are_refused(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
@@ -229,12 +240,118 @@ def test_unported_flags_are_refused(flags, item):
         cli.build_config(["-s", "/x", "--pallas_chunk", "64"])
 
 
-def test_refine_subcommand_is_refused():
+def test_refiner_and_lpips_flags_are_accepted():
+    args = cli.build_config(["-s", "/x", "--raydrop_refiner", "r.npz",
+                             "--lpips_weights", "w.npz"])[1]
+    jargs = jcli.build_config(["-s", "/x", "--raydrop_refiner", "r.npz",
+                               "--lpips_weights", "w.npz"])[1]
+    assert (args.raydrop_refiner, args.lpips_weights) == \
+        (jargs.raydrop_refiner, jargs.lpips_weights) == ("r.npz", "w.npz")
+
+
+def _dumps(root: Path, n: int = 3, H: int = 16, W: int = 32) -> Path:
+    """A `--dump_renders` directory: `n` train frames [6, H, W] (intensity,
+    ray drop, depth, GT ray drop, GT intensity, GT depth) and `dir.npy`,
+    drawn from a seed; GT rays drop beyond 40 m."""
+    rng = np.random.default_rng(0)
+    root.mkdir(parents=True)
+    for i in range(n):
+        depth = rng.uniform(5.0, 80.0, (H, W))
+        gt = (depth < 40.0).astype(np.float64)
+        frame = [rng.uniform(size=(H, W)), rng.uniform(size=(H, W)), depth, gt,
+                 rng.uniform(size=(H, W)), depth * gt]
+        np.save(root / f"train_{i:03d}.npy", np.stack(frame).astype(np.float32))
+    dirs = rng.normal(size=(H * W, 3))
+    np.save(root / "dir.npy", (dirs / np.linalg.norm(dirs, axis=1, keepdims=True))
+            .astype(np.float32))
+    return root
+
+
+def test_refine_subcommand_runs(tmp_path):
+    """`python -m lidargs_torch.train.cli refine` trains and saves the MLP."""
+    renders = _dumps(tmp_path / "renders")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-m", "lidargs_torch.train.cli", "refine",
-                        "--renders", "x"], cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=120)
-    assert r.returncode != 0 and "ROADMAP.md queue 1 item 4" in r.stderr
+                        "--renders", str(renders), "--epochs", "1", "--device", "cpu"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "mlp refiner saved to" in r.stdout
+    assert isinstance(tr.load_refiner(str(renders / "raydrop_refiner.npz"), "cpu"),
+                      tr.RayDropMLP)
+
+
+def _jax_refine(arch: str, params, frame: np.ndarray, dirs: np.ndarray) -> np.ndarray:
+    """JAX's refined ray drop of one dumped frame (depth over 80 m)."""
+    H, W = frame.shape[1:]
+    if arch == "unet":
+        return np.asarray(jax.jit(jr.refine_raydrop_unet)(params, frame[1], frame[0],
+                                                          frame[2] / 80.0))
+    refine = jax.jit(lambda d, i, z: jr.refine_raydrop(params, d, i, z))   # static degrees
+    return np.asarray(refine(dirs.reshape(H, W, 3), frame[0], frame[2] / 80.0))
+
+
+def _port_refine(model, frame: np.ndarray, dirs: np.ndarray) -> np.ndarray:
+    H, W = frame.shape[1:]
+    color = torch.from_numpy(frame[:2].copy())                 # [intensity, ray drop]
+    with torch.no_grad():
+        out = tr.refine_color(model, color, torch.from_numpy(frame[2]), 80.0,
+                              torch.from_numpy(dirs.reshape(H, W, 3)))
+    return out[1].numpy()
+
+
+@pytest.mark.parametrize("arch", ["mlp", "unet"])
+def test_refine_crosses_packages(arch, tmp_path):
+    """`refine` of each package on the same dumps (2 epochs): each package
+    loads the other's file, and both compute the same refined ray drop from
+    either file (to 1e-4)."""
+    renders = _dumps(tmp_path / "renders")
+    files = {"jax": tmp_path / "jax.npz", "port": tmp_path / "port.npz"}
+    argv = ["--renders", str(renders), "--arch", arch, "--epochs", "2"]
+    jcli.refine_main(argv + ["--out", str(files["jax"])])
+    model, hist = cli.refine_main(argv + ["--out", str(files["port"]), "--device", "cpu"])
+    assert len(hist) == 2 and np.isfinite(hist).all()
+    with np.load(files["jax"]) as a, np.load(files["port"]) as b:
+        assert set(a.files) == set(b.files)
+        assert all(a[k].shape == b[k].shape for k in a.files)
+    like = (jr.init_unet(jax.random.key(0)) if arch == "unet"
+            else jr.init_raydrop_mlp(jax.random.key(0)))
+    frame = np.load(renders / "train_001.npy")
+    dirs = np.load(renders / "dir.npy")
+    for f in files.values():
+        want = _jax_refine(arch, load_pytree_npz(str(f), like), frame, dirs)
+        got = _port_refine(tr.load_refiner(str(f), "cpu"), frame, dirs)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(_port_refine(model, frame, dirs), got, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["mlp", "unet"])
+def test_port_evaluates_with_a_jax_refiner_and_lpips_as_jax_does(jax_run, arch):
+    """Eval-only of JAX's snapshot with a refiner written by JAX and a random
+    LPIPS npz in the converter's layout, in both CLIs: the same
+    `results.json`, `intensity_lpips` included. The frames are a 16-row copy
+    of the fixture's dataset (12 frames): at 8 rows four max-pools leave
+    VGG's fifth block an empty map (JAX's LPIPS is NaN there, the port's
+    raises)."""
+    tmp = jax_run["tmp"]
+    data = tmp / "data16"
+    if not data.exists():
+        _make_dataset(str(data), n_frames=12, H=16)
+    refiner = tmp / f"refiner_{arch}.npz"
+    save_pytree_npz(str(refiner), jr.init_unet(jax.random.key(4)) if arch == "unet"
+                    else jr.init_raydrop_mlp(jax.random.key(4)))
+    lp = tmp / "lpips.npz"
+    tlp.save_lpips_params(str(lp), tlp.random_lpips_params(0))
+    results = {}
+    for name, main, extra in (("jax", jcli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        out = tmp / f"{name}_refined_{arch}"
+        shutil.copytree(jax_run["out"], out)
+        main(["-s", str(data), "-m", str(out), *BASE, "--num_frames", "12",
+              "--load_iteration", "8", "--raydrop_refiner", str(refiner),
+              "--lpips_weights", str(lp), *extra])
+        results[name] = json.loads((out / "results.json").read_text())
+    _assert_results_match(results["port"], results["jax"])
+    for split in ("test", "train"):
+        assert np.isfinite(results["port"][split]["intensity_lpips"])
 
 
 def test_cli_defaults_to_the_card(tmp_path):
@@ -242,6 +359,8 @@ def test_cli_defaults_to_the_card(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.refine_main(["--renders", str(_dumps(tmp_path / "renders"))])
 
 
 # --- the helpers the CLI uses ---

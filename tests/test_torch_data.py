@@ -157,7 +157,7 @@ def test_checkpoints_cross_packages(tmp_path):
                 "valid", "step"} <= set(a.files)
     zero = jax.tree.map(torch.zeros_like, ts)
     back = tser.load_pytree_npz(str(tmp_path / "j.npz"), zero)
-    for (k, got), (_, want) in zip(tser._leaves(back), tser._leaves(ts)):
+    for (k, got), (_, want) in zip(tser.tree_paths(back), tser.tree_paths(ts)):
         assert got.dtype == want.dtype and torch.equal(got, want), k
     jback = jser.load_pytree_npz(str(tmp_path / "t.npz"), jax.tree.map(np.zeros_like, host))
     for got, want in zip(jax.tree.leaves(jback), jax.tree.leaves(host)):

@@ -282,10 +282,12 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  SURFEL_RASTER=dict(tile_h=1, tile_capacity=64, max_tiles_per_gaussian=32,
                                     max_visible=2048),
                  OPT=dict(start_stat=0, update_from=0, update_interval=2, update_until=10 ** 6),
-                 # the CLI phases: an 8x128 street of 42 frames (the fewest with
-                 # the 4 test frames), of which the CLI reads the first 12 (11
-                 # train, test frame 0), a field of at most 4,096 anchors
-                 CLI_SCENE=dict(n_frames=42, H=8, W=128, seed=0), CLI_NUM_FRAMES=12,
+                 # the CLI phases: a 16x128 street (LPIPS needs 16 rows) of 42
+                 # frames (the fewest with the 4 test frames), of which the CLI
+                 # reads the first 12 (11 train, test frame 0), a field of at
+                 # most 4,096 anchors; 2 refiner epochs
+                 CLI_SCENE=dict(n_frames=42, H=16, W=128, seed=0), CLI_NUM_FRAMES=12,
+                 REFINE_EPOCHS=2, REFINE_TIMED=1,
                  CLI_VOXEL="1.0",
                  CLI_EXTRA=["--anchor_capacity", "4096", "--max_visible", "4096",
                             "--tile_capacity", "64"],
@@ -365,3 +367,17 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     for run in (cli["beam"], cli["resume"], cli["eval_only"]):
         assert {"depth_cd", "depth_fscore"} <= set(run["test"])
         assert np.isfinite(run["test"]["intensity_psnr"])
+    # phases 24-26: 12 frames dumped (K1 for each evaluated, timed and dumped
+    # frame and the test frame's PNGs), both refiners trained 2 epochs of 11
+    # steps, both evaluated with LPIPS
+    refine = cli["refine"]
+    assert refine["dump"] == {"s": refine["dump"]["s"], "files": 13, "k1_launches": 37}
+    for arch in ("mlp", "unet"):
+        r = refine["refine"][arch]
+        assert r["steps"] == 22 and len(r["history"]) == 2
+        assert r["history"][-1] < r["first_step_loss"]
+        assert np.isfinite(refine["eval"][arch]["test"]["intensity_lpips"])
+    assert refine["refine"]["unet_card_vs_cpu"]["out_max_abs"] == 0.0
+    assert kernels[0]["launches_dump"] == 37
+    assert refine["eval"]["mlp"]["k1_launches"] == refine["eval"]["unet"]["k1_launches"] == 25
+    assert refine["eval"]["raydrop_acc_unrefined"] == cli["eval_only"]["test"]["raydrop_acc"]

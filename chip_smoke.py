@@ -117,6 +117,37 @@ then:
      `results.json`, the refined `raydrop_acc` beside phase 22's unrefined
      one; times one frame's LPIPS (CUDA events) and holds it against the
      CPU's.
+ 27. trains data-parallel in one process (`parallel/shard.py` `DPTrainer`,
+     DP_BATCH frames a step): DP_BATCH identical frames give one
+     `Trainer.step`'s parameters (DP_TOL) and DP_BATCH times its visits;
+     DP_BATCH distinct frames train N_STEPS steps, DP_BATCH K1 and K2
+     launches each, and densify once (grown - pruned = the change); the
+     step is timed (CUDA events) beside DP_BATCH x phase 9's and profiled;
+     SURFEL_DP_STEPS surfel DP steps launch DP_BATCH K5 and K6 each; the
+     witness (`dp_grouped`) trains the N_STEPS steps again in one process
+     with the gradients summed in phase 28's order;
+ 28. starts a fleet of DP_FLEET processes on this card (gloo, through
+     `parallel/scaling.py` `launch_fleet`; this script with `--fleet` is
+     the rank) that trains the same steps, each rank its share of every
+     batch: DP_BATCH / DP_FLEET K1 and K2 launches a rank and step, equal
+     fingerprints, `valid` after the densify bit for bit and the state
+     against phase 27's and the witness's (DP_TOL); it reports the step's
+     ms and the all-reduce's calls and bytes, and its ms in three parts
+     (`collectives.settle` on: waiting for the card and the other rank,
+     the host copies, the transfer). Ranks sharing one card: not a scaling
+     figure;
+ 29. in the same fleet renders phase 1's frame 0 with `render_field_sharded`
+     (anchors and tiles over DP_FLEET ranks: one K1 launch a rank on half
+     the tiles), against phase 1's image (color 1e-5, depth 1e-4, and
+     whether bit-equal), the gradient of JAX's test loss against the
+     unsharded render's (DP_TOL), and runs `measure_dp_rate`;
+ 30. on phase 19's street, runs the CLI with `--data_parallel 1 --dp_batch
+     DP_BATCH` (DP_BATCH K1 and K2 launches a step), then a fleet of
+     DP_FLEET processes (`--num_processes --process_id --coordinator
+     --dp_batch DP_FLEET`, an evaluation at half and a snapshot at the
+     end): one coordinator's files, rank 1's log `outputs.p1.log`, one K1
+     and one K2 launch a rank and step, a snapshot that loads in one
+     process.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -172,6 +203,22 @@ stop one instance earlier or later.
     (`tests/test_torch_raydrop.py` measures the spread on the CPU).
   * LPIPS of one frame on the card against the CPU: 1e-4 relative (float32
     convolutions and means in another order).
+  * Data-parallel (DP_TOL): DP_BATCH identical frames against one step,
+    JAX's bounds (`tests/test_parallel.py`), params within 1e-5 + 1e-4 |p|
+    where the gradient is above 1e-3 of its leaf's largest (Adam's first
+    step is a sign step: a noise-level gradient moves by +-lr either way,
+    so every entry only within two of its group's learning rates); the fleet
+    against one process (only the gradient sum's order differs): the first
+    step's reduced gradients within 1e-4 relative norm per leaf, each step's
+    loss within 1e-5, `valid` and the visits equal; the first step's Adam
+    moments and the final parameters within 1e-5 of the witness, one process
+    that sums the frames' gradients in the fleet's order ((f0 + f1) + (f2 +
+    f3), `dp_grouped`). Against the plain one-process run, whose order is
+    ((f0 + f1) + f2) + f3, the final parameters are only reported, beside
+    the witness's distance from it: Adam's sign steps on noise-level
+    gradients carry a rounding difference up to about a learning rate. The
+    sharded render's gradient against the unsharded one's, JAX's
+    bounds for its sharded render (atol 3e-5, rtol 2e-3).
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
     on the same inputs and every other row of dbuf exactly zero; the owned
     rows against the plain versions' within K2_TOL. A fused step's
@@ -248,6 +295,20 @@ REFINE_EPOCHS = 5             # refiner epochs over the dumps (JAX's default: 10
 REFINE_TIMED = 20             # refine steps timed per arch after warm-up
 UNET_CARD_TOL = {"out_max": 1e-4, "rel": 5e-2, "global_rel": 1e-5, "whole": 3e-2}
 LPIPS_CARD_RTOL = 1e-4
+# data-parallel and multi-process training, the sharded render (phases 27-30)
+DP_BATCH = 4                  # frames a data-parallel step
+DP_FLEET = 2                  # processes of the fleets, all on this card (gloo)
+SURFEL_DP_STEPS = 2           # surfel DP steps of phase 27
+DP_RATE_STEPS = 5             # measure_dp_rate's timed steps in the fleet
+RENDER_TIMED = 5              # sharded renders timed per rank
+CLI_DP_ITERS = 6              # phase 30's CLI iterations (an eval at half, a save at the end)
+FLEET_TIMEOUT = 600           # seconds a fleet may take
+DP_TOL = {"param_atol": 1e-5, "param_rtol": 1e-4, "fleet_grad_rel": 1e-4,
+          "fleet_loss_rel": 1e-5, "fleet_param_atol": 1e-5,
+          "grad_atol": 3e-5, "grad_rtol": 2e-3}
+# the sizes a fleet rank takes over from this process (the CPU rehearsal shrinks them)
+SIZE_NAMES = ("H", "W", "N_ANCHORS", "MODEL", "RASTER", "OPT", "N_STEPS", "N_FRAMES",
+              "DP_BATCH", "DP_RATE_STEPS", "RENDER_TIMED")
 
 
 def fail(msg: str) -> None:
@@ -534,17 +595,8 @@ def grad_diff(a: dict, b: dict) -> dict:
     (b is the reference)."""
     from lidargs_torch.train.optim import tree_leaves
 
-    names = []
-
-    def walk(t, path):
-        for k in t:
-            if isinstance(t[k], dict):
-                walk(t[k], f"{path}{k}/")
-            else:
-                names.append(path + k)
-    walk(a, "")
     out = {}
-    for name, x, y in zip(names, tree_leaves(a), tree_leaves(b)):
+    for name, x, y in zip(leaf_names(a), tree_leaves(a), tree_leaves(b)):
         x, y = x.double().flatten(), y.double().flatten()
         ny = float(y.norm())
         out[name] = {
@@ -701,6 +753,9 @@ def profile_render(render, frames: int = 3) -> dict:
 
 
 def main() -> None:
+    if len(sys.argv) > 2 and sys.argv[1] == "--fleet":
+        fleet_worker(json.loads(sys.argv[2]), sys.argv[3:])
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -853,6 +908,12 @@ def run(dev) -> None:
     windows, k3, k4 = window_phases(dev, params, valid, mcfg, beams, frames, "beam")
     surfel_windows, k7, k8 = window_phases(dev, params, valid, mcfg, beams, frames, "surfel")
 
+    # --- 27-29. data-parallel steps in one process and in a fleet, the sharded render ---
+    dp, dp_launches = dp_phases(dev, params, valid, mcfg, rcfg, beams, res.outputs[0],
+                                frames[0], train)
+    for entry, key in ((k2, "K2"), (k5, "K5"), (k6, "K6")):
+        entry.update(dp_launches[key])
+
     # --- 19-23. the training CLI on a dataset: train, resume, eval-only ---
     cli = cli_phases(dev)
     for entry, run_, key in ((k2, "beam", "K2"), (k5, "surfel", "K5"), (k6, "surfel", "K6")):
@@ -876,6 +937,7 @@ def run(dev) -> None:
         "windows": windows,
         "surfel_windows": surfel_windows,
         "cli": cli,
+        "dp": dp,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
@@ -885,7 +947,7 @@ def run(dev) -> None:
             "composite_fwd", "lidargs_torch/csrc/composite_fwd.cu",
             "lidargs_tpu/ops/pallas_composite.py:175", k1_launches, k1_ms, plain_ms, b1,
             launches_train=train["k1_launches"], launches_cli=cli["beam"]["launches"]["K1"],
-            launches_dump=cli["refine"]["dump"]["k1_launches"],
+            launches_dump=cli["refine"]["dump"]["k1_launches"], **dp_launches["K1"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
         ), k2, k3, k4, k5, k6, k7, k8],
@@ -898,9 +960,9 @@ def run(dev) -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
 
 
-def train_frames(dev, beams) -> list:
-    """N_STEPS training frames from sensor poses, with GT as the JAX
-    package's train-step benchmark draws it."""
+def train_frames(dev, beams, n: int | None = None) -> list:
+    """`n` (default N_STEPS) training frames from sensor poses, with GT as
+    the JAX package's train-step benchmark draws it."""
     import numpy as np
 
     from lidargs_torch.lidar import LidarFrame
@@ -908,7 +970,7 @@ def train_frames(dev, beams) -> list:
 
     rng = np.random.default_rng(4)
     frames = []
-    for i, pose in enumerate(sensor_poses(N_STEPS, seed=2)):
+    for i, pose in enumerate(sensor_poses(N_STEPS if n is None else n, seed=2)):
         gt = np.zeros((3, H, W), np.float32)
         gt[0] = rng.uniform(size=(H, W)) > 0.2
         gt[1] = rng.uniform(size=(H, W)) * gt[0]
@@ -1777,6 +1839,8 @@ def cli_phases(dev):
     s_gaps = np.diff([c["start"] for c in s_steps]) * 1e3
     # --- 24-26. dump, refine and evaluate with the refiner and LPIPS ---
     refine = refine_phases(dev, base, out, n_test, eval_only)
+    # --- 30. data-parallel training through the CLI: a frame batch, a fleet ---
+    dp = cli_dp_phase(dev, base, work)
     summary = {
         "scene": CLI_SCENE, "dataset_s": dataset_s, "beam": beam,
         "knn_oracle": knn, "voxels": voxels, "chamfer_oracle": chamfer,
@@ -1785,6 +1849,7 @@ def cli_phases(dev):
         "surfel": {"steps": len(s_steps), "launches": s_launches, "test": s_test,
                    "host_ms_per_step_median": float(np.median(s_gaps))},
         "refine": refine,
+        "dp": dp,
     }
     shutil.rmtree(work, ignore_errors=True)
     return summary
@@ -1946,6 +2011,562 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
         fail(f"LPIPS on the card against the CPU: {evals['lpips_frame']}")
     print(f"# refined eval: {json.dumps(evals)}", file=sys.stderr)
     return {"dump": dump, "refine": refine, "eval": evals}
+
+
+# --- phases 27-30: data-parallel and multi-process training, the sharded render ---
+
+def count_plain_launches(setter=setattr) -> None:
+    """Route each kernel wrapper to its plain version, counting a launch as
+    the wrapper does (`setter(module, name, value)` makes each change): the
+    CPU rehearsal of this script (`tests/test_torch_smoke_bounds.py`) and
+    its fleets' ranks on the CPU, where no kernel launches."""
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import surfel_kernel as sk
+
+    for mod, name, counter in ((ck, "composite_tiles", "launches"),
+                               (ck, "composite_tiles_bwd", "bwd_launches"),
+                               (ck, "composite_windows", "windows_launches"),
+                               (ck, "composite_windows_bwd", "windows_bwd_launches"),
+                               (sk, "surfel_composite_tiles", "launches"),
+                               (sk, "surfel_composite_tiles_bwd", "bwd_launches"),
+                               (sk, "surfel_composite_windows", "windows_launches"),
+                               (sk, "surfel_composite_windows_bwd", "windows_bwd_launches")):
+        def counted(*a, mod=mod, plain=getattr(mod, name + "_plain"), counter=counter):
+            setattr(mod, counter, getattr(mod, counter) + 1)
+            return plain(*a)
+        setter(mod, name, counted)
+        setter(mod, counter, 0)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tree_state(state) -> dict:
+    """The parts of a TrainState the fleet is held to, on the CPU."""
+    from lidargs_torch.train.optim import tree_map
+
+    cpu = lambda x: x.detach().cpu()
+    return {"params": tree_map(cpu, state.params), "mu": tree_map(cpu, state.opt.mu),
+            "anchor_demon": cpu(state.anchor_demon)}
+
+
+def render_loss(out):
+    """The loss of the JAX package's sharded-render gradient test."""
+    return (out.color ** 2).mean() + 0.01 * out.depth.mean()
+
+
+def render_grads(render, params):
+    """(RenderOut, the gradient of `render_loss` per parameter leaf)."""
+    import torch
+
+    from lidargs_torch.train.optim import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(params)]
+    out = render(tree_unflatten(params, leaves))
+    g = torch.autograd.grad(render_loss(out), leaves, allow_unused=True)
+    return out, [torch.zeros_like(x) if gx is None else gx for gx, x in zip(g, leaves)]
+
+
+def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: bool = True):
+    """`steps` data-parallel steps, each on the frames `local` of `frames`
+    stacked, then one densify (unless not `densify`): (first step's state,
+    final state, densified state, densify summary, per-step records: host
+    ms (ending in a synchronize), kernel launches by `counters`, collective
+    calls and bytes, ms in the collectives, in the host copies and waiting
+    (`parallel/collectives.py` `stats`), loss)."""
+    import torch
+
+    from lidargs_torch.lidar import stack_frames
+    from lidargs_torch.parallel import collectives
+
+    batch = stack_frames([frames[i] for i in local])
+    first, per_step = None, []
+    for it in range(1, steps + 1):
+        before = [c() for c in counters]
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch, it)
+        sync(dev)
+        per_step.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": [c() - b for c, b in zip(counters, before)],
+                         "collective_calls": collectives.stats["calls"],
+                         "collective_bytes": collectives.stats["bytes"],
+                         "collective_ms": collectives.stats["collective_s"] * 1e3,
+                         "copy_ms": collectives.stats["copy_s"] * 1e3,
+                         "wait_ms": collectives.stats["wait_s"] * 1e3,
+                         "loss": float(m.loss.total)})
+        first = state if first is None else first
+    if not densify:
+        return first, state, None, None, per_step
+    n_before = int(state.valid.sum())
+    if not trainer.should_densify(n_before, steps):
+        fail("the densify cadence does not fire after the last data-parallel step")
+    dense, ds = trainer.densify(state, torch.Generator(device=dev).manual_seed(0), VOXEL)
+    summary = {"n_anchors_before": n_before, "n_grown": int(ds.n_grown),
+               "n_pruned": int(ds.n_pruned), "n_anchors_after": int(dense.valid.sum())}
+    if summary["n_anchors_after"] != n_before + summary["n_grown"] - summary["n_pruned"]:
+        fail(f"data-parallel densify: anchor count does not add up: {summary}")
+    return first, state, dense, summary, per_step
+
+
+def dp_grouped(trainer, state, frames, groups, steps: int):
+    """`steps` data-parallel steps in one process with the gradients summed
+    as a fleet with one rank per group sums them: each group's frames in
+    turn (`local_sums`), then the groups' sums added in rank order (gloo's
+    sum of two ranks is their one addition), then `apply_sums`. (first
+    step's state, final state)."""
+    import torch
+
+    from lidargs_torch.lidar import stack_frames
+    from lidargs_torch.parallel.shard import apply_sums, local_sums
+
+    batches = [stack_frames([frames[i] for i in g]) for g in groups]
+    t, first = trainer, None
+    for it in range(1, steps + 1):
+        collect = t.ocfg.start_stat < it < t.ocfg.update_until
+        sums = [local_sums(state, b, t.bg, t.mcfg, t.rcfg, t.ocfg, collect, t.variant)
+                for b in batches]
+        flat = sums[0][0]
+        for f, _ in sums[1:]:
+            flat = flat + f
+        worst = torch.stack([w for _, w in sums]).amax(0)
+        state, _ = apply_sums(state, flat, worst, sum(map(len, groups)), t.ocfg, collect)
+        first = state if first is None else first
+    return first, state
+
+
+def param_gap(a: dict, b: dict) -> dict:
+    """Two parameter trees entry by entry (on the CPU): entries beyond
+    DP_TOL's fleet_param_atol, entries, the largest difference, bit
+    equality."""
+    from lidargs_torch.train.optim import tree_leaves
+
+    n_far = n_all = 0
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.cpu() - y.cpu()).abs()
+        n_far += int((d > DP_TOL["fleet_param_atol"]).sum())
+        n_all += d.numel()
+        worst = max(worst, float(d.max()))
+    return {"beyond_atol": n_far, "entries": n_all, "max_abs": worst,
+            "bit_equal": worst == 0.0}
+
+
+def fleet_run(cfg: dict, nproc: int, label: str) -> tuple:
+    """Start `nproc` ranks of this script's fleet worker (`fleet_worker`)
+    through the port's launcher; (coordinator's record, every rank's)."""
+    from lidargs_torch.parallel.scaling import launch_fleet
+
+    out = Path(cfg["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    env = {"OMP_NUM_THREADS": "1"} if cfg["platform"] == "cpu" else None
+    t0 = time.perf_counter()
+    launch_fleet([sys.executable, str(ROOT / "chip_smoke.py"), "--fleet", json.dumps(cfg)],
+                 nproc, out / "logs", timeout=FLEET_TIMEOUT, env=env)
+    wall_s = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc)]
+    for r in range(nproc):
+        tail = (out / "logs" / f"rank{r}.log").read_text(errors="replace")[-1500:].strip()
+        if tail:
+            print(f"# {label} rank {r} log tail:\n{tail}", file=sys.stderr)
+    return ranks[0], ranks, wall_s
+
+
+def fleet_worker(cfg: dict, argv: list) -> None:
+    """One rank of a fleet this script starts (`--fleet <json>`, the rank
+    flags appended by the launcher): phases 28-29 ("dp") or phase 30's CLI
+    ("cli"). Writes its record to `<out>/rank<r>.json`."""
+    import argparse
+
+    import torch
+
+    globals().update(cfg["sizes"])
+    p = argparse.ArgumentParser()
+    p.add_argument("--num_processes", type=int)
+    p.add_argument("--process_id", type=int)
+    p.add_argument("--coordinator")
+    rank_args = p.parse_args(argv)
+    if cfg["platform"] == "cpu":
+        torch.set_num_threads(1)
+        count_plain_launches()
+    out = Path(cfg["out"])
+    if cfg["phase"] == "cli":
+        rec = cli_rank(cfg, argv)
+    else:
+        rec = dp_rank(cfg, rank_args)
+    (out / f"rank{rank_args.process_id}.json").write_text(json.dumps(rec))
+
+
+def dp_rank(cfg: dict, rank_args) -> dict:
+    """Phases 28-29 on one rank: the data-parallel steps of phase 27 on this
+    rank's share of the batch, the sharded render of phase 1's frame 0 with
+    its gradient, and `measure_dp_rate`."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import ModelConfig, OptConfig, RasterConfig
+    from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.parallel import DPTrainer, collectives
+    from lidargs_torch.parallel.runtime import RuntimeConfig, init_runtime, shutdown_runtime
+    from lidargs_torch.parallel.scaling import measure_dp_rate
+    from lidargs_torch.parallel.sharded_render import render_field_sharded
+    from lidargs_torch.train import init_train_state
+    from lidargs_torch.utils.testing import sensor_poses, shell_field
+
+    rt = init_runtime(RuntimeConfig(coordinator_address=rank_args.coordinator,
+                                    num_processes=rank_args.num_processes,
+                                    process_id=rank_args.process_id, platform=cfg["platform"]))
+    dev = rt.device
+    mcfg, rcfg = ModelConfig(**MODEL), RasterConfig(**RASTER)
+    params, valid = shell_field(mcfg, N_ANCHORS, seed=0, device=dev)
+    beams = uniform_beam_inclinations(2.4, 20.9, H)
+    bg = torch.zeros(2, device=dev)
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+    rec = {"process_id": rt.process_id, "backend": rt.backend, "device": str(dev),
+           "fingerprints": rt.fingerprint(state0)}
+
+    # --- 28. phase 27's steps, this rank's share of each batch ---
+    mesh = rt.global_mesh()
+    trainer = DPTrainer(mcfg=mcfg, ocfg=OptConfig(**OPT), rcfg=rcfg, bg=bg, mesh=mesh)
+    frames = train_frames(dev, beams, DP_BATCH)
+    local = rt.local_indices(list(range(DP_BATCH)), mesh)
+    counters = (lambda: ck.launches, lambda: ck.bwd_launches)
+    collectives.settle = True       # wait apart from the transfer (collectives.py)
+    first, final, dense, densify, per_step = dp_train(trainer, state0, frames, local, N_STEPS,
+                                                      dev, counters)
+    rec.update(local=local, per_step=per_step, densify=densify)
+
+    # --- 29. the sharded render of phase 1's frame 0, its gradient, the rate ---
+    frame0 = LidarFrame.from_lidar2world(sensor_poses(N_FRAMES, seed=1)[0], beams,
+                                         np.zeros((3, H, W), np.float32), uid=0, device=dev)
+    tmesh = rt.global_mesh(data=1, tile=rt.num_processes)
+    tiles = []
+    run_k1 = ck.composite_tiles
+
+    def k1(inst, *a):
+        tiles.append(int(inst.shape[0]))
+        return run_k1(inst, *a)
+
+    render = lambda p: render_field_sharded(p, valid, frame0, mcfg, rcfg, bg, tmesh)
+    ck.composite_tiles = k1
+    with torch.no_grad():
+        ck.launches = 0
+        out = render(params)
+        sync(dev)
+        k1_fwd = ck.launches
+    ck.composite_tiles = run_k1
+    ms = []
+    with torch.no_grad():
+        for _ in range(RENDER_TIMED):
+            collectives.reset_stats()
+            t0 = time.perf_counter()
+            render(params)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    gather_ms = {k: collectives.stats[k + "_s"] * 1e3 for k in ("collective", "copy", "wait")}
+    collectives.settle = False
+    ck.launches = ck.bwd_launches = 0
+    grads = render_grads(render, params)[1]
+    sync(dev)
+    rec["sharded"] = {"k1_launches": k1_fwd, "k1_tiles": tiles, "ms": ms,
+                      "collective_ms_per_render": gather_ms,
+                      "grad_k1_launches": ck.launches, "grad_k2_launches": ck.bwd_launches}
+    rate = measure_dp_rate(rt.global_mesh(), mcfg, rcfg, OptConfig(start_stat=10 ** 9), H=H,
+                           W=W, n_points=N_ANCHORS, steps=DP_RATE_STEPS, warmup=1,
+                           voxel_size=0.5, runtime=rt)
+    rec["dp_rate"] = rate
+    rt.sync("done")
+    if rt.is_coordinator:
+        torch.save({"first": tree_state(first), "final": tree_state(final),
+                    "dense_valid": dense.valid.cpu(), "color": out.color.cpu(),
+                    "depth": out.depth.cpu(), "grads": [g.cpu() for g in grads]},
+                   Path(cfg["out"]) / "coordinator.pt")
+    rt.sync("saved")
+    shutdown_runtime()
+    return rec
+
+
+def cli_rank(cfg: dict, rank_flags: list) -> dict:
+    """Phase 30 on one rank: the training CLI with this rank's flags, each
+    `DPTrainer.step` probed for its kernel launches."""
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.parallel import DPTrainer
+    from lidargs_torch.parallel.runtime import shutdown_runtime
+    from lidargs_torch.train import cli
+
+    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches)) as steps:
+        cli.main(cfg["argv"] + rank_flags)
+    shutdown_runtime()
+    gaps = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    return {"steps": len(steps), "launches": [c["launches"] for c in steps],
+            "host_ms_per_step": [g * 1e3 for g in gaps]}
+
+
+def dp_phases(dev, params, valid, mcfg, rcfg, beams, o0, frame0, train: dict):
+    """Phases 27-29: (summary for the timing line, launches for the kernels
+    line)."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import OptConfig, RasterConfig
+    from lidargs_torch.lidar import stack_frames
+    from lidargs_torch.models.field import AnchorField, render_field
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.parallel import DPTrainer, make_mesh
+    from lidargs_torch.parallel.runtime import Runtime, RuntimeConfig
+    from lidargs_torch.train import Trainer, init_train_state
+    from lidargs_torch.train.optim import lr_schedules, tree_leaves
+
+    med = lambda xs: float(np.median(xs))
+    ocfg = OptConfig(**OPT)
+    bg = torch.zeros(2, device=dev)
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+    frames = train_frames(dev, beams, DP_BATCH)
+    dp = DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, mesh=make_mesh())
+    counters = (lambda: ck.launches, lambda: ck.bwd_launches)
+
+    # --- 27a. DP_BATCH identical frames: one DP step equals one Trainer.step ---
+    single, m_s = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg).step(state0, frames[0], 1)
+    same, m_d = dp.step(state0, stack_frames([frames[0]] * DP_BATCH), 1)
+    sync(dev)
+    worst, n_far = 0.0, 0
+    lrs = lr_schedules(ocfg)
+    for key in single.params:
+        lr = float(lrs[key](state0.step))
+        for a, b, g in zip(tree_leaves(same.params[key]), tree_leaves(single.params[key]),
+                           tree_leaves(single.opt.mu[key])):
+            d = (a - b).abs()
+            above = g.abs() > 1e-3 * g.abs().max()
+            over = d > DP_TOL["param_atol"] + DP_TOL["param_rtol"] * b.abs()
+            n_far += int((over & above).sum())
+            worst = max(worst, float(d.max()))
+            if not bool((d <= 2 * lr + 1e-6).all()):
+                fail(f"identical frames: a parameter of {key} moved beyond two of its "
+                     f"learning rate {lr}")
+    demon_ratio = (same.anchor_demon == DP_BATCH * single.anchor_demon).all()
+    identical = {"params_beyond_tol_above_noise_floor": n_far, "max_abs": worst,
+                 "loss_rel": abs(float(m_d.loss.total) - float(m_s.loss.total))
+                 / abs(float(m_s.loss.total)), "anchor_demon_times_batch": bool(demon_ratio)}
+    if n_far or not demon_ratio or not identical["loss_rel"] <= 1e-5:
+        fail(f"{DP_BATCH} identical frames against one step: {identical}")
+
+    # --- 27b. DP_BATCH distinct frames: N_STEPS steps and one densify ---
+    ck.launches = ck.bwd_launches = 0
+    first, final, dense, densify, per_step = dp_train(dp, state0, frames, range(DP_BATCH),
+                                                      N_STEPS, dev, counters)
+    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    if any(s["launches"] != [DP_BATCH, DP_BATCH] for s in per_step):
+        fail(f"one-process DP steps launched (K1, K2) {[s['launches'] for s in per_step]}")
+    if not np.isfinite([s["loss"] for s in per_step]).all():
+        fail(f"non-finite DP losses: {[s['loss'] for s in per_step]}")
+    # --- 27c. the witness: one process, the gradients summed in the fleet's order ---
+    local_n = DP_BATCH // DP_FLEET
+    groups = [list(range(r * local_n, (r + 1) * local_n)) for r in range(DP_FLEET)]
+    w_first, w_final = dp_grouped(dp, state0, frames, groups, N_STEPS)
+    witness = {"groups": groups, "vs_one_process": param_gap(w_final.params, final.params)}
+    held = [final]
+
+    def one_step():
+        held[0], _ = dp.step(held[0], stack_frames(frames), 1)
+
+    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
+    prof = profile_render(one_step, frames=3)
+
+    # the surfel variant's DP step at a smaller count: K5 and K6 per frame
+    srcfg = RasterConfig(**SURFEL_RASTER)
+    sdp = DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=srcfg, bg=bg, mesh=make_mesh(), variant="surfel")
+    sk.launches = sk.bwd_launches = 0
+    *_, s_steps = dp_train(sdp, state0, frames, range(DP_BATCH), SURFEL_DP_STEPS, dev,
+                           (lambda: sk.launches, lambda: sk.bwd_launches), densify=False)
+    if any(s["launches"] != [DP_BATCH, DP_BATCH] for s in s_steps):
+        fail(f"surfel DP steps launched (K5, K6) {[s['launches'] for s in s_steps]}")
+    s_launches = {"K5": sk.launches, "K6": sk.bwd_launches}
+    one_proc = {
+        "batch": DP_BATCH, "steps": N_STEPS, "identical": identical, "launches": launches,
+        "witness_fleet_order": witness,
+        "loss_first": per_step[0]["loss"], "loss_last": per_step[-1]["loss"],
+        "densify": densify, "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
+        "step_samples": len(step_ms), "single_step_ms_x_batch":
+            DP_BATCH * train["step_ms_median"], "profile": profile_summary(prof),
+        "surfel": {"steps": SURFEL_DP_STEPS, "launches": s_launches,
+                   "losses": [s["loss"] for s in s_steps],
+                   "host_ms": [s["ms"] for s in s_steps]},
+    }
+    print(f"# dp one process: {json.dumps(one_proc)}", file=sys.stderr)
+
+    # --- 28-29. the same in a fleet of DP_FLEET ranks on this card ---
+    sizes = {k: globals()[k] for k in SIZE_NAMES}
+    cfg = {"phase": "dp", "platform": dev.type, "sizes": sizes,
+           "out": str(ROOT / "build" / "chip_smoke_fleet")}
+    coord, ranks, wall_s = fleet_run(cfg, DP_FLEET, "dp fleet")
+    res = torch.load(Path(cfg["out"]) / "coordinator.pt", weights_only=False)
+    local = DP_BATCH // DP_FLEET
+    for r in ranks:
+        if any(s["launches"] != [local, local] for s in r["per_step"]):
+            fail(f"fleet rank {r['process_id']}: (K1, K2) per step "
+                 f"{[s['launches'] for s in r['per_step']]}, not ({local}, {local})")
+    prints = [r["fingerprints"] for r in ranks]
+    mine = Runtime(RuntimeConfig(), dev, None).fingerprint(state0)
+    if len({p for ps in prints for p in ps} | set(mine)) != 1:
+        fail(f"fleet fingerprints differ: {prints}, this process {mine}")
+    if not torch.equal(res["dense_valid"], dense.valid.cpu()):
+        fail("fleet: valid after the densify differs from the one-process run")
+    if coord["densify"] != densify:
+        fail(f"fleet densify {coord['densify']} against one process {densify}")
+    if [r["local"] for r in ranks] != groups:
+        fail(f"fleet ranks' frames {[r['local'] for r in ranks]}, the witness's {groups}")
+    grad_err = {}
+    for name, a, b in zip(leaf_names(first.params), tree_leaves(res["first"]["mu"]),
+                          tree_leaves(first.opt.mu)):
+        b = b.cpu()
+        grad_err[name] = float((a - b).double().norm() / b.double().norm().clamp_min(1e-30))
+    vs_witness = param_gap(res["final"]["params"], w_final.params)
+    first_vs_witness = param_gap(res["first"]["mu"], w_first.opt.mu)
+    vs_one = param_gap(res["final"]["params"], final.params)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(coord["per_step"], per_step))
+    fleet_ok = (max(grad_err.values()) <= DP_TOL["fleet_grad_rel"]
+                and loss_rel <= DP_TOL["fleet_loss_rel"]
+                and vs_witness["beyond_atol"] == 0 and first_vs_witness["beyond_atol"] == 0
+                and torch.equal(res["final"]["anchor_demon"], final.anchor_demon.cpu()))
+    steps_ms = [s["ms"] for r in ranks for s in r["per_step"][1:]]
+    coll = coord["per_step"][1:]
+    fleet = {
+        "label": f"{DP_FLEET} ranks share one card: not a scaling figure",
+        "backend": coord["backend"], "devices": [r["device"] for r in ranks],
+        "wall_s": wall_s, "fingerprints": prints, "densify": coord["densify"],
+        "first_step_grad_rel_err_max": max(grad_err.values()),
+        "loss_rel_err_max": loss_rel, "final_params_vs_witness": vs_witness,
+        "first_step_mu_vs_witness": first_vs_witness, "final_params_vs_one_process": vs_one,
+        "witness_vs_one_process": witness["vs_one_process"],
+        "step_ms_median": med(steps_ms),
+        "collective_ms_per_step_median": med([s["collective_ms"] for s in coll]),
+        "copy_ms_per_step_median": med([s["copy_ms"] for s in coll]),
+        "wait_ms_per_step_median": med([s["wait_ms"] for s in coll]),
+        "collective_bytes_per_step": coll[0]["collective_bytes"] if coll else None,
+        "collective_calls_per_step": coll[0]["collective_calls"] if coll else None,
+        "losses": [s["loss"] for s in coord["per_step"]],
+    }
+    if not fleet_ok:
+        fail(f"fleet state against the one-process runs: {fleet}; grads {grad_err}")
+    print(f"# dp fleet: {json.dumps(fleet)}", file=sys.stderr)
+
+    # --- 29. the sharded render against phase 1's frame 0, and its gradient ---
+    T = -(-H // rcfg.tile_h) * -(-W // rcfg.tile_w)
+    Tl = -(-T // DP_FLEET)
+    for r in ranks:
+        sh = r["sharded"]
+        if sh["k1_launches"] != 1 or sh["k1_tiles"] != [Tl]:
+            fail(f"sharded render rank {r['process_id']}: {sh['k1_launches']} K1 launches on "
+                 f"{sh['k1_tiles']} tiles, not one on {Tl}")
+    dc = (res["color"] - o0.color.cpu()).abs().max()
+    dd = (res["depth"] - o0.depth.cpu()).abs().max()
+    ref_out, ref_g = render_grads(
+        lambda p: render_field(p, valid, frame0, mcfg, rcfg, bg)[0], params)
+    sync(dev)
+    g_err = {}
+    for name, a, b in zip(leaf_names(params), res["grads"], ref_g):
+        b = b.cpu()
+        excess = ((a - b).abs() - (DP_TOL["grad_atol"] + DP_TOL["grad_rtol"] * b.abs())).max()
+        g_err[name] = {"max_abs": float((a - b).abs().max()), "excess": float(excess)}
+    sharded = {
+        "tiles_per_rank": Tl, "color_max_abs": float(dc), "depth_max_abs": float(dd),
+        "bit_equal": bool(torch.equal(res["color"], o0.color.cpu())
+                          and torch.equal(res["depth"], o0.depth.cpu())),
+        "grad_max_abs": max(e["max_abs"] for e in g_err.values()),
+        "ms_median": med([m for r in ranks for m in r["sharded"]["ms"][1:]]),
+        "collective_ms_per_render": [{k: v / RENDER_TIMED for k, v in
+                                      r["sharded"]["collective_ms_per_render"].items()}
+                                     for r in ranks],
+        "grad_launches": [(r["sharded"]["grad_k1_launches"], r["sharded"]["grad_k2_launches"])
+                          for r in ranks],
+        "dp_rate": coord["dp_rate"],
+        "label": f"{DP_FLEET} ranks share one card: not a scaling figure",
+    }
+    if not (sharded["color_max_abs"] <= 1e-5 and sharded["depth_max_abs"] <= 1e-4):
+        fail(f"sharded render against phase 1's frame 0: {sharded}")
+    if max(e["excess"] for e in g_err.values()) > 0:
+        fail(f"sharded render's gradient against the unsharded render's: {g_err}")
+    print(f"# sharded render: {json.dumps(sharded)}", file=sys.stderr)
+    kernels = {"K1": {"launches_dp": launches["K1"],
+                      "launches_sharded": ranks[0]["sharded"]["k1_launches"]},
+               "K2": {"launches_dp": launches["K2"],
+                      "launches_sharded": ranks[0]["sharded"]["grad_k2_launches"]},
+               "K5": {"launches_dp": s_launches["K5"]}, "K6": {"launches_dp": s_launches["K6"]}}
+    return {"one_process": one_proc, "fleet": fleet, "sharded": sharded}, kernels
+
+
+def leaf_names(tree, path="") -> list:
+    """The leaves' paths of nested dicts, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in leaf_names(tree[k], f"{path}{k}/")]
+    return [path.rstrip("/")]
+
+
+def cli_dp_phase(dev, base: list, work: Path) -> dict:
+    """Phase 30: the CLI with a frame batch in one process, then a fleet of
+    DP_FLEET processes with one evaluation and one save."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.data.scene import Scene
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.parallel import DPTrainer
+    from lidargs_torch.train import cli
+
+    one, fleet_out = work / "dp_one", work / "dp_fleet"
+    common = ["--iterations", str(CLI_DP_ITERS), "--log_every", str(CLI_DP_ITERS)]
+    ck.launches = ck.bwd_launches = 0
+    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches)) as steps:
+        cli.main(base + ["-m", str(one), *common, "--data_parallel", "1", "--dp_batch",
+                         str(DP_BATCH), "--test_iterations", "--save_iterations",
+                         str(CLI_DP_ITERS)])
+    if len(steps) != CLI_DP_ITERS or any(c["launches"] != [DP_BATCH, DP_BATCH] for c in steps):
+        fail(f"CLI --dp_batch {DP_BATCH}: {len(steps)} steps launching (K1, K2) "
+             f"{[c['launches'] for c in steps]}")
+    one_gaps = np.diff([c["start"] for c in steps]) * 1e3
+    one_test = cli_results(one)
+
+    argv = base + ["-m", str(fleet_out), *common, "--dp_batch", str(DP_FLEET),
+                   "--test_iterations", str(CLI_DP_ITERS // 2),
+                   "--save_iterations", str(CLI_DP_ITERS)]
+    cfg = {"phase": "cli", "platform": dev.type, "argv": argv,
+           "sizes": {k: globals()[k] for k in SIZE_NAMES}, "out": str(work / "dp_fleet_ranks")}
+    coord, ranks, wall_s = fleet_run(cfg, DP_FLEET, "cli fleet")
+    for r in ranks:
+        if r["steps"] != CLI_DP_ITERS or any(l != [1, 1] for l in r["launches"]):
+            fail(f"CLI fleet rank: {r['steps']} steps launching (K1, K2) {r['launches']}")
+    files = sorted(p.name for p in fleet_out.iterdir())
+    want = {"cfg_args.json", "outputs.log", "outputs.p1.log", "results.json", "per_view.json",
+            "point_cloud", "points3d.ply"}
+    if not want <= set(files) or any(f.startswith("outputs.p0") for f in files):
+        fail(f"CLI fleet wrote {files}")
+    log1 = (fleet_out / "outputs.p1.log").read_text()
+    if "[eval" in log1 or "saved snapshot" in log1:
+        fail("CLI fleet: rank 1 evaluated or saved")
+    fleet_test = cli_results(fleet_out)
+    snaps = sorted(p.name for p in (fleet_out / "point_cloud").iterdir())
+    mcfg = cli.build_config(base + ["-m", str(fleet_out)])[0].model
+    field = Scene._load_field(str(fleet_out), CLI_DP_ITERS, mcfg, dev)
+    n_anchors = int(field.valid.sum())
+    if not n_anchors > 0 or not bool(torch.isfinite(field.params["anchor"]).all()):
+        fail(f"CLI fleet snapshot loads {n_anchors} anchors")
+    gaps = [g for r in ranks for g in r["host_ms_per_step"]]
+    return {"one_process": {"steps": len(steps), "host_ms_per_step_median":
+                            float(np.median(one_gaps)), "test": one_test},
+            "fleet": {"label": f"{DP_FLEET} ranks share one card: not a scaling figure",
+                      "wall_s": wall_s, "steps": [r["steps"] for r in ranks],
+                      "launches_per_step": ranks[0]["launches"][0], "files": files,
+                      "snapshots": snaps, "snapshot_anchors": n_anchors,
+                      "host_ms_per_step_median": float(np.median(gaps)) if gaps else None,
+                      "test": fleet_test}}
 
 
 if __name__ == "__main__":

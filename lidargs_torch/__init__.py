@@ -17,7 +17,9 @@ and training CLI (`python -m lidargs_torch.train.cli`: the AlignMiF reader,
 the field from the fused point cloud, the chamfer/F-score evaluation,
 snapshots, checkpoints and resume, in the JAX package's file formats), and
 the offline ray-drop refiner (the frequency-encoding MLP and LiDAR4D's
-UNet, `cli refine`), its segmentation losses and the LPIPS metric.
+UNet, `cli refine`), its segmentation losses and the LPIPS metric, and
+data-parallel and multi-process training with the tile-sharded render
+(`parallel/`: one process per device over `torch.distributed`).
 
 Matrix products stay in full float32 (no TF32), as the JAX package computes
 its geometry at `Precision.HIGHEST`.

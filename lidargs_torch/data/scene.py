@@ -39,12 +39,15 @@ class Scene:
 
     @classmethod
     def create(cls, cfg: TrainConfig, load_iteration: Optional[int] = None, seed: int = 0,
-               init_ply: Optional[str] = None, device="cuda") -> "Scene":
+               init_ply: Optional[str] = None, device="cuda",
+               write_init: bool = True) -> "Scene":
         """Read the dataset and build the field: from the snapshot of
         `load_iteration`, else from the `init_ply` point cloud (the
         --warmup restart), else from the fused frames' init cloud, which is
-        written to `points3d.ply`. The heads are drawn from a generator
-        seeded with `cfg.seed`; `seed` seeds the init cloud's sample."""
+        written to `points3d.ply` (unless `write_init` is False: a fleet's
+        ranks other than the coordinator). The heads are drawn from a
+        generator seeded with `cfg.seed`; `seed` seeds the init cloud's
+        sample."""
         dev = resolve_device(device)
         data = read_lidar_scene(cfg.data.source_path, data_label=cfg.data.data_label,
                                 num_frames=cfg.data.num_frames,
@@ -60,8 +63,9 @@ class Scene:
                     init_points = read_point_cloud(init_ply)
             else:
                 init_points = data.init_points
-                write_point_cloud(os.path.join(cfg.model_path, "points3d.ply"),
-                                  init_points.cpu().numpy())
+                if write_init:
+                        write_point_cloud(os.path.join(cfg.model_path, "points3d.ply"),
+                                      init_points.cpu().numpy())
             field = init_field_from_points(
                 cfg.model, init_points, num_cameras=len(data.train_frames),
                 generator=torch.Generator().manual_seed(cfg.seed), device=dev)

@@ -3,4 +3,4 @@ from .beams import (
     kitti_beam_inclinations,
     uniform_beam_inclinations,
 )
-from .frames import LidarFrame
+from .frames import LidarFrame, index_frame, stack_frames

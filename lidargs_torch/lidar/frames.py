@@ -5,6 +5,9 @@ Counterpart of `lidargs_tpu/lidar/frames.py`. The renderer needs only:
   * the sensor origin in world coordinates,
   * the ascending beam-inclination table,
   * the 3-channel GT range image [raydrop, intensity, depth].
+
+`stack_frames` / `index_frame` make and read a frame batch, every tensor
+with a leading batch dimension (the data-parallel step's input).
 """
 from __future__ import annotations
 
@@ -72,3 +75,23 @@ class LidarFrame:
     def transform_to_sensor(self, points: torch.Tensor) -> torch.Tensor:
         """World -> sensor frame."""
         return points @ self.w2s_rot.T + self.w2s_trans
+
+
+_FIELDS = ("w2s_rot", "w2s_trans", "center", "beams", "gt_image", "uid", "pixel_mask")
+
+
+def stack_frames(frames: list) -> LidarFrame:
+    """Stack frames along a leading batch axis: each tensor [B, ...]. A
+    `pixel_mask` of None stays None; masks must be given for every frame or
+    for none."""
+    masks = {f.pixel_mask is None for f in frames}
+    if len(masks) != 1:
+        raise ValueError("stack_frames: pixel_mask is given for some frames and not others")
+    return LidarFrame(*(None if getattr(frames[0], n) is None
+                        else torch.stack([getattr(f, n) for f in frames]) for n in _FIELDS))
+
+
+def index_frame(batch: LidarFrame, i: int) -> LidarFrame:
+    """Frame `i` of a stacked batch."""
+    return LidarFrame(*(None if getattr(batch, n) is None else getattr(batch, n)[i]
+                        for n in _FIELDS))

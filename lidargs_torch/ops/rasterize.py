@@ -22,6 +22,14 @@ of that gather, as JAX's flows through the transpose of `jnp.take`.
 
 Physical tiles are tile_h x 128 pixels; parity with the reference's 16x1
 strips is kept through the per-pixel parity-rect mask (projection.py).
+
+A tile window (`tile_lo`, `n_tiles` of `_bin_sorted`, the binning functions
+and `render_packed_window`) restricts binning and compositing to the tiles
+[tile_lo, tile_lo + n_tiles): the tile-sharded render
+(`parallel/sharded_render.py`) gives each rank one contiguous window. The
+JAX package's `tile_spec` argument of `render_tiled` / `render_field`, a
+GSPMD sharding annotation inside one program, is not carried: the port's
+tile sharding is that render, one process per device.
 """
 from __future__ import annotations
 
@@ -102,24 +110,31 @@ def _tile_rects(rect, center, cfg: RasterConfig):
     return x0, y0, wc, hc
 
 
-def _bin_sorted(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
+def _bin_sorted(rect, center, valid, cfg: RasterConfig, gx: int, gy: int,
+                tile_lo: int = 0, n_tiles: int | None = None):
     """Expand gaussians to (tile, id) instances and sort the fused keys.
-    Returns (sorted keys, [T+1] window starts, [T] raw counts, shift, key
+    Returns (sorted keys, [Tl+1] window starts, [Tl] raw counts, shift, key
     count, overflow).
 
     PRECONDITION: the input is depth-ordered (render_tiled's cull sort), so
     the gaussian index IS the depth rank and one sort of the fused int32
-    key `tile << shift | gid` orders instances by (tile, depth)."""
+    key `tile << shift | gid` orders instances by (tile, depth).
+
+    `tile_lo` and `n_tiles` restrict binning to the window [tile_lo,
+    tile_lo + n_tiles) (default: the full grid): instances outside it are
+    dropped, tiles are numbered from tile_lo, and the sentinel is n_tiles."""
     V = valid.shape[0]
     T = gx * gy
+    Tl = T if n_tiles is None else n_tiles
+    lo = tile_lo
     dev = valid.device
     cap = cfg.max_tiles_per_gaussian
     x0, y0, wc, hc = _tile_rects(rect, center, cfg)
 
     shift = max(int(V - 1).bit_length(), 1)
-    if shift + int(T).bit_length() > 31:
+    if shift + int(Tl).bit_length() > 31:
         raise ValueError(
-            f"fused binning key overflows int32: V={V} tiles={T}; "
+            f"fused binning key overflows int32: V={V} tiles={Tl}; "
             "reduce max_visible or enlarge tiles"
         )
     if cap > 64:
@@ -136,8 +151,10 @@ def _bin_sorted(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
         jx = j - jy * wc[:, None]
         inst_ok = (jy < hc[:, None]) & valid[:, None]
         tile = (y0[:, None] + jy) * gx + (x0[:, None] + jx)
-        inst_ok = inst_ok & (tile >= 0) & (tile < T)
-        tile = torch.where(inst_ok, tile, T)                      # sentinel last
+        if lo:
+            tile = tile - lo
+        inst_ok = inst_ok & (tile >= 0) & (tile < Tl)
+        tile = torch.where(inst_ok, tile, Tl)                     # sentinel last
         gid = torch.arange(V, dtype=_I32, device=dev)[:, None]
         key = ((tile << shift) | gid).reshape(-1)
         n_keys = V * cap
@@ -157,15 +174,17 @@ def _bin_sorted(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
         jy = torch.floor(j_s.to(torch.float32) * inv_wc[i_s] + 0.01).to(_I32)
         jx = j_s - jy * wc[i_s]
         tile = (y0[i_s] + jy) * gx + (x0[i_s] + jx)
-        inst_ok = (s < total) & (tile >= 0) & (tile < T)
-        tile = torch.where(inst_ok, tile, T)
+        if lo:
+            tile = tile - lo
+        inst_ok = (s < total) & (tile >= 0) & (tile < Tl)
+        tile = torch.where(inst_ok, tile, Tl)
         key = (tile << shift) | i_s
         n_keys = E
         n_lost = (total - E).clamp_min(0).to(torch.int64)
 
     s_key = torch.sort(key).values
 
-    bounds = torch.arange(T + 1, dtype=_I32, device=dev) << shift
+    bounds = torch.arange(Tl + 1, dtype=_I32, device=dev) << shift
     starts = torch.searchsorted(s_key, bounds, out_int32=True)    # left
     counts = starts[1:] - starts[:-1]
     K = cfg.tile_capacity
@@ -173,11 +192,12 @@ def _bin_sorted(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
     return s_key, starts, counts, shift, n_keys, n_overflow
 
 
-def bin_instances(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
-    """Materialized per-tile id lists (see _bin_sorted): ([T, K] gaussian
-    ids, [T] int32 counts, overflow count)."""
+def bin_instances(rect, center, valid, cfg: RasterConfig, gx: int, gy: int,
+                  tile_lo: int = 0, n_tiles: int | None = None):
+    """Materialized per-tile id lists (see _bin_sorted): ([Tl, K] gaussian
+    ids, [Tl] int32 counts, overflow count)."""
     s_key, starts, counts, shift, n_keys, n_overflow = _bin_sorted(
-        rect, center, valid, cfg, gx, gy
+        rect, center, valid, cfg, gx, gy, tile_lo, n_tiles
     )
     K = cfg.tile_capacity
     idx = starts[:-1, None] + torch.arange(K, dtype=_I32, device=starts.device)[None, :]
@@ -186,27 +206,31 @@ def bin_instances(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
     return ids, counts.clamp_max(K), n_overflow
 
 
-def bin_instances_windows(rect, center, valid, cfg: RasterConfig, gx: int, gy: int):
+def bin_instances_windows(rect, center, valid, cfg: RasterConfig, gx: int, gy: int,
+                          tile_lo: int = 0, n_tiles: int | None = None):
     """Fused-gather form (see _bin_sorted): per-slot gaussian ids in sorted
     (tile, depth) order and per-tile windows into that list: ([n_keys] gid,
-    [T] starts, [T] counts clipped to K, overflow count), every integer as
+    [Tl] starts, [Tl] counts clipped to K, overflow count), every integer as
     the JAX package's. `starts` is the unclipped left searchsorted, so a
     tile that overflows leaves a gap before the next tile's start; slots in
     no tile's first-K window (that gap, the sentinels) carry real rows that
     no kernel reads."""
     s_key, starts, counts, shift, _n_keys, n_overflow = _bin_sorted(
-        rect, center, valid, cfg, gx, gy
+        rect, center, valid, cfg, gx, gy, tile_lo, n_tiles
     )
     K = cfg.tile_capacity
     gid = s_key & ((1 << shift) - 1)
     return gid, starts[:-1], counts.clamp_max(K), n_overflow
 
 
-def _tile_pixels(H: int, W: int, cfg: RasterConfig, gx: int, gy: int, beams):
-    """Per-tile pixel coords + ray dirs for all gy*gx tiles."""
+def _tile_pixels(H: int, W: int, cfg: RasterConfig, gx: int, gy: int, beams,
+                 tiles: torch.Tensor | None = None):
+    """Per-tile pixel coords + ray dirs for all gy*gx tiles, or for the
+    global tile indices `tiles` [Tl]. A tile beyond the grid (a window's
+    overhang) has rows beyond H, whose directions are clamped to row H-1."""
     th, tw = cfg.tile_h, cfg.tile_w
     dev = beams.device
-    t = torch.arange(gx * gy, dtype=_I32, device=dev)
+    t = torch.arange(gx * gy, dtype=_I32, device=dev) if tiles is None else tiles
     rows = (t // gx)[:, None] * th + torch.arange(th, dtype=_I32, device=dev)[None, :]
     cols = (t % gx)[:, None] * tw + torch.arange(tw, dtype=_I32, device=dev)[None, :]
     pix_y = rows.repeat_interleave(tw, dim=1)                 # [T, th*tw]
@@ -227,60 +251,76 @@ def _pix_blocks(pix_x, pix_y, dirs):
     return F.pad(blk, (0, 0, 0, 3))
 
 
+def _window_tiles(T: int, tile_lo: int, n_tiles: int | None, dev):
+    """The global tile indices of a window, or None for the full grid."""
+    if n_tiles is None and not tile_lo:
+        return None
+    n = T - tile_lo if n_tiles is None else n_tiles
+    return tile_lo + torch.arange(n, dtype=_I32, device=dev)
+
+
 def tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int,
-                cfg: RasterConfig, C: int):
+                cfg: RasterConfig, C: int, tile_lo: int = 0, n_tiles: int | None = None):
     """Bin the depth-ordered packed rows and gather each tile's list: the
-    composite kernel's inputs ([T, K, F] instances, [T] int32 counts,
-    [T, 8, NPIX] pixel blocks) and the overflow count. The materialized
-    form, whatever `cfg.fused_gather` says (`window_inputs` is the other)."""
+    composite kernel's inputs ([Tl, K, F] instances, [Tl] int32 counts,
+    [Tl, 8, NPIX] pixel blocks) and the overflow count, for the full grid
+    or the window [tile_lo, tile_lo + n_tiles). The materialized form,
+    whatever `cfg.fused_gather` says (`window_inputs` is the other)."""
     H = beams.shape[0]
     gy, gx = cfg.grid_shape(H, W)
-    T = gy * gx
+    tiles = _window_tiles(gy * gx, tile_lo, n_tiles, pkv.device)
+    T = gy * gx if tiles is None else tiles.shape[0]
     V, Fw = pkv.shape
     K = cfg.tile_capacity
     vvalid = pkv[:, PackedCols.validf(C)] > 0.0
     rect = pkv[:, PackedCols.rect(C)].to(_I32)
     center = pkv[:, PackedCols.center(C)]
 
-    ids, counts, n_overflow = bin_instances(rect, center, vvalid, cfg, gx, gy)
+    ids, counts, n_overflow = bin_instances(rect, center, vvalid, cfg, gx, gy, tile_lo, T)
     # one wide row gather materialises the per-tile instance lists; its
     # backward is autograd's indexing backward, an accumulating index_put
     # whose order on CUDA PyTorch does not promise, so two identical steps
     # may differ in the last bits (chip_smoke.py reports the difference)
     inst = pkv[ids.reshape(-1).clamp(0, V - 1)].reshape(T, K, Fw)
-    pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams)
+    pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams, tiles)
     return inst, counts, _pix_blocks(pix_x, pix_y, dirs), n_overflow
 
 
 def window_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int, cfg: RasterConfig,
-                  C: int, cols=PackedCols):
+                  C: int, cols=PackedCols, tile_lo: int = 0, n_tiles: int | None = None):
     """Bin the depth-ordered packed rows into windows: the window kernels'
     inputs ([n_keys + K, F] buf, every sorted slot's row and K zero rows of
-    padding so that no window runs off its end; [T] int32 starts and
-    counts; [T, 8, NPIX] pixel blocks) and the overflow count. `cols` names
-    the rect, center and valid columns (PackedCols, or SurfelCols for
-    surfels)."""
+    padding so that no window runs off its end; [Tl] int32 starts and
+    counts; [Tl, 8, NPIX] pixel blocks) and the overflow count, for the full
+    grid or the tiles [tile_lo, tile_lo + n_tiles). `cols` names the rect,
+    center and valid columns (PackedCols, or SurfelCols for surfels)."""
     H = beams.shape[0]
     gy, gx = cfg.grid_shape(H, W)
     V = pkv.shape[0]
+    tiles = _window_tiles(gy * gx, tile_lo, n_tiles, pkv.device)
     gid, starts, counts, n_overflow = bin_instances_windows(
         pkv[:, cols.rect(C)].to(_I32), pkv[:, cols.center(C)], pkv[:, cols.validf(C)] > 0.0,
-        cfg, gx, gy)
+        cfg, gx, gy, tile_lo, None if tiles is None else tiles.shape[0])
     buf = F.pad(pkv[gid.clamp(0, V - 1)], (0, 0, 0, cfg.tile_capacity))
-    pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams)
+    pix_x, pix_y, dirs = _tile_pixels(H, W, cfg, gx, gy, beams, tiles)
     return buf, starts, counts, _pix_blocks(pix_x, pix_y, dirs), n_overflow
 
 
 def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
-                         cfg: RasterConfig, C: int):
-    """Bin + composite every tile against the packed gaussian set, through
-    the [T, K, F] lists or, with `cfg.fused_gather`, the windows. Returns
-    per-tile strips (color [T,C,npix], depth, final_T, overflow)."""
+                         cfg: RasterConfig, C: int, tile_lo: int = 0,
+                         n_tiles: int | None = None):
+    """Bin + composite the tiles [tile_lo, tile_lo + n_tiles) (default:
+    every tile) against the packed gaussian set, through the [Tl, K, F]
+    lists or, with `cfg.fused_gather`, the windows. Returns per-tile strips
+    (color [Tl,C,npix], depth, final_T, overflow). A window may overhang the
+    grid: its tiles beyond the last have rows beyond H, and the caller drops
+    them."""
     if cfg.fused_gather:
-        buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C)
+        buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C,
+                                                             tile_lo=tile_lo, n_tiles=n_tiles)
         out8 = CompositeWindows.apply(buf, starts, counts, pix, C, cfg)
     else:
-        inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C)
+        inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C, tile_lo, n_tiles)
         out8 = CompositeTiles.apply(inst, counts, pix, C, cfg)
     return out8[:, :C], out8[:, C], out8[:, C + 1], n_overflow
 

@@ -20,9 +20,20 @@ evaluation then applies it and adds LPIPS:
     python -m lidargs_torch.train.cli -s <data> -m <out> --load_iteration N \\
         --raydrop_refiner <out>/renders/raydrop_refiner.npz --lpips_weights <lpips.npz>
 
-The flags of paths not ported yet raise rather than being ignored:
-data-parallel and multi-host training (ROADMAP.md queue 1 item 6), and
-`--pallas_chunk`, a knob of the TPU kernels only.
+Data-parallel training: `--data_parallel 1 --dp_batch B` trains B frames
+a step in one process (`parallel/shard.py`); a fleet of N processes, one
+device each, trains with `--num_processes N --process_id i --coordinator
+host:port` (`parallel/runtime.py`), each rank on its slice of every step's
+frames, with `--mp_platform cpu` on the CPU:
+
+    python -m lidargs_torch.parallel.scaling ...     # or start each rank:
+    python -m lidargs_torch.train.cli -s <data> -m <out> --num_processes 2 \
+        --process_id 0 --coordinator 127.0.0.1:29500 --dp_batch 2
+
+Only the coordinator (process 0) writes `cfg_args.json`, evaluations,
+snapshots, checkpoints, dumps and traces; the other ranks log to
+`outputs.p<i>.log`. `--mp_local_devices` (virtual devices) and
+`--pallas_chunk` (a knob of the TPU kernels) raise.
 """
 from __future__ import annotations
 
@@ -38,6 +49,9 @@ import time
 
 import numpy as np
 import torch
+
+from ..lidar.frames import stack_frames
+from ..parallel.runtime import frame_schedule
 
 
 def get_logger(model_path: str, suffix: str = "") -> logging.Logger:
@@ -57,28 +71,41 @@ def get_logger(model_path: str, suffix: str = "") -> logging.Logger:
     return logger
 
 
-def _refuse_unported(args) -> None:
-    """Raise for a flag whose path the port does not have yet."""
-    unported = (
-        (args.data_parallel > 1, f"--data_parallel {args.data_parallel}", 6),
-        (args.dp_batch != 0, f"--dp_batch {args.dp_batch}", 6),
-        (args.num_processes > 1, f"--num_processes {args.num_processes}", 6),
-        (args.process_id != 0, f"--process_id {args.process_id}", 6),
-        (args.coordinator is not None, "--coordinator", 6),
-        (args.mp_platform is not None, "--mp_platform", 6),
-        (args.mp_local_devices is not None, "--mp_local_devices", 6),
-    )
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag}: not ported to lidargs_torch yet (ROADMAP.md queue 1 item {item})")
+def _check_flags(args) -> None:
+    """Raise for flags the port has no path for, and for a data-parallel
+    layout it cannot run: the data axis spans every process, one device
+    each."""
+    if args.mp_local_devices is not None:
+        raise ValueError("--mp_local_devices: PyTorch has no virtual devices; lidargs_torch "
+                         "drives one device per process, so launch one process per device "
+                         "(--num_processes)")
+    n, dp = args.num_processes, args.data_parallel
+    if dp > 1 and dp != n:
+        raise ValueError(f"--data_parallel {dp}: lidargs_torch drives one device per process; "
+                         f"launch {dp} processes (--num_processes {dp} --process_id i "
+                         "--coordinator host:port)")
+    if n > 1 and dp == 1:
+        raise ValueError(f"--data_parallel 1 with --num_processes {n}: the data axis spans "
+                         "every process")
+    if not 0 <= args.process_id < n:
+        raise ValueError(f"--process_id {args.process_id} outside 0..{n - 1}")
+    if n > 1 and not args.coordinator:
+        raise ValueError(f"--num_processes {n} needs --coordinator host:port")
+    if args.dp_batch and n == 1 and dp != 1 and not args.mp_platform:
+        raise ValueError(f"--dp_batch {args.dp_batch} trains a frame batch with "
+                         "--data_parallel 1 or --num_processes N")
+    if args.dp_batch % n:
+        raise ValueError(f"--dp_batch {args.dp_batch} must be divisible by the data-axis "
+                         f"size {n} and by {n} hosts")
     if args.pallas_chunk is not None:
         raise ValueError("--pallas_chunk is a knob of the TPU kernels; the CUDA kernels "
                          "of lidargs_torch have none")
 
 
 def build_config(argv=None):
-    from ..config import DataConfig, ModelConfig, OptConfig, RasterConfig, TrainConfig, replace
+    from ..config import (
+        DataConfig, ModelConfig, OptConfig, ParallelConfig, RasterConfig, TrainConfig, replace,
+    )
 
     p = argparse.ArgumentParser("lidargs_torch trainer")
     p.add_argument("--source_path", "-s", required=True)
@@ -122,14 +149,19 @@ def build_config(argv=None):
     p.add_argument("--depth_min", type=float, default=None,
                    help="depth-metric lower clamp (default: 5 for waymo, 1 otherwise)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="0/1 = single device; more is not ported yet")
-    p.add_argument("--dp_batch", type=int, default=0, help="not ported yet; refused")
-    p.add_argument("--coordinator", default=None, help="not ported yet; refused")
-    p.add_argument("--num_processes", type=int, default=1)
+                   help="data-axis size: 0 = every process (one device each), 1 with "
+                        "--dp_batch = a frame batch in one process")
+    p.add_argument("--dp_batch", type=int, default=0,
+                   help="global frames per step (default: the data-axis size)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (with --num_processes > 1)")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="processes of the fleet, one device each")
     p.add_argument("--process_id", type=int, default=0)
-    p.add_argument("--mp_platform", default=None, help="not ported yet; refused")
+    p.add_argument("--mp_platform", default=None, choices=("cpu", "gpu", "cuda"),
+                   help="the fleet's devices (default: the card, or --device cpu)")
     p.add_argument("--mp_local_devices", type=int, default=None,
-                   help="not ported yet; refused")
+                   help="virtual devices per process: refused (PyTorch has none)")
     p.add_argument("--update_from", type=int, default=None,
                    help="densify schedule start (OptConfig default 500)")
     p.add_argument("--update_until", type=int, default=None,
@@ -171,7 +203,7 @@ def build_config(argv=None):
         p.set_defaults(**{k: v for k, v in saved.items()
                           if k in {a.dest for a in p._actions}})
     args = p.parse_args(argv)
-    _refuse_unported(args)
+    _check_flags(args)
 
     # kitti's ray-drop weight and depth clamp differ from waymo's
     rd_lambda = args.raydrop_lambda
@@ -210,6 +242,7 @@ def build_config(argv=None):
         ),
         data=DataConfig(source_path=args.source_path, data_label=args.data_label,
                         num_frames=args.num_frames),
+        parallel=ParallelConfig(data_parallel=max(args.data_parallel, args.num_processes)),
         model_path=args.model_path,
         seed=args.seed,
         test_iterations=tuple(args.test_iterations if args.test_iterations is not None
@@ -220,6 +253,21 @@ def build_config(argv=None):
         log_every=args.log_every,
     )
     return cfg, args
+
+
+def runtime_config(args):
+    """The RuntimeConfig of a data-parallel run (`--num_processes` > 1,
+    `--mp_platform`, or `--data_parallel 1 --dp_batch B`), else None. The
+    platform is `--mp_platform`, else `--device`'s type."""
+    from ..parallel.runtime import RuntimeConfig
+
+    if not (args.num_processes > 1 or args.mp_platform or args.dp_batch):
+        return None
+    platform = args.mp_platform or ("cpu" if torch.device(args.device).type == "cpu"
+                                    else "cuda")
+    return RuntimeConfig(coordinator_address=args.coordinator,
+                         num_processes=args.num_processes, process_id=args.process_id,
+                         platform=platform)
 
 
 def _frame_rays(fr) -> torch.Tensor:
@@ -302,17 +350,30 @@ def measure_fps(scene, state, trainer, warmup: int = 5) -> float:
 
 def main(argv=None):
     cfg, args = build_config(argv)
-    logger = get_logger(cfg.model_path)
-    with open(os.path.join(cfg.model_path, "cfg_args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+
+    # a data-parallel run: join the fleet before any other CUDA use
+    rt = None
+    rt_cfg = runtime_config(args)
+    if rt_cfg is not None:
+        from ..parallel.runtime import init_runtime
+
+        rt = init_runtime(rt_cfg)
+    is_coord = rt is None or rt.is_coordinator
+    logger = get_logger(cfg.model_path, suffix="" if is_coord else f".p{args.process_id}")
+    if is_coord:
+        with open(os.path.join(cfg.model_path, "cfg_args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     from ..data.scene import Scene
     from ..utils.device import resolve_device
     from .trainer import Trainer, init_train_state
 
-    dev = resolve_device(args.device)
+    dev = rt.device if rt is not None else resolve_device(args.device)
+    if rt is not None:
+        logger.info(f"process {rt.process_id} of {rt.num_processes}: backend "
+                    f"{rt.backend or 'none (one process)'}, device {dev}")
     scene = Scene.create(cfg, load_iteration=args.load_iteration, init_ply=args.init_ply,
-                         device=dev)
+                         device=dev, write_init=is_coord)
     logger.info(
         f"scene: {len(scene.data.train_frames)} train / "
         f"{len(scene.data.test_frames)} test frames, "
@@ -320,18 +381,38 @@ def main(argv=None):
     )
 
     bg = torch.zeros((cfg.model.color_channel,), dtype=torch.float32, device=dev)
-    trainer = Trainer(variant="surfel" if args.surfel else "beam", mcfg=cfg.model,
-                      ocfg=cfg.opt, rcfg=cfg.raster, bg=bg)
+    variant = "surfel" if args.surfel else "beam"
+    mesh = dp_batch = None
+    if rt is not None:
+        from ..parallel.shard import DPTrainer
+
+        mesh = rt.global_mesh(data=-1)
+        dp_batch = args.dp_batch or mesh.data
+        trainer = DPTrainer(variant=variant, mcfg=cfg.model, ocfg=cfg.opt, rcfg=cfg.raster,
+                            bg=bg, mesh=mesh)
+        logger.info(f"data-parallel: {mesh.data}-rank mesh across {rt.num_processes} "
+                    f"processes, {dp_batch} frames/step")
+    else:
+        trainer = Trainer(variant=variant, mcfg=cfg.model, ocfg=cfg.opt, rcfg=cfg.raster,
+                          bg=bg)
     state = init_train_state(scene.field, cfg.model)
+    if rt is not None:
+        state = rt.replicate_tree(state)
+        prints = rt.fingerprint(state)
+        if len(set(prints)) != 1:
+            raise RuntimeError(f"the ranks built different states: fingerprints {prints}")
 
     if args.load_iteration is not None:
-        # eval-only: metric sweep + FPS + saved PNG renders
-        run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
-                 refiner_path=args.raydrop_refiner, lpips_weights=args.lpips_weights)
-        measure_fps(scene, state, trainer)
-        render_sets(scene, state, trainer, cfg, logger)
-        if args.dump_renders:
-            dump_renders(scene, state, trainer, cfg, logger)
+        # eval-only: metric sweep + FPS + saved PNG renders, by the coordinator
+        if is_coord:
+            run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
+                     refiner_path=args.raydrop_refiner, lpips_weights=args.lpips_weights)
+            measure_fps(scene, state, trainer)
+            render_sets(scene, state, trainer, cfg, logger)
+            if args.dump_renders:
+                dump_renders(scene, state, trainer, cfg, logger)
+        if rt is not None:
+            rt.sync("eval-only")
         return state
     first_iter = 0
     if args.start_checkpoint is not None:
@@ -341,9 +422,10 @@ def main(argv=None):
 
     from ..utils.profiling import StepTimer, TensorBoardLogger, WandbLogger, trace
 
-    tb = TensorBoardLogger(os.path.join(cfg.model_path, "tb") if args.tensorboard else None)
-    wb = WandbLogger(args.wandb, run_name=os.path.basename(cfg.model_path),
-                     config=vars(args))
+    tb = TensorBoardLogger(os.path.join(cfg.model_path, "tb")
+                           if args.tensorboard and is_coord else None)
+    wb = WandbLogger(args.wandb if is_coord else None,
+                     run_name=os.path.basename(cfg.model_path), config=vars(args))
     timer = StepTimer().start()
     profile_ctx = None
 
@@ -354,13 +436,20 @@ def main(argv=None):
     t_start = time.time()
     best_test_psnr, best_test_it = float("-inf"), 0
     for it in range(first_iter + 1, cfg.opt.iterations + 1):
-        if args.profile_steps and it == first_iter + 2:     # after the first step
+        if args.profile_steps and it == first_iter + 2 and is_coord:   # after the first step
             profile_ctx = trace(os.path.join(cfg.model_path, "trace"))
             profile_ctx.__enter__()
-        if not frame_stack:
-            frame_stack = list(range(len(scene.data.train_frames)))
-        fidx = frame_stack.pop(rng.randint(0, len(frame_stack) - 1))
-        state, metrics = trainer.step(state, scene.data.train_frames[fidx], it)
+        if mesh is not None:
+            # the step's global batch, the same on every rank; each rank
+            # stacks only its own slice
+            idx = frame_schedule(cfg.seed, it - 1, dp_batch, len(scene.data.train_frames))
+            frame = rt.shard_batch(stack_frames([scene.data.train_frames[i]
+                                                 for i in rt.local_indices(idx, mesh)]))
+        else:
+            if not frame_stack:
+                frame_stack = list(range(len(scene.data.train_frames)))
+            frame = scene.data.train_frames[frame_stack.pop(rng.randint(0, len(frame_stack) - 1))]
+        state, metrics = trainer.step(state, frame, it)
         if profile_ctx is not None and it >= first_iter + 1 + args.profile_steps:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -370,11 +459,11 @@ def main(argv=None):
 
         if it % cfg.log_every == 0:
             loss = float(metrics.loss.total)                # the host reads the device here
-            if not math.isfinite(loss):
+            if not math.isfinite(loss) and is_coord:
                 from ..utils.debug import snapshot_if_nonfinite
 
                 snapshot_if_nonfinite(loss, cfg.model_path, it, state.params, state.valid,
-                                      scene.data.train_frames[fidx], logger)
+                                      frame, logger)
             dt_ms = timer.tick()
             ema = loss if ema is None else 0.4 * loss + 0.6 * ema
             logger.info(
@@ -405,39 +494,54 @@ def main(argv=None):
         elif trainer.should_maintain(it):
             state = trainer.maintain(state)
 
+        # evaluations and files: the coordinator's, the others wait for it
         if it in cfg.test_iterations:
-            res = run_eval(scene, state, trainer, cfg, logger,
-                           compute_chamfer=args.eval_chamfer, tb=tb, step=it,
-                           lpips_weights=args.lpips_weights)
-            if wb.active:
-                wb.log(res["test"], step=it, prefix="test/")
-            # keep the best test-PSNR snapshot beside the fixed saves
-            p = (res.get("test") or {}).get("intensity_psnr")
-            if p is not None and p > best_test_psnr:
-                best_test_psnr, best_test_it = float(p), it
-                path = scene.save(state.params, state.valid, "best")
-                logger.info(f"new best test psnr {p:.3f} at iter {it} -> {path}")
+            if is_coord:
+                res = run_eval(scene, state, trainer, cfg, logger,
+                               compute_chamfer=args.eval_chamfer, tb=tb, step=it,
+                               lpips_weights=args.lpips_weights)
+                if wb.active:
+                    wb.log(res["test"], step=it, prefix="test/")
+                # keep the best test-PSNR snapshot beside the fixed saves
+                p = (res.get("test") or {}).get("intensity_psnr")
+                if p is not None and p > best_test_psnr:
+                    best_test_psnr, best_test_it = float(p), it
+                    path = scene.save(state.params, state.valid, "best")
+                    logger.info(f"new best test psnr {p:.3f} at iter {it} -> {path}")
+            if rt is not None:
+                rt.sync("eval")
         if it in cfg.save_iterations:
-            path = scene.save(state.params, state.valid, it)
-            logger.info(f"saved snapshot to {path}")
+            if is_coord:
+                path = scene.save(state.params, state.valid, it)
+                logger.info(f"saved snapshot to {path}")
+            if rt is not None:
+                rt.sync("save")
         if it in cfg.checkpoint_iterations:
-            path = scene.save_train_state(state, it)
-            logger.info(f"saved training checkpoint to {path}")
+            if is_coord:
+                path = scene.save_train_state(state, it)
+                logger.info(f"saved training checkpoint to {path}")
+            if rt is not None:
+                rt.sync("checkpoint")
 
     if profile_ctx is not None:
         profile_ctx.__exit__(None, None, None)
-    res = run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
-                   lpips_weights=args.lpips_weights)
-    if wb.active:
-        wb.log(res["test"], step=cfg.opt.iterations, prefix="test/")
-    final_p = (res.get("test") or {}).get("intensity_psnr")
-    if best_test_it and final_p is not None:
-        logger.info(f"best test psnr {best_test_psnr:.3f} @ iter {best_test_it} "
-                    f"(saved at point_cloud/iteration_best) vs final "
-                    f"{final_p:.3f} @ {cfg.opt.iterations}")
-    measure_fps(scene, state, trainer)
-    if args.dump_renders:
-        dump_renders(scene, state, trainer, cfg, logger)
+    if rt is not None:
+        rt.sync("end-of-training")
+    if is_coord:
+        res = run_eval(scene, state, trainer, cfg, logger, compute_chamfer=args.eval_chamfer,
+                       lpips_weights=args.lpips_weights)
+        if wb.active:
+            wb.log(res["test"], step=cfg.opt.iterations, prefix="test/")
+        final_p = (res.get("test") or {}).get("intensity_psnr")
+        if best_test_it and final_p is not None:
+            logger.info(f"best test psnr {best_test_psnr:.3f} @ iter {best_test_it} "
+                        f"(saved at point_cloud/iteration_best) vs final "
+                        f"{final_p:.3f} @ {cfg.opt.iterations}")
+        measure_fps(scene, state, trainer)
+        if args.dump_renders:
+            dump_renders(scene, state, trainer, cfg, logger)
+    if rt is not None:
+        rt.sync("end")
     tb.close()
     wb.finish()
     if args.warmup and args.init_ply is None:
@@ -558,4 +662,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "refine":
         refine_main(sys.argv[2:])
     else:
-        main()
+        from ..parallel.runtime import shutdown_runtime
+
+        try:
+            main()
+        finally:
+            shutdown_runtime()

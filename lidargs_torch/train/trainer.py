@@ -126,6 +126,34 @@ def loss_and_grads(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
     return aux, tree_unflatten(state.params, gs[:-1]), gs[-1]
 
 
+def frame_stats(state: TrainState, out, ng, anchor_vis, proxy_grad) -> list:
+    """One frame's densification statistics, in TrainState's order:
+    [opacity [C], visits [C], proxy-gradient norms [C*k], their count
+    [C*k]]."""
+    vis_anchor = anchor_vis & state.valid                            # [C]
+    op = ng.neural_opacity.detach().clamp_min(0.0)                  # [C,k]
+    zero = torch.zeros((), dtype=torch.float32, device=op.device)
+    stat_mask = ng.sel_mask.reshape(-1) & out.visible.reshape(-1)   # [C*k]
+    gnorm = torch.linalg.vector_norm(proxy_grad, dim=-1).reshape(-1)
+    return [torch.where(vis_anchor, op.sum(1), zero), vis_anchor.to(torch.float32),
+            torch.where(stat_mask, gnorm, zero), stat_mask.to(torch.float32)]
+
+
+@torch.no_grad()
+def apply_step(state: TrainState, grads: dict, stats: Optional[list],
+               ocfg: OptConfig) -> TrainState:
+    """Adam on `grads` and the statistics `stats` (`frame_stats`' order;
+    None leaves them as they are) added: the next TrainState. The input
+    state is left as it is."""
+    new_params, new_opt = adam_update(state.params, grads, state.opt,
+                                      lr_schedules(ocfg), state.step, ocfg)
+    accums = (state.opacity_accum, state.anchor_demon, state.offset_grad_accum,
+              state.offset_denom)
+    if stats is not None:
+        accums = tuple(a + d for a, d in zip(accums, stats))
+    return TrainState(new_params, new_opt, state.valid, state.step + 1, *accums)
+
+
 @torch.no_grad()
 def train_step(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
                rcfg: RasterConfig, ocfg: OptConfig, update_stats: bool = True,
@@ -134,36 +162,7 @@ def train_step(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
     state is left as it is."""
     (out, ng, anchor_vis, lt), grads, proxy_grad = loss_and_grads(
         state, frame, bg, mcfg, rcfg, ocfg, variant)
-
-    # --- densification statistics ---
-    if update_stats:
-        vis_anchor = anchor_vis & state.valid                        # [C]
-        op = ng.neural_opacity.detach().clamp_min(0.0)              # [C,k]
-        zero = torch.zeros((), dtype=torch.float32, device=op.device)
-        opacity_accum = state.opacity_accum + torch.where(vis_anchor, op.sum(1), zero)
-        anchor_demon = state.anchor_demon + vis_anchor.to(torch.float32)
-        stat_mask = ng.sel_mask.reshape(-1) & out.visible.reshape(-1)  # [C*k]
-        gnorm = torch.linalg.vector_norm(proxy_grad, dim=-1).reshape(-1)
-        offset_grad_accum = state.offset_grad_accum + torch.where(stat_mask, gnorm, zero)
-        offset_denom = state.offset_denom + stat_mask.to(torch.float32)
-    else:
-        opacity_accum = state.opacity_accum
-        anchor_demon = state.anchor_demon
-        offset_grad_accum = state.offset_grad_accum
-        offset_denom = state.offset_denom
-
-    new_params, new_opt = adam_update(state.params, grads, state.opt,
-                                      lr_schedules(ocfg), state.step, ocfg)
-    new_state = TrainState(
-        params=new_params,
-        opt=new_opt,
-        valid=state.valid,
-        step=state.step + 1,
-        opacity_accum=opacity_accum,
-        anchor_demon=anchor_demon,
-        offset_grad_accum=offset_grad_accum,
-        offset_denom=offset_denom,
-    )
+    stats = frame_stats(state, out, ng, anchor_vis, proxy_grad) if update_stats else None
     metrics = StepMetrics(
         loss=LossTerms(*(x.detach() for x in lt)),
         n_anchors=state.valid.sum(),
@@ -171,7 +170,7 @@ def train_step(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
         n_dropped=out.n_dropped,
         n_overflow=out.n_overflow,
     )
-    return new_state, metrics
+    return apply_step(state, grads, stats, ocfg), metrics
 
 
 @dataclass

@@ -227,17 +227,60 @@ def test_config_merge(tmp_path):
     assert cfg2.opt.iterations == 7
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--data_parallel", "2"], 6), (["--dp_batch", "4"], 6), (["--num_processes", "2"], 6),
-    (["--coordinator", "localhost:1234"], 6), (["--mp_platform", "cpu"], 6),
-    (["--mp_local_devices", "2"], 6), (["--process_id", "1"], 6),
+@pytest.mark.parametrize("flags, msg", [
+    (["--mp_local_devices", "2"], "no virtual devices"),
 ])
-def test_unported_flags_are_refused(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+def test_unported_flags_are_refused(flags, msg):
+    with pytest.raises(ValueError, match=msg):
         cli.build_config(["-s", "/x", *flags])
     cli.build_config(["-s", "/x", "--data_parallel", "1"])       # one device is the port's
     with pytest.raises(ValueError, match="pallas_chunk"):
         cli.build_config(["-s", "/x", "--pallas_chunk", "64"])
+
+
+COORD = ["--coordinator", "127.0.0.1:1234"]
+
+
+@pytest.mark.parametrize("flags, want", [
+    # one process, a frame batch: the runtime of one rank on --device
+    (["--data_parallel", "1", "--dp_batch", "4", "--device", "cpu"],
+     dict(data_parallel=1, rt=(None, 1, 0, "cpu"))),
+    (["--data_parallel", "1", "--dp_batch", "4", "--surfel"],
+     dict(data_parallel=1, rt=(None, 1, 0, "cuda"))),
+    # a fleet: every process on the data axis
+    (["--num_processes", "2", "--process_id", "1", "--dp_batch", "2", *COORD],
+     dict(data_parallel=2, rt=("127.0.0.1:1234", 2, 1, "cuda"))),
+    (["--num_processes", "2", "--data_parallel", "2", "--mp_platform", "cpu", *COORD],
+     dict(data_parallel=2, rt=("127.0.0.1:1234", 2, 0, "cpu"))),
+    (["--mp_platform", "gpu"], dict(data_parallel=1, rt=(None, 1, 0, "gpu"))),
+    (["--num_processes", "4", "--device", "cpu", *COORD],
+     dict(data_parallel=4, rt=("127.0.0.1:1234", 4, 0, "cpu"))),
+    # no data-parallel flag: no runtime
+    ([], dict(data_parallel=1, rt=None)),
+])
+def test_parallel_flags_build_the_config(flags, want):
+    cfg, args = cli.build_config(["-s", "/x", *flags])
+    assert cfg.parallel.data_parallel == want["data_parallel"]
+    rt = cli.runtime_config(args)
+    got = None if rt is None else (rt.coordinator_address, rt.num_processes, rt.process_id,
+                                   rt.platform)
+    assert got == want["rt"]
+    if rt is not None:
+        assert rt.local_device_count is None
+
+
+@pytest.mark.parametrize("flags, msg", [
+    (["--data_parallel", "2"], "launch 2 processes"),
+    (["--data_parallel", "3", "--num_processes", "2", *COORD], "launch 3 processes"),
+    (["--data_parallel", "1", "--num_processes", "2", *COORD], "spans every process"),
+    (["--num_processes", "2"], "needs --coordinator"),
+    (["--num_processes", "2", "--process_id", "2", *COORD], "outside 0..1"),
+    (["--num_processes", "2", "--dp_batch", "3", *COORD], "divisible"),
+    (["--dp_batch", "4"], "--data_parallel 1 or --num_processes"),
+])
+def test_parallel_flags_refuse_a_layout_the_port_cannot_run(flags, msg):
+    with pytest.raises(ValueError, match=msg):
+        cli.build_config(["-s", "/x", *flags])
 
 
 def test_refiner_and_lpips_flags_are_accepted():

@@ -31,8 +31,6 @@ import torch
 import chip_smoke
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops.projection import PackedCols as PC
-from lidargs_torch.ops import composite_kernel as ck
-from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.utils import cuda_build, kernel_ab
 from lidargs_torch.ops.surfel import SurfelCols as S
 from lidargs_torch.ops.surfel import pair_geometry
@@ -292,7 +290,9 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  CLI_EXTRA=["--anchor_capacity", "4096", "--max_visible", "4096",
                             "--tile_capacity", "64"],
                  CLI_ITERS=4, CLI_SURFEL_ITERS=2, CLI_LOG_EVERY=2, CLI_PROFILE_STEPS=1,
-                 KNN_POINTS=3000)
+                 KNN_POINTS=3000,
+                 # phases 27-30: two-rank gloo fleets on the CPU, short runs
+                 SURFEL_DP_STEPS=1, DP_RATE_STEPS=1, RENDER_TIMED=2, CLI_DP_ITERS=2)
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
@@ -313,19 +313,7 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "cli_results", cli_results)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
-    for mod, name, counter in ((ck, "composite_tiles", "launches"),
-                               (ck, "composite_tiles_bwd", "bwd_launches"),
-                               (ck, "composite_windows", "windows_launches"),
-                               (ck, "composite_windows_bwd", "windows_bwd_launches"),
-                               (sk, "surfel_composite_tiles", "launches"),
-                               (sk, "surfel_composite_tiles_bwd", "bwd_launches"),
-                               (sk, "surfel_composite_windows", "windows_launches"),
-                               (sk, "surfel_composite_windows_bwd", "windows_bwd_launches")):
-        def counted(*a, mod=mod, plain=getattr(mod, name + "_plain"), counter=counter):
-            setattr(mod, counter, getattr(mod, counter) + 1)
-            return plain(*a)
-        monkeypatch.setattr(mod, name, counted)
-        monkeypatch.setattr(mod, counter, 0)
+    chip_smoke.count_plain_launches(monkeypatch.setattr)
     chip_smoke.run(torch.device("cpu"))
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1])["ok"] is True and lines[-2] == "CPU rehearsal"
@@ -381,3 +369,24 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert kernels[0]["launches_dump"] == 37
     assert refine["eval"]["mlp"]["k1_launches"] == refine["eval"]["unet"]["k1_launches"] == 25
     assert refine["eval"]["raydrop_acc_unrefined"] == cli["eval_only"]["test"]["raydrop_acc"]
+    # phases 27-30: 4 K1 and K2 launches per one-process DP step, 2 per rank
+    # and step in the fleet, one K1 launch per rank on half the tiles in the
+    # sharded render, the CLI fleet's files
+    dp = timing["dp"]
+    assert dp["one_process"]["launches"] == {"K1": 8, "K2": 8}
+    assert dp["one_process"]["surfel"]["launches"] == {"K5": 4, "K6": 4}
+    assert dp["fleet"]["backend"] == "gloo" and len(set(map(tuple, dp["fleet"]["fingerprints"]))) == 1
+    assert dp["fleet"]["collective_bytes_per_step"] > 0
+    # the fleet sums the frames as the one-process witness does, to the bit
+    assert dp["fleet"]["final_params_vs_witness"]["bit_equal"]
+    assert dp["fleet"]["first_step_mu_vs_witness"]["bit_equal"]
+    assert dp["one_process"]["witness_fleet_order"]["groups"] == [[0, 1], [2, 3]]
+    assert min(dp["fleet"][f"{k}_ms_per_step_median"] for k in ("collective", "copy", "wait")) >= 0
+    assert dp["sharded"]["tiles_per_rank"] == 4 and dp["sharded"]["bit_equal"]
+    assert dp["sharded"]["grad_launches"] == [[1, 1], [1, 1]]
+    assert kernels[0]["launches_dp"] == 8 and kernels[0]["launches_sharded"] == 1
+    assert kernels[1]["launches_dp"] == 8 and kernels[5]["launches_dp"] == 4
+    cdp = cli["dp"]
+    assert cdp["one_process"]["steps"] == 2 and cdp["fleet"]["steps"] == [2, 2]
+    assert cdp["fleet"]["launches_per_step"] == [1, 1] and cdp["fleet"]["snapshot_anchors"] > 0
+    assert "outputs.p1.log" in cdp["fleet"]["files"]

@@ -147,7 +147,22 @@ then:
      --dp_batch DP_FLEET`, an evaluation at half and a snapshot at the
      end): one coordinator's files, rank 1's log `outputs.p1.log`, one K1
      and one K2 launch a rank and step, a snapshot that loads in one
-     process.
+     process;
+ 31. writes a DyNFL bundle from phase 19's street (its range images and
+     poses, not raycast again) with one vehicle added: a 4.5 x 2 x 1.6 m box
+     in the opposite lane driving 1.0 m a frame ahead of the sensor (which
+     moves 0.6), raycast alone (`raycast_world`) and taken where it is
+     nearer than the street; reads it with `read_dynamic_scene` into a
+     background and a vehicle sub-scene; holds `knn3_mean_sq_dist` of the
+     background's DYN_INIT_SAMPLES init points against the k-d tree;
+ 32. trains each sub-scene DYN_STEPS `Trainer.step`s through the masked
+     losses at the CLI's raster defaults (one K1 and one K2 launch a step,
+     counted), with one densify; the loss must fall; times a step (CUDA
+     events) and profiles 3; holds one masked step's K1 and K2 (and its
+     gradients) against the plain versions;
+ 33. renders each sub-scene's four test frames (one K1 launch each) and
+     reports depth L1 and intensity PSNR over each frame's mask, before and
+     after training.
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -219,6 +234,9 @@ stop one instance earlier or later.
     gradients carry a rounding difference up to about a learning rate. The
     sharded render's gradient against the unsharded one's, JAX's
     bounds for its sharded render (atol 3e-5, rtol 2e-3).
+  * knn3_mean_sq_dist (phase 31) against the k-d tree: each point within
+    1e-6 of the tree's value relative (direct float32 differences: about
+    eight roundings of the result's size), plus 1e-12 m^2.
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
     on the same inputs and every other row of dbuf exactly zero; the owned
     rows against the plain versions' within K2_TOL. A fused step's
@@ -306,6 +324,15 @@ FLEET_TIMEOUT = 600           # seconds a fleet may take
 DP_TOL = {"param_atol": 1e-5, "param_rtol": 1e-4, "fleet_grad_rel": 1e-4,
           "fleet_loss_rel": 1e-5, "fleet_param_atol": 1e-5,
           "grad_atol": 3e-5, "grad_rtol": 2e-3}
+# the dynamic decomposition (phases 31-33) on phase 19's street
+DYN_VEHICLE = dict(length=4.5, width=2.0, height=1.6, y=-3.3, x0=8.0, speed=1.0, albedo=0.5)
+DYN_INIT_SAMPLES = 500_000    # the background's init points (the reader's default)
+DYN_STEPS = 100               # masked training steps of each sub-scene, a densify at half
+DYN_TIMED = 10                # steps timed after warm-up
+DYN_VOXEL = {"background": 0.2, "vehicle": 0.1}
+DYN_CAPACITY = {"background": 65_536, "vehicle": 4_096}
+DYN_MIN_ANCHORS = {"background": 10_000, "vehicle": 200}
+DYN_KNN_TOL = {"rel": 1e-6, "abs": 1e-12}
 # the sizes a fleet rank takes over from this process (the CPU rehearsal shrinks them)
 SIZE_NAMES = ("H", "W", "N_ANCHORS", "MODEL", "RASTER", "OPT", "N_STEPS", "N_FRAMES",
               "DP_BATCH", "DP_RATE_STEPS", "RENDER_TIMED")
@@ -918,6 +945,8 @@ def run(dev) -> None:
     cli = cli_phases(dev)
     for entry, run_, key in ((k2, "beam", "K2"), (k5, "surfel", "K5"), (k6, "surfel", "K6")):
         entry["launches_cli"] = cli[run_]["launches"][key]
+    dynamic = cli.pop("dynamic")
+    k2["launches_dynamic"] = dynamic["launches"]["K2"]
 
     timing = {
         "card": card_csv,
@@ -938,6 +967,7 @@ def run(dev) -> None:
         "surfel_windows": surfel_windows,
         "cli": cli,
         "dp": dp,
+        "dynamic": dynamic,
     }
     if isinstance(prof["device_ms_per_frame"], float):
         timing["device_busy_share"] = prof["device_ms_per_frame"] / med(render_ms)
@@ -948,6 +978,7 @@ def run(dev) -> None:
             "lidargs_tpu/ops/pallas_composite.py:175", k1_launches, k1_ms, plain_ms, b1,
             launches_train=train["k1_launches"], launches_cli=cli["beam"]["launches"]["K1"],
             launches_dump=cli["refine"]["dump"]["k1_launches"], **dp_launches["K1"],
+            launches_dynamic=dynamic["launches"]["K1"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
         ), k2, k3, k4, k5, k6, k7, k8],
@@ -1634,21 +1665,25 @@ def gram_tol(x, y):
     return 1e-6 * ((x * x).sum(-1) + (y * y).sum(-1)) + 1e-6
 
 
-def knn_oracle(dev, points):
+def knn_oracle(dev, points, direct: bool = False):
     """`mean_sq_dist_3nn` on the card against a float64 k-d tree
     (scipy.spatial.cKDTree) on the same float32 points: every row within
-    `gram_tol` (the sorted k smallest move by at most the largest error)."""
+    `gram_tol` (the sorted k smallest move by at most the largest error).
+    With `direct`, `knn3_mean_sq_dist` (direct differences) within
+    DYN_KNN_TOL of the tree's value, timed once without a warm-up run."""
     import numpy as np
     import torch
     from scipy.spatial import cKDTree
 
-    from lidargs_torch.ops.knn import mean_sq_dist_3nn
+    from lidargs_torch.ops.knn import knn3_mean_sq_dist, mean_sq_dist_3nn
 
+    fn = knn3_mean_sq_dist if direct else mean_sq_dist_3nn
     pts = torch.from_numpy(points).to(dev)
-    mean_sq_dist_3nn(pts)                       # warm-up
+    if not direct:
+        fn(pts)                                 # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = mean_sq_dist_3nn(pts)
+    got = fn(pts)
     torch.cuda.synchronize()
     knn_ms = (time.perf_counter() - t0) * 1e3
     got = got.cpu().numpy().astype(np.float64)
@@ -1657,14 +1692,15 @@ def knn_oracle(dev, points):
     d, idx = cKDTree(p64).query(p64, k=4, workers=-1)
     tree_s = time.perf_counter() - t0
     want = (d[:, 1:] ** 2).mean(1)
-    tol = gram_tol(p64, p64[idx[:, 3]])
+    tol = (DYN_KNN_TOL["rel"] * want + DYN_KNN_TOL["abs"] if direct
+           else gram_tol(p64, p64[idx[:, 3]]))
     err = np.abs(got - want)
     out = {"points": len(points), "ms": knn_ms, "ckdtree_s": tree_s,
            "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
            "max_err_over_tol": float((err / tol).max()), "max_tol": float(tol.max()),
            "median_port": float(np.median(got)), "median_oracle": float(np.median(want))}
     if not out["max_err_over_tol"] <= 1.0:
-        fail(f"mean_sq_dist_3nn against cKDTree: {out}")
+        fail(f"{fn.__name__} against cKDTree: {out}")
     return out
 
 
@@ -1841,6 +1877,8 @@ def cli_phases(dev):
     refine = refine_phases(dev, base, out, n_test, eval_only)
     # --- 30. data-parallel training through the CLI: a frame batch, a fleet ---
     dp = cli_dp_phase(dev, base, work)
+    # --- 31-33. the dynamic decomposition of a bundle made from the street ---
+    dynamic = dynamic_phases(dev, root, work / "dynamic")
     summary = {
         "scene": CLI_SCENE, "dataset_s": dataset_s, "beam": beam,
         "knn_oracle": knn, "voxels": voxels, "chamfer_oracle": chamfer,
@@ -1850,6 +1888,7 @@ def cli_phases(dev):
                    "host_ms_per_step_median": float(np.median(s_gaps))},
         "refine": refine,
         "dp": dp,
+        "dynamic": dynamic,
     }
     shutil.rmtree(work, ignore_errors=True)
     return summary
@@ -2567,6 +2606,249 @@ def cli_dp_phase(dev, base: list, work: Path) -> dict:
                       "snapshots": snaps, "snapshot_anchors": n_anchors,
                       "host_ms_per_step_median": float(np.median(gaps)) if gaps else None,
                       "test": fleet_test}}
+
+
+# --- phases 31-33: the dynamic (background / vehicle) decomposition ---
+
+def box_corners(lo, hi):
+    """[8, 3] corners of an axis-aligned box in DyNFL's order: corner 0 at
+    the minimum, x along 0->4, y along 0->3, z along 0->1."""
+    import numpy as np
+
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    return np.array([[x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0],
+                     [x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0]], np.float64)
+
+
+def write_dynamic_bundle(street: Path, ctx: Path) -> dict:
+    """Every file `WaymoDynamicScene` reads, from the street's written range
+    images and poses plus one vehicle (DYN_VEHICLE) raycast alone and taken
+    where it is nearer than the street. Returns the bundle's sizes and the
+    vehicle's pixels a frame."""
+    import numpy as np
+
+    from lidargs_torch.data.synthetic import raycast_world
+    from lidargs_torch.lidar.pano import ray_dirs_from_beams
+
+    train = json.loads((street / "transforms_train.json").read_text())
+    test = json.loads((street / "transforms_test.json").read_text())
+    H, W = train["h_lidar"], train["w_lidar"]
+    beams = np.asarray(train["beam_inclinations"], np.float64)
+    metas = sorted(train["frames"] + test["frames"], key=lambda m: m["lidar_file_path"])
+    n = len(metas)
+    dirs = ray_dirs_from_beams(H, W, beams).numpy()
+    v = DYN_VEHICLE
+    ri = np.zeros((n, H, W, 3), np.float32)
+    obj = np.full((n, H, W), -1, np.int32)
+    corners, poses, vehicle_px = [], [], []
+    for i, meta in enumerate(metas):
+        l2w = np.asarray(meta["lidar2world"], np.float64)
+        rv = np.load(street / meta["lidar_file_path"])           # [H, W, (0, inten, depth)]
+        x0 = v["x0"] + v["speed"] * i
+        lo = np.array([x0, v["y"] - v["width"] / 2, 0.0])
+        hi = np.array([x0 + v["length"], v["y"] + v["width"] / 2, v["height"]])
+        # the box alone: no spheres, the ground beyond the far plane
+        depth, inten = raycast_world(l2w[:3, 3], dirs @ l2w[:3, :3].T, np.zeros((0, 4)),
+                                     np.zeros(1), ground_z=-1e6,
+                                     boxes=np.concatenate([lo, hi])[None],
+                                     box_albedo=np.array([v["albedo"]]), lambertian=True)
+        hit = (depth > 0) & ((rv[..., 2] == 0) | (depth < rv[..., 2]))
+        dist = np.where(hit, depth, rv[..., 2])
+        # stored so that the reader's tanh gives back the intensity
+        ri[i, ..., 0] = dist
+        ri[i, ..., 1] = np.arctanh(np.clip(np.where(hit, inten, rv[..., 1]), 0.0, 1.0 - 1e-7))
+        obj[i][hit] = 0
+        corners.append(box_corners(lo, hi))
+        poses.append(l2w)
+        vehicle_px.append(int(hit.sum()))
+    ctx.mkdir(parents=True, exist_ok=True)
+    np.save(ctx / "range_images1.npy", ri)
+    np.save(ctx / "ray_object_indices.npy", obj)
+    np.save(ctx / "normals.npy", np.zeros((n, H, W, 3), np.float32))
+    np.save(ctx / "valid_normal_flags.npy", np.ones((n, H, W), bool))
+    np.save(ctx / "beam_inclinations.npy", beams)
+    # a background ray (index -1) reads the frame's last listed object (a
+    # fault of the JAX package that the port keeps): list a static parked
+    # car last, so that the background keeps its rays
+    car, parked = "vehicle_0", "parked_0"
+    parked_box = box_corners([12.0, 5.0, 0.0], [16.5, 7.0, 1.6])
+    ids = np.empty((n, 2), dtype=object)
+    ids[:] = [car, parked]
+    np.save(ctx / "object_ids_per_frame.npy", ids)
+    np.save(ctx / "objects_id_types_per_frame.npy", np.array([[1, 1]] * n, dtype=object))
+    dicts = {"tsfm": {car: [np.eye(4)] * n, parked: [np.eye(4)]},
+             "corners": {car: corners, parked: [parked_box]},
+             "anchors": {car: corners[0], parked: parked_box},
+             "frameidx": {car: list(range(n)), parked: [0]},
+             "dynamic_flag": {car: True, parked: False}}
+    for name, d in dicts.items():
+        np.save(ctx / f"objects_id_2_{name}.npy", np.array(d, dtype=object))
+    # meta_info.json: the reader takes frames[i + 50]
+    frames = [{"lidar2world": p.tolist()} for p in poses + poses]
+    (ctx / "meta_info.json").write_text(json.dumps({"frames": frames}))
+    mb = sum(f.stat().st_size for f in ctx.iterdir()) / 2 ** 20
+    return {"frames": n, "H": H, "W": W, "mb": mb, "vehicle_pixels_per_frame": vehicle_px}
+
+
+def masked_metrics(out, frame) -> dict:
+    """Depth L1 (m) and intensity PSNR (dB) over the frame's pixel mask."""
+    import math
+
+    m = frame.pixel_mask.float()
+    n = float(m.sum())
+    gt = frame.gt_image
+    l1 = float(((out.depth - gt[2]).abs() * m).sum()) / n
+    mse = float(((out.color[0] - gt[1]) ** 2 * m).sum()) / n
+    return {"pixels": int(n), "depth_l1": l1,
+            "intensity_psnr": -10.0 * math.log10(mse) if mse > 0 else float("inf")}
+
+
+def train_subscene(dev, name: str, md) -> dict:
+    """Phases 32-33 for one sub-scene: the field from its init points, the
+    masked steps with one densify (K1 and K2 counted), timings and a
+    profile, one masked step's K1/K2 against the plain versions, the test
+    frames before and after training."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import ModelConfig, OptConfig, RasterConfig
+    from lidargs_torch.models.field import field_splats, init_field_from_points
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops.rasterize import cull_sorted_rows, tile_inputs
+    from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
+
+    mcfg = ModelConfig(**{**MODEL, "anchor_capacity": DYN_CAPACITY[name]})
+    rcfg = RasterConfig(**RASTER)
+    ocfg = OptConfig(**{**OPT, "update_interval": DYN_STEPS // 2})
+    C = mcfg.color_channel
+    bg = torch.zeros(2, device=dev)
+    trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg)
+    field = init_field_from_points(mcfg, md.init_points, voxel_size=DYN_VOXEL[name],
+                                   generator=torch.Generator().manual_seed(0), device=dev)
+    n_anchors = int(field.valid.sum())
+    if n_anchors < DYN_MIN_ANCHORS[name]:
+        fail(f"dynamic {name}: {n_anchors} anchors at voxel {DYN_VOXEL[name]}")
+    state = init_train_state(field, mcfg)
+    with torch.no_grad():
+        before = [masked_metrics(trainer.render(state.params, state.valid, f), f)
+                  for f in md.test_frames]
+
+    # --- 32. the masked steps, a densify at half ---
+    frames = md.train_frames
+    losses, densify = [], None
+    ck.launches = ck.bwd_launches = 0
+    for it in range(1, DYN_STEPS + 1):
+        state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
+        losses.append(m.loss.total)
+        if it == DYN_STEPS // 2:
+            if not trainer.should_densify(int(state.valid.sum()), it):
+                fail(f"dynamic {name}: the densify cadence does not fire at step {it}")
+            n_before = int(state.valid.sum())
+            state, dstats = trainer.densify(state, torch.Generator(device=dev).manual_seed(0),
+                                            DYN_VOXEL[name])
+            densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
+                       "n_pruned": int(dstats.n_pruned),
+                       "n_anchors_after": int(state.valid.sum())}
+    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    if launches != {"K1": DYN_STEPS, "K2": DYN_STEPS}:
+        fail(f"dynamic {name}: {DYN_STEPS} steps launched {launches}")
+    losses = torch.stack(losses).cpu().numpy()
+    w = max(1, DYN_STEPS // 10)
+    if not (np.isfinite(losses).all() and losses[-w:].mean() < losses[:w].mean()):
+        fail(f"dynamic {name}: the loss did not fall: {losses.tolist()}")
+    frame = frames[0]
+    held = [state]
+
+    def one_step():
+        held[0], _ = trainer.step(held[0], frame, DYN_STEPS + 1)
+
+    step_ms = time_ms(one_step, DYN_TIMED, 2)
+    prof = profile_render(one_step, frames=3)
+
+    # --- one masked step's K1 and K2 against the plain versions ---
+    grads = lambda: loss_and_grads(state, frame, bg, mcfg, rcfg, ocfg)[1:]
+    _, _, err_k2, vs_plain, _ = kernel_vs_plain(ck, "composite_tiles", grads, 14 + C, K2_TOL,
+                                                f"K2 (dynamic {name}, masked)")
+    with torch.no_grad():
+        splats = field_splats(state.params, state.valid, frame, mcfg, rcfg)[0]
+        pkv, _ = cull_sorted_rows(splats, rcfg)
+        inst, counts, pix, _ = tile_inputs(pkv, frame.beams, frame.W, rcfg, C)
+        err_k1 = check_against(f"K1 vs plain (dynamic {name}, masked frame)",
+                               ck.composite_tiles(inst, counts, pix, C, rcfg),
+                               ck.composite_tiles_plain(inst, counts, pix, C, rcfg), C)
+
+    # --- 33. the test frames, one K1 launch each ---
+    ck.launches = 0
+    with torch.no_grad():
+        after = [masked_metrics(trainer.render(state.params, state.valid, f), f)
+                 for f in md.test_frames]
+    launches["K1_test"] = ck.launches
+    if ck.launches != len(md.test_frames):
+        fail(f"dynamic {name}: {len(md.test_frames)} test renders launched K1 {ck.launches}")
+    for a in after:
+        if not (np.isfinite(a["depth_l1"]) and a["pixels"] > 0):
+            fail(f"dynamic {name}: test frame metrics {after}")
+    out = {
+        "anchors_init": n_anchors, "voxel": DYN_VOXEL[name], "capacity": DYN_CAPACITY[name],
+        "steps": DYN_STEPS, "launches": launches, "densify": densify,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "loss_first_mean": float(losses[:w].mean()), "loss_last_mean": float(losses[-w:].mean()),
+        "step_ms_median": float(np.median(step_ms)), "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_samples": len(step_ms),
+        "profile": prof, "k1_err": err_k1, "k2_err": err_k2,
+        "grad_vs_plain_worst": max(vs_plain.items(), key=lambda kv: kv[1]["rel_norm"]),
+        "test_before": before, "test_after": after,
+    }
+    if isinstance(prof["device_ms_per_frame"], float):
+        out["device_busy_share"] = prof["device_ms_per_frame"] / out["step_ms_median"]
+    return out
+
+
+def dynamic_phases(dev, street: Path, ctx: Path) -> dict:
+    """Phases 31-33: the bundle, its sub-scenes, the exact 3-NN of the
+    background's init points, each sub-scene trained and rendered. Returns
+    the summary with the K1 and K2 launches of phases 32-33."""
+    import numpy as np
+
+    from lidargs_torch.data.waymo_dynamic import STATIC, read_dynamic_scene
+
+    t_all = time.perf_counter()
+    # --- 31. the bundle and its sub-scenes ---
+    t0 = time.perf_counter()
+    bundle = write_dynamic_bundle(street, ctx)
+    bundle["write_s"] = time.perf_counter() - t0
+    if min(bundle["vehicle_pixels_per_frame"]) == 0:
+        fail(f"dynamic bundle: the vehicle leaves the view: {bundle}")
+    t0 = time.perf_counter()
+    scene, models = read_dynamic_scene(str(ctx), init_samples=DYN_INIT_SAMPLES, device=dev)
+    read_s = time.perf_counter() - t0
+    ids = [m.model_id for m in models]
+    if ids != [STATIC, "vehicle_0"]:
+        fail(f"dynamic sub-scenes {ids}")
+    subscenes = {}
+    for name, md in zip(("background", "vehicle"), models):
+        px = [int(f.pixel_mask.sum()) for f in md.train_frames + md.test_frames]
+        subscenes[name] = {"train_frames": len(md.train_frames),
+                           "test_frames": len(md.test_frames),
+                           "init_points": int(md.init_points.shape[0]),
+                           "mask_pixels_per_frame": {"min": min(px), "max": max(px),
+                                                     "mean": float(np.mean(px))}}
+    print(f"# dynamic bundle: {json.dumps(bundle)}; read {read_s:.2f} s; "
+          f"{json.dumps(subscenes)}", file=sys.stderr)
+    knn = knn_oracle(dev, models[0].init_points.cpu().numpy(), direct=True)
+    print(f"# dynamic: knn3_mean_sq_dist {knn}", file=sys.stderr)
+    # --- 32-33. each sub-scene's masked steps and test frames ---
+    trained = {}
+    for name, md in zip(("background", "vehicle"), models):
+        trained[name] = train_subscene(dev, name, md)
+        print(f"# dynamic {name}: {json.dumps(trained[name])}", file=sys.stderr)
+    launches = {"K1": sum(t["launches"]["K1"] + t["launches"]["K1_test"]
+                          for t in trained.values()),
+                "K2": sum(t["launches"]["K2"] for t in trained.values())}
+    wall_s = time.perf_counter() - t_all
+    print(f"# dynamic phases 31-33: {wall_s:.1f} s", file=sys.stderr)
+    return {"bundle": bundle, "read_s": read_s, "subscenes": subscenes, "knn3_oracle": knn,
+            "train": trained, "launches": launches, "wall_s": wall_s}
 
 
 if __name__ == "__main__":

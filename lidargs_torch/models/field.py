@@ -209,8 +209,13 @@ def generate_neural_gaussians(
 
         col_in = cat if cfg.add_color_dist else cat_nodist
         if cfg.appearance_dim > 0 and "appearance" in params:
-            app = params["appearance"][cam_uid].expand(Cap, cfg.appearance_dim)
-            app_rd = params["appearance_rd"][cam_uid].expand(Cap, cfg.appearance_dim)
+            # JAX's gather: a negative index counts from the end, and then
+            # any index is clamped into the table (a frame uid beyond the
+            # cameras, as a dynamic sub-scene gives, reads the last row)
+            n_cam = params["appearance"].shape[0]
+            uid = torch.where(cam_uid < 0, cam_uid + n_cam, cam_uid).clamp(0, n_cam - 1)
+            app = params["appearance"][uid].expand(Cap, cfg.appearance_dim)
+            app_rd = params["appearance_rd"][uid].expand(Cap, cfg.appearance_dim)
             col_in_c = torch.cat([col_in, app], 1)
             col_in_r = torch.cat([col_in, app_rd], 1)
         else:

@@ -13,6 +13,12 @@ on a card, 64 MiB on the CPU). A chunk's block is `addmm(|y|^2, x, y^T, alpha=-2
 the k smallest) and then `+ |x|^2`: rounding is monotone, so adding the
 row's constant after the minimum gives the same value as adding it to
 every element first. Nothing here moves a tensor to another device.
+
+`knn3_mean_sq_dist` is the counterpart of the JAX package's native
+`lidargs_tpu.native.knn3_mean_sq_dist` (a grid hash in C++) with its
+semantics instead: squared distances from direct coordinate differences,
+which keep a near neighbour's distance to float32 rounding of its own size
+at any range (no Gram-form cancellation), in chunks of query rows.
 """
 from __future__ import annotations
 
@@ -67,6 +73,43 @@ def mean_sq_dist_3nn(points, chunk=None) -> torch.Tensor:
     own set (the reference's distCUDA2), [N] float32."""
     d2 = knn_sqdist(points, points, k=3, chunk=chunk, exclude_self=True)
     return d2.clamp_min(0.0).mean(1)
+
+
+def knn3_mean_sq_dist(points, chunk=None) -> torch.Tensor:
+    """Mean squared distance to each point's 3 nearest neighbours within its
+    own set, [N] float32 on the device of `points`, as the native grid-hash
+    version computes it: each squared distance is ((dx^2 + dy^2) + dz^2) of
+    the float32 coordinate differences, the point itself is excluded (a
+    duplicate counts as a neighbour at 0), the three smallest are summed in
+    ascending order and divided by 3 even when fewer than three exist, and
+    the result is 0 for N <= 1.
+
+    A chunk is `rows` query rows against all N points: three [rows, N]
+    float32 blocks at a time, `rows` = a quarter of `BLOCK_ELEMS` // N
+    unless `chunk` is given."""
+    p = _f32(points)
+    n = p.shape[0]
+    if n <= 1:
+        return p.new_zeros((n,))
+    k = min(3, n - 1)
+    cols = p.T.contiguous()                                        # [3, N]
+    rows = _rows_per_chunk(p, 4 * n, chunk)
+    out = []
+    for s in range(0, n, rows):
+        q = cols[:, s:s + rows]                                    # [3, B]
+        b = q.shape[1]
+        d2 = torch.square(cols[0][None, :] - q[0][:, None])
+        diff = torch.empty_like(d2)
+        for c in (1, 2):
+            torch.sub(cols[c][None, :], q[c][:, None], out=diff)
+            d2.add_(diff.square_())
+        d2[torch.arange(b, device=p.device), torch.arange(s, s + b, device=p.device)] = torch.inf
+        best = torch.topk(d2, k, dim=1, largest=False, sorted=True).values
+        acc = best[:, 0]
+        for j in range(1, k):
+            acc = acc + best[:, j]
+        out.append(acc / 3.0)
+    return torch.cat(out)
 
 
 def _chamfer_dir(a, a_valid, b, b_valid, chunk=None) -> torch.Tensor:

@@ -19,5 +19,6 @@ from .trainer import (
     frame_loss,
     init_train_state,
     loss_and_grads,
+    make_optimizer,
     train_step,
 )

@@ -59,6 +59,11 @@ def init_train_state(field: AnchorField, mcfg: ModelConfig) -> TrainState:
     )
 
 
+def make_optimizer(ocfg: OptConfig):
+    """The per-group learning-rate schedules that `adam_update` reads."""
+    return lr_schedules(ocfg)
+
+
 class StepMetrics(NamedTuple):
     loss: LossTerms
     n_anchors: torch.Tensor

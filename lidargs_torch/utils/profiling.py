@@ -6,6 +6,8 @@ Counterpart of `lidargs_tpu/utils/profiling.py`:
     when given a result (EMA and percentiles);
   * trace(...): a context manager around torch.profiler that writes a
     Chrome trace of the enclosed block into a directory;
+  * annotate(...): a named span (torch.profiler.record_function), so a
+    pipeline stage shows by name in that trace;
   * TensorBoardLogger and WandbLogger, which stay inactive when their
     package is absent.
 """
@@ -76,6 +78,12 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named span in the profiler trace (torch.profiler.record_function),
+    as a context manager."""
+    return torch.profiler.record_function(name)
 
 
 class TensorBoardLogger:

@@ -10,9 +10,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, RasterConfig
 from ..lidar.beams import uniform_beam_inclinations
 from ..models.field import init_field_params
+from ..ops.projection import Splats, preprocess_gaussians
+from .device import resolve_device
 
 
 class SyntheticScene(NamedTuple):
@@ -56,6 +58,15 @@ def make_scene(seed: int, n: int = 256, H: int = 32, W: int = 256,
         w2s_trans=np.zeros(3, np.float32),
         beams=beams, W=W,
     )
+
+
+def scene_splats(sc: SyntheticScene, cfg: RasterConfig, device="cuda") -> Splats:
+    """The scene's gaussians projected into its sensor (`preprocess_gaussians`)."""
+    dev = resolve_device(device)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return preprocess_gaussians(t(sc.means3d), t(sc.scales), t(sc.quats), t(sc.opacities),
+                                t(sc.feat), t(sc.mask), t(sc.w2s_rot), t(sc.w2s_trans),
+                                t(sc.beams), sc.W, cfg)
 
 
 def shell_anchors(n: int, feat_dim: int, seed: int = 0) -> dict:

@@ -75,3 +75,35 @@ def _write_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IHDR", hdr))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
+
+
+def normals_from_range(depth: np.ndarray, beams: np.ndarray) -> np.ndarray:
+    """[H, W] range image -> [H, W, 3] screen-space normals via central
+    differences of back-projected positions (visualize_utils.py:120-153,
+    adapted to the spherical range-view camera)."""
+    H, W = depth.shape
+    rows = np.arange(H)
+    cols = np.arange(W)
+    alpha = np.asarray(beams)[H - 1 - rows][:, None]
+    beta = -(cols[None, :] - W / 2.0) / W * 2.0 * np.pi
+    d = np.asarray(depth, np.float64)
+    x = d * np.cos(alpha) * np.cos(beta)
+    y = d * np.cos(alpha) * np.sin(beta)
+    z = d * np.sin(alpha)
+    p = np.stack([x, y, z], -1)
+    du = np.zeros_like(p)
+    dv = np.zeros_like(p)
+    du[:, 1:-1] = p[:, 2:] - p[:, :-2]
+    dv[1:-1, :] = p[2:, :] - p[:-2, :]
+    n = np.cross(du, dv)
+    norm = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = n / np.maximum(norm, 1e-12)
+    # orient toward the sensor
+    flip = np.sum(n * p, axis=-1, keepdims=True) > 0
+    n = np.where(flip, -n, n)
+    n[d <= 0] = 0.0
+    return n
+
+
+def normal_to_rgb(normals: np.ndarray) -> np.ndarray:
+    return (normals + 1.0) * 0.5

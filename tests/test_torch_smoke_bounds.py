@@ -280,11 +280,11 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  SURFEL_RASTER=dict(tile_h=1, tile_capacity=64, max_tiles_per_gaussian=32,
                                     max_visible=2048),
                  OPT=dict(start_stat=0, update_from=0, update_interval=2, update_until=10 ** 6),
-                 # the CLI phases: a 16x128 street (LPIPS needs 16 rows) of 42
-                 # frames (the fewest with the 4 test frames), of which the CLI
+                 # the CLI phases: a 16x128 street (LPIPS needs 16 rows) of 50
+                 # frames (the dynamic reader's scene size), of which the CLI
                  # reads the first 12 (11 train, test frame 0), a field of at
                  # most 4,096 anchors; 2 refiner epochs
-                 CLI_SCENE=dict(n_frames=42, H=16, W=128, seed=0), CLI_NUM_FRAMES=12,
+                 CLI_SCENE=dict(n_frames=50, H=16, W=128, seed=0), CLI_NUM_FRAMES=12,
                  REFINE_EPOCHS=2, REFINE_TIMED=1,
                  CLI_VOXEL="1.0",
                  CLI_EXTRA=["--anchor_capacity", "4096", "--max_visible", "4096",
@@ -292,7 +292,12 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  CLI_ITERS=4, CLI_SURFEL_ITERS=2, CLI_LOG_EVERY=2, CLI_PROFILE_STEPS=1,
                  KNN_POINTS=3000,
                  # phases 27-30: two-rank gloo fleets on the CPU, short runs
-                 SURFEL_DP_STEPS=1, DP_RATE_STEPS=1, RENDER_TIMED=2, CLI_DP_ITERS=2)
+                 SURFEL_DP_STEPS=1, DP_RATE_STEPS=1, RENDER_TIMED=2, CLI_DP_ITERS=2,
+                 # phases 31-33: 3,000 init points, 6 masked steps a sub-scene
+                 DYN_INIT_SAMPLES=3000, DYN_STEPS=6, DYN_TIMED=1,
+                 DYN_VOXEL={"background": 1.0, "vehicle": 0.3},
+                 DYN_CAPACITY={"background": 4096, "vehicle": 512},
+                 DYN_MIN_ANCHORS={"background": 100, "vehicle": 5})
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
@@ -390,3 +395,18 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert cdp["one_process"]["steps"] == 2 and cdp["fleet"]["steps"] == [2, 2]
     assert cdp["fleet"]["launches_per_step"] == [1, 1] and cdp["fleet"]["snapshot_anchors"] > 0
     assert "outputs.p1.log" in cdp["fleet"]["files"]
+    # phases 31-33: a background and a vehicle sub-scene of 46 + 4 frames,
+    # 6 masked steps each (one K1 and K2 launch a step) and 4 test renders,
+    # the exact 3-NN held to the k-d tree
+    dyn = timing["dynamic"]
+    assert dyn["bundle"]["frames"] == 50 and min(dyn["bundle"]["vehicle_pixels_per_frame"]) > 0
+    assert dyn["knn3_oracle"]["points"] == 3000 and dyn["knn3_oracle"]["max_err_over_tol"] <= 1
+    for name in ("background", "vehicle"):
+        sub = dyn["subscenes"][name]
+        assert (sub["train_frames"], sub["test_frames"]) == (46, 4)
+        t = dyn["train"][name]
+        assert t["launches"] == {"K1": 6, "K2": 6, "K1_test": 4}
+        assert t["loss_last_mean"] < t["loss_first_mean"] and t["densify"] is not None
+        assert all(a["pixels"] > 0 for a in t["test_after"])
+    assert dyn["launches"] == {"K1": 20, "K2": 12}
+    assert kernels[0]["launches_dynamic"] == 20 and kernels[1]["launches_dynamic"] == 12

@@ -162,7 +162,23 @@ then:
      gradients) against the plain versions;
  33. renders each sub-scene's four test frames (one K1 launch each) and
      reports depth L1 and intensity PSNR over each frame's mask, before and
-     after training.
+     after training;
+ 34. runs the step and the render as CUDA graphs against eager
+     (`graph_phases`): `Trainer(graphed=True)` and `Trainer(graphed=False)`
+     train GRAPH_STEPS steps of the beam and the surfel variant and of a
+     masked vehicle-style field from one state, with a densify at half and
+     the statistics off for the last quarter; every TrainState leaf and the
+     render must agree bit for bit (or within a second eager run's spread
+     from the first); one eager and one graphed step and frame run under
+     `torch.cuda.set_sync_debug_mode` and must not synchronize with the
+     card; graph and eager ms a step and a frame (CUDA events, median of
+     GRAPH_TIMED after 3 warm-ups), device ms, launches and runtime calls
+     (torch.profiler), and the graph pool's bytes, also of one beam step at
+     the CLI's capacity 2**17.
+
+`Trainer`, `measure_fps` and `run_eval` replay CUDA graphs on the card by
+default, so phases 1-2, 7-9, 12, 15-24 and 31-33 run graphed steps and
+renders (a graph replay adds its captured launches to the counts).
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -329,6 +345,14 @@ DYN_VEHICLE = dict(length=4.5, width=2.0, height=1.6, y=-3.3, x0=8.0, speed=1.0,
 DYN_INIT_SAMPLES = 500_000    # the background's init points (the reader's default)
 DYN_STEPS = 100               # masked training steps of each sub-scene, a densify at half
 DYN_TIMED = 10                # steps timed after warm-up
+# the step and the render as CUDA graphs (phase 34): steps from one state,
+# eager and graphed, a densify at half and the statistics off for the last
+# quarter; the vehicle-style field (a 1,339-anchor sub-scene in a 4,096
+# capacity, as phase 32's vehicle) trains masked
+GRAPH_STEPS = {"beam": 20, "surfel": 10, "masked": 10}
+GRAPH_TIMED = 20              # graphed and eager steps and frames timed after warm-up
+GRAPH_VEHICLE = dict(anchors=1_339, capacity=4_096)
+GRAPH_CLI_CAPACITY = 2 ** 17  # the CLI's anchor capacity, for the graph pool's bytes
 DYN_VOXEL = {"background": 0.2, "vehicle": 0.1}
 DYN_CAPACITY = {"background": 65_536, "vehicle": 4_096}
 DYN_MIN_ANCHORS = {"background": 10_000, "vehicle": 200}
@@ -935,6 +959,9 @@ def run(dev) -> None:
     windows, k3, k4 = window_phases(dev, params, valid, mcfg, beams, frames, "beam")
     surfel_windows, k7, k8 = window_phases(dev, params, valid, mcfg, beams, frames, "surfel")
 
+    # --- 34. the step and the render as CUDA graphs against eager ---
+    graphs = graph_phases(dev, params, valid, mcfg, beams)
+
     # --- 27-29. data-parallel steps in one process and in a fleet, the sharded render ---
     dp, dp_launches = dp_phases(dev, params, valid, mcfg, rcfg, beams, res.outputs[0],
                                 frames[0], train)
@@ -965,6 +992,7 @@ def run(dev) -> None:
         "surfel": surfel,
         "windows": windows,
         "surfel_windows": surfel_windows,
+        "graphs": graphs,
         "cli": cli,
         "dp": dp,
         "dynamic": dynamic,
@@ -2050,6 +2078,244 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
         fail(f"LPIPS on the card against the CPU: {evals['lpips_frame']}")
     print(f"# refined eval: {json.dumps(evals)}", file=sys.stderr)
     return {"dump": dump, "refine": refine, "eval": evals}
+
+
+# --- phase 34: the training step and the render as CUDA graphs ---
+
+def sync_checked(fn, label: str):
+    """Run `fn` under `torch.cuda.set_sync_debug_mode("warn")` and fail if
+    anything in it synchronized with the card, naming each place; a
+    synchronization in a backward pass (reported at the autograd engine) is
+    located by running `fn` again in "error" mode under autograd's anomaly
+    detection, which names the forward call of the node at fault."""
+    import traceback
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if syncs:
+        where = ""
+        with torch.autograd.set_detect_anomaly(True):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            except RuntimeError:
+                where = traceback.format_exc()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        fail(f"{label} synchronizes with the card {len(syncs)} times: {syncs}\n{where}")
+    return out
+
+
+def pool_bytes(pool):
+    """Bytes the caching allocator holds in the graph memory pool `pool`
+    (it keeps what a capture took while the graphs live: the pool's peak),
+    or "not measured" where the snapshot does not name the pools."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segs):
+        return "not measured"
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def masked_frames(frames) -> list:
+    """The frames with a vehicle-style pixel mask: every row of a band of
+    W // 20 columns that moves from frame to frame."""
+    import torch
+
+    from lidargs_torch.lidar import LidarFrame
+
+    out = []
+    for i, f in enumerate(frames):
+        w = max(f.W // 20, 1)
+        c0 = (i * 97) % max(f.W - w, 1)
+        cols = torch.arange(f.W, device=f.device)
+        mask = ((cols >= c0) & (cols < c0 + w))[None, :].expand(f.H, f.W).contiguous()
+        out.append(LidarFrame(f.w2s_rot, f.w2s_trans, f.center, f.beams, f.gt_image, f.uid,
+                              mask))
+    return out
+
+
+def state_gap(a, b) -> dict:
+    """Two TrainStates leaf by leaf: bit-equal or not, the largest |a - b|
+    and the leaves that differ."""
+    from lidargs_torch.train.trainer import state_leaves
+
+    names = [f"leaf{i}" for i in range(len(state_leaves(a)))]
+    diff = {}
+    for n, x, y in zip(names, state_leaves(a), state_leaves(b)):
+        if not (x.shape == y.shape and bool((x == y).all())):
+            d = (x.double() - y.double()).abs()
+            diff[n] = float(d.max()) if d.numel() else 0.0
+    return {"bit_equal": not diff, "max_abs": max(diff.values(), default=0.0),
+            "leaves_differing": diff}
+
+
+def graph_steps(trainer, state, frames, n: int, dev):
+    """`n` steps of `trainer` from `state`, a densify after step n // 2:
+    (a clone of the final state, the losses, the K1/K2/K5/K6 launches)."""
+    import torch
+
+    from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.train.trainer import clone_state
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ck.launches = ck.bwd_launches = sk.launches = sk.bwd_launches = 0
+    losses = []
+    for it in range(1, n + 1):
+        state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
+        losses.append(m.loss.total)
+        if it == n // 2:
+            if not trainer.should_densify(int(state.valid.sum()), it):
+                fail(f"phase 34: the densify cadence does not fire at step {it}")
+            state, _ = trainer.densify(state, gen, VOXEL)
+    launches = {"K1": ck.launches, "K2": ck.bwd_launches, "K5": sk.launches,
+                "K6": sk.bwd_launches}
+    return clone_state(state), [float(x) for x in losses], launches
+
+
+def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str) -> dict:
+    """Phase 34 for one kind of step: eager and graphed `Trainer`s train
+    GRAPH_STEPS[name] steps from one state (a densify at half, the
+    statistics off for the last quarter); the graphed state against the
+    eager one leaf by leaf (bit for bit, or within a second eager run's
+    spread from the first); the graphed render against the eager one; each
+    step and frame checked for synchronization with the card; times (CUDA
+    events) and profiles of the graphed and eager step and frame; the graph
+    pool's bytes."""
+    import numpy as np
+    import torch
+
+    from lidargs_torch.config import OptConfig
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.train import Trainer, init_train_state
+
+    n = GRAPH_STEPS[name]
+    extra = dict(dist_from=0, normal_from=0) if variant == "surfel" else {}
+    ocfg = OptConfig(start_stat=0, update_from=0, update_interval=n // 2,
+                     update_until=n - n // 4, **extra)
+    bg = torch.zeros(2, device=dev)
+    make = lambda graphed: Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, variant=variant,
+                                   graphed=graphed)
+    state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
+    k_fwd, k_bwd = ("K5", "K6") if variant == "surfel" else ("K1", "K2")
+
+    eager, graphed = make(False), make(True)
+    # one eager step and one eager frame with the card's synchronizations
+    # reported (after one untimed step: first calls build what they need)
+    eager.step(state0, frames[0], 1)
+    sync_checked(lambda: eager.step(state0, frames[0], 1), f"an eager {name} step")
+    with torch.no_grad():
+        sync_checked(lambda: eager.render(state0.params, state0.valid, frames[0]),
+                     f"an eager {name} frame")
+    e1, loss_e, launch_e = graph_steps(eager, state0, frames, n, dev)
+    g, loss_g, launch_g = graph_steps(graphed, state0, frames, n, dev)
+    if launch_g[k_fwd] != n or launch_g[k_bwd] != n:
+        fail(f"phase 34: {n} graphed {name} steps launched {launch_g}")
+    gap = state_gap(g, e1)
+    out = {"steps": n, "densify_after": n // 2, "stats_until": ocfg.update_until,
+           "launches_graphed": launch_g, "launches_eager": launch_e,
+           "loss_first": loss_g[0], "loss_last": loss_g[-1],
+           "losses_equal": loss_g == loss_e, "graph_vs_eager": gap}
+    if not gap["bit_equal"]:
+        # eager's own spread: a second eager run from the same state
+        e2, *_ = graph_steps(make(False), state0, frames, n, dev)
+        spread = state_gap(e2, e1)
+        out["eager_vs_eager"] = spread
+        over = {k: v for k, v in gap["leaves_differing"].items()
+                if v > spread["leaves_differing"].get(k, 0.0)}
+        if over:
+            fail(f"phase 34: graphed {name} state differs from eager beyond eager's own "
+                 f"spread: {over} (spread {spread['leaves_differing']})")
+
+    # the render: graphed against eager, on the trained state
+    with torch.no_grad():
+        r_g = graphed.render(g.params, g.valid, frames[1])
+        r_e = eager.render(g.params, g.valid, frames[1])
+    out["render_bit_equal"] = all(torch.equal(a, b) for a, b in zip(r_g, r_e)
+                                  if a is not None)
+    if not out["render_bit_equal"]:
+        fail(f"phase 34: the graphed {name} render differs from the eager one")
+
+    # the graphed step and frame do not synchronize either
+    held = {"g": graphed.step(g, frames[0], 1)[0], "e": g}
+
+    def step_of(tr_, key):
+        def one_step():
+            held[key] = tr_.step(held[key], frames[0], 1)[0]
+        return one_step
+
+    sync_checked(step_of(graphed, "g"), f"a graphed {name} step")
+    with torch.no_grad():
+        sync_checked(lambda: graphed.render(g.params, g.valid, frames[0]),
+                     f"a graphed {name} frame")
+        frame_of = lambda tr_: (lambda: tr_.render(g.params, g.valid, frames[0]))
+        ms = {"graph_step": time_ms(step_of(graphed, "g"), GRAPH_TIMED, 3),
+              "eager_step": time_ms(step_of(eager, "e"), GRAPH_TIMED, 3),
+              "graph_frame": time_ms(frame_of(graphed), GRAPH_TIMED, 3),
+              "eager_frame": time_ms(frame_of(eager), GRAPH_TIMED, 3)}
+        prof = {"graph_step": profile_render(step_of(graphed, "g"), frames=3),
+                "eager_step": profile_render(step_of(eager, "e"), frames=3),
+                "graph_frame": profile_render(frame_of(graphed), frames=3),
+                "eager_frame": profile_render(frame_of(eager), frames=3)}
+    for k, v in ms.items():
+        out[f"{k}_ms_median"] = float(np.median(v))
+        out[f"{k}_ms_min"], out[f"{k}_ms_max"] = min(v), max(v)
+        p = prof[k]
+        out[f"{k}_device_ms"] = p["device_ms_per_frame"]
+        out[f"{k}_launches"] = p.get("device_launches_per_frame", "not measured")
+        out[f"{k}_runtime_calls"] = p.get("runtime_calls_per_frame")
+        if isinstance(p["device_ms_per_frame"], float):
+            out[f"{k}_device_busy_share"] = p["device_ms_per_frame"] / out[f"{k}_ms_median"]
+    out["pool_bytes"] = pool_bytes(graphed.graph_pool(dev))
+    print(f"# phase 34 {name}: {json.dumps(out)}", file=sys.stderr)
+    return out
+
+
+def graph_phases(dev, params, valid, mcfg, beams) -> dict:
+    """Phase 34: the beam, surfel and masked vehicle-style steps and their
+    renders as CUDA graphs against eager (`graph_phase`), and the graph
+    pool's bytes of one beam step at the CLI's anchor capacity."""
+    import torch
+
+    from lidargs_torch.config import ModelConfig, OptConfig, RasterConfig
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.train import Trainer, init_train_state
+    from lidargs_torch.utils.testing import shell_field
+
+    frames = train_frames(dev, beams, max(GRAPH_STEPS.values()))
+    rcfg, srcfg = RasterConfig(**RASTER), RasterConfig(**SURFEL_RASTER)
+    out = {"beam": graph_phase(dev, "beam", params, valid, mcfg, rcfg, frames, "beam"),
+           "surfel": graph_phase(dev, "surfel", params, valid, mcfg, srcfg, frames,
+                                 "surfel")}
+    vcfg = ModelConfig(**{**MODEL, "anchor_capacity": GRAPH_VEHICLE["capacity"]})
+    vparams, vvalid = shell_field(vcfg, GRAPH_VEHICLE["anchors"], seed=5, device=dev)
+    out["masked"] = graph_phase(dev, "masked", vparams, vvalid, vcfg, rcfg,
+                                masked_frames(frames), "beam")
+    out["masked"].update(anchors=GRAPH_VEHICLE["anchors"], capacity=GRAPH_VEHICLE["capacity"])
+
+    # the pool of one graphed beam step at the CLI's capacity
+    ccfg = ModelConfig(**{**MODEL, "anchor_capacity": GRAPH_CLI_CAPACITY})
+    cparams, cvalid = shell_field(ccfg, N_ANCHORS, seed=0, device=dev)
+    tr = Trainer(mcfg=ccfg, ocfg=OptConfig(**OPT), rcfg=rcfg,
+                 bg=torch.zeros(2, device=dev))
+    tr.step(init_train_state(AnchorField(params=cparams, valid=cvalid, voxel_size=VOXEL),
+                             ccfg), frames[0], 1)
+    out["cli_capacity_pool"] = {"capacity": GRAPH_CLI_CAPACITY, "anchors": N_ANCHORS,
+                                "pool_bytes": pool_bytes(tr.graph_pool(dev))}
+    return out
 
 
 # --- phases 27-30: data-parallel and multi-process training, the sharded render ---

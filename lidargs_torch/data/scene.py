@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -38,13 +38,14 @@ class Scene:
     model_path: str
 
     @classmethod
-    def create(cls, cfg: TrainConfig, load_iteration: Optional[int] = None, seed: int = 0,
-               init_ply: Optional[str] = None, device="cuda",
+    def create(cls, cfg: TrainConfig, load_iteration: Optional[Union[int, str]] = None,
+               seed: int = 0, init_ply: Optional[str] = None, device="cuda",
                write_init: bool = True) -> "Scene":
         """Read the dataset and build the field: from the snapshot of
-        `load_iteration`, else from the `init_ply` point cloud (the
-        --warmup restart), else from the fused frames' init cloud, which is
-        written to `points3d.ply` (unless `write_init` is False: a fleet's
+        `load_iteration` (an iteration, or "best" for
+        `point_cloud/iteration_best`), else from the `init_ply` point cloud
+        (the --warmup restart), else from the fused frames' init cloud, which
+        is written to `points3d.ply` (unless `write_init` is False: a fleet's
         ranks other than the coordinator). The heads are drawn from a
         generator seeded with `cfg.seed`; `seed` seeds the init cloud's
         sample."""

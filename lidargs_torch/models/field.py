@@ -23,7 +23,7 @@ import torch.utils.checkpoint
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, visible_filter
+from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, unit_x, visible_filter
 from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
 from ..ops.surfel import SurfelOut, preprocess_surfels, render_surfels
 from ..utils.device import resolve_device
@@ -233,7 +233,7 @@ def generate_neural_gaussians(
     scaling = scaling_all[:, None, 3:] * torch.sigmoid(scale_rot[..., :3])
     q = scale_rot[..., 3:7]
     qn2 = (q * q).sum(-1, keepdim=True)
-    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    unit = unit_x(4, q.dtype, q.device)
     rot = torch.where(qn2 > 0, q, unit) / torch.sqrt(
         torch.where(qn2 > 0, qn2, torch.ones_like(qn2)))
 

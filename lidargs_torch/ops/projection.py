@@ -28,6 +28,13 @@ from ..config import RasterConfig
 _TWO_PI = 2.0 * math.pi
 
 
+def unit_x(n: int, dtype, device) -> torch.Tensor:
+    """[n] (1, 0, ..., 0), made on `device` by a kernel: a tensor built from
+    Python data would be a host-to-device copy, which a CUDA graph cannot
+    hold."""
+    return torch.eye(n, dtype=dtype, device=device)[0]
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] (r, x, y, z) -> [..., 3, 3] rotation matrix. The caller
     normalizes."""
@@ -127,7 +134,7 @@ def preprocess_gaussians(
     # singular op, as in the JAX package
     sq = (p_view_raw * p_view_raw).sum(-1)
     mask = mask & (sq > 0.0)
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=p_view_raw.dtype, device=means3d.device)
+    e_x = unit_x(3, p_view_raw.dtype, means3d.device)
     p_view = torch.where(mask[..., None], p_view_raw, e_x)
     dist = torch.sqrt((p_view * p_view).sum(-1))
     valid = mask & (dist < cfg.far) & (dist > cfg.near)
@@ -173,7 +180,7 @@ def preprocess_gaussians(
     p_r = H - row - 1.0
 
     # tan of the column pitch in f32, as jnp.tan of the weak-typed scalar
-    tan_col = torch.tan(torch.tensor(_TWO_PI / W, dtype=f32, device=means3d.device))
+    tan_col = torch.tan(torch.full((), _TWO_PI / W, dtype=f32, device=means3d.device))
     r_y = torch.ceil(3.0 * sigma / torch.tan(gap.abs()))
     r_x = torch.ceil(3.0 * sigma / tan_col)
 
@@ -271,7 +278,7 @@ def _pg_hv_bwd(means3d, scales, quats, mask, w2s_rot, w2s_trans, beams, W: int,
     p_view_raw = means3d @ w2s_rot.T + w2s_trans
     sq = (p_view_raw * p_view_raw).sum(-1)
     mask2 = mask & (sq > 0.0)
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=means3d.device)
+    e_x = unit_x(3, dt, means3d.device)
     p_view = torch.where(mask2[..., None], p_view_raw, e_x)
     dist = torch.sqrt((p_view * p_view).sum(-1))
     valid = mask2 & (dist < cfg.far) & (dist > cfg.near)
@@ -315,7 +322,7 @@ def _pg_hv_bwd(means3d, scales, quats, mask, w2s_rot, w2s_trans, beams, W: int,
     beta = math.pi - torch.atan2(p_flat[..., 1], p_flat[..., 0])
     p_c = beta / (two_pi / W)
     p_r = H - row - 1.0
-    tan_col = torch.tan(torch.tensor(two_pi / W, dtype=torch.float32, device=means3d.device))
+    tan_col = torch.tan(torch.full((), two_pi / W, dtype=torch.float32, device=means3d.device))
     r_y = torch.ceil(3.0 * sigma / torch.tan(gap.abs()))
     r_x = torch.ceil(3.0 * sigma / tan_col.to(dt))
     bx, by = cfg.ref_block_x, cfg.ref_block_y

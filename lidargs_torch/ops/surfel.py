@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..config import RasterConfig
 from .composite import pixel_rays
-from .projection import _project_rows, quat_to_rotmat
+from .projection import _project_rows, quat_to_rotmat, unit_x
 from .rasterize import (_pix_blocks, _tile_pixels, bin_instances, permutation_rows,
                         window_inputs)
 
@@ -103,7 +103,7 @@ def preprocess_surfels(
     C = feat.shape[-1]
     dev = means3d.device
     rda = cfg.surfel_ray_divergence_angle
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    e_x = unit_x(3, torch.float32, dev)
 
     tw_raw = means3d @ w2s_rot.T + w2s_trans                       # [P,3]
     sq = (tw_raw * tw_raw).sum(-1)

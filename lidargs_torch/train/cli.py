@@ -9,9 +9,14 @@ Counterpart of `lidargs_tpu/train/cli.py` on one device (the card unless
 (Python's `random.Random(seed)`), and the same files (`cfg_args.json`,
 `outputs.log`, `points3d.ply`, `point_cloud/iteration_<it>/`,
 `chkpnt<it>.npz`, `results.json`, `per_view.json`, `test_renders/`,
-`renders/`), which either package loads. The step runs eager on the card:
-kernels K1 and K2 per beam step, K5 and K6 with `--surfel`, and their
-window forms (K3/K4, K7/K8) with `--fused_gather`.
+`renders/`), which either package loads. On the card the step replays as
+one CUDA graph with the state donated, and every render (evaluation, FPS,
+PNGs, dumps) as another (`train/graphs.py`, the counterparts of JAX's
+jitted `train_step` and renders): kernels K1 and K2 per beam step, K5 and
+K6 with `--surfel`, and their window forms (K3/K4, K7/K8) with
+`--fused_gather`. The data-parallel step stays eager (`parallel/shard.py`).
+`--load_iteration best` evaluates the best test-PSNR snapshot
+(`point_cloud/iteration_best`).
 
 The offline ray-drop refiner trains on the `--dump_renders` output, and an
 evaluation then applies it and adds LPIPS:
@@ -102,6 +107,12 @@ def _check_flags(args) -> None:
                          "of lidargs_torch have none")
 
 
+def _iteration(value: str):
+    """A snapshot's name: an iteration, or `best` (the best test-PSNR
+    snapshot that training saves as `point_cloud/iteration_best`)."""
+    return value if value == "best" else int(value)
+
+
 def build_config(argv=None):
     from ..config import (
         DataConfig, ModelConfig, OptConfig, ParallelConfig, RasterConfig, TrainConfig, replace,
@@ -186,9 +197,9 @@ def build_config(argv=None):
                         "(used by --warmup phase 2)")
     p.add_argument("--warmup", action="store_true",
                    help="two-phase restart: train, then re-train from the saved PLY")
-    p.add_argument("--load_iteration", type=int, default=None,
-                   help="eval-only: load a saved snapshot, run the metric sweep + FPS, "
-                        "save test renders as PNGs")
+    p.add_argument("--load_iteration", type=_iteration, default=None,
+                   help="eval-only: load a saved snapshot (an iteration, or `best`), run "
+                        "the metric sweep + FPS, save test renders as PNGs")
     p.add_argument("--tensorboard", action="store_true",
                    help="log scalars/images to <model_path>/tb")
     p.add_argument("--wandb", default=None, metavar="PROJECT",
@@ -428,6 +439,12 @@ def main(argv=None):
                      run_name=os.path.basename(cfg.model_path), config=vars(args))
     timer = StepTimer().start()
     profile_ctx = None
+    # the trace leaves out the first step, and the first step of the
+    # statistics mode that starts inside its window: a graphed step captures
+    # its graph (eager warm-up steps included) on its key's first call
+    prof_at = first_iter + 2
+    if prof_at <= cfg.opt.start_stat + 1 < prof_at + args.profile_steps:
+        prof_at = cfg.opt.start_stat + 2
 
     rng = random.Random(cfg.seed)
     frame_stack = None
@@ -436,7 +453,7 @@ def main(argv=None):
     t_start = time.time()
     best_test_psnr, best_test_it = float("-inf"), 0
     for it in range(first_iter + 1, cfg.opt.iterations + 1):
-        if args.profile_steps and it == first_iter + 2 and is_coord:   # after the first step
+        if args.profile_steps and it == prof_at and is_coord:
             profile_ctx = trace(os.path.join(cfg.model_path, "trace"))
             profile_ctx.__enter__()
         if mesh is not None:
@@ -450,7 +467,7 @@ def main(argv=None):
                 frame_stack = list(range(len(scene.data.train_frames)))
             frame = scene.data.train_frames[frame_stack.pop(rng.randint(0, len(frame_stack) - 1))]
         state, metrics = trainer.step(state, frame, it)
-        if profile_ctx is not None and it >= first_iter + 1 + args.profile_steps:
+        if profile_ctx is not None and it >= prof_at - 1 + args.profile_steps:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             profile_ctx.__exit__(None, None, None)

@@ -6,7 +6,10 @@ taking the field (params + anchor mask) and the frames directly; the CLI's
 render path, as the JAX package's `Trainer.render` dispatches it:
 `render_field` for `variant="beam"` (the default), `render_field_surfel`
 for `variant="surfel"`; on the card unless the caller passes
-`device="cpu"`. `run_eval` also takes the ray-drop refiner and the LPIPS
+`device="cpu"`. On the card each replays the render as one CUDA graph
+(`train/graphs.py` `RenderGraphs`, the counterpart of the CLI's jitted
+renders), captured at the first frame and replayed for every frame; on the
+CPU each renders eagerly. `run_eval` also takes the ray-drop refiner and the LPIPS
 distance as callables, which the CLI builds from their weights files.
 """
 from __future__ import annotations
@@ -22,10 +25,10 @@ import torch
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import render_fn
 from ..ops.rasterize import RenderOut
 from ..ops.surfel import SurfelOut
 from ..utils.device import resolve_device
+from .graphs import RenderGraphs
 from .metrics import evaluate_frame, mean_metrics
 
 log = logging.getLogger(__name__)
@@ -52,17 +55,19 @@ def measure_fps(params: dict, valid: torch.Tensor, frames: List[LidarFrame],
                 warmup: int = 5, device="cuda", variant: str = "beam") -> FpsResult:
     """Per-frame wall clock of the render, each frame ending in a device
     synchronize; the rate is the mean of 1/t over the frames after the
-    first `warmup`. `variant` picks the render path ("beam" or "surfel")."""
+    first `warmup`, whose times hold the graph's capture on the card, as
+    JAX's hold its compile. `variant` picks the render path ("beam" or
+    "surfel"). Each frame's outputs are its own (cloned from the graph's)."""
     if len(frames) <= warmup:
         raise ValueError(f"{len(frames)} frames leave none after {warmup} warmup frames")
-    render = render_fn(variant)
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
+    render = RenderGraphs(variant, mcfg, rcfg, bg)
     frames = [fr.to(dev) for fr in frames]
     ts, outs = [], []
     for fr in frames:
         t0 = time.perf_counter()
-        out = render(params, valid, fr, mcfg, rcfg, bg)[0]
+        out = render(params, valid, fr)
         _sync(dev)
         ts.append(time.perf_counter() - t0)
         outs.append(out)
@@ -87,9 +92,9 @@ def run_eval(params: dict, valid: torch.Tensor,
     raydrop] before it is scored (the ray-drop refiner); `lpips_fn(a, b)`
     adds `intensity_lpips`, the distance of the clipped intensity render
     from the GT intensity under the GT hit mask."""
-    render = render_fn(variant)
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
+    render = RenderGraphs(variant, mcfg, rcfg, bg)
     results = {}
     for name, frames in splits.items():
         if not frames:
@@ -99,7 +104,7 @@ def run_eval(params: dict, valid: torch.Tensor,
         for fr in frames:
             fr = fr.to(dev)
             with torch.no_grad():
-                out = render(params, valid, fr, mcfg, rcfg, bg)[0]
+                out = render(params, valid, fr)
                 color = out.color if refine is None else refine(out.color, out.depth)
                 pv = evaluate_frame(color, out.depth, fr.gt_image, fr.beams,
                                     depth_min=depth_min, depth_max=depth_max,

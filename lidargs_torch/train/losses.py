@@ -82,6 +82,45 @@ class LossTerms(NamedTuple):
     ssim_intensity: torch.Tensor
 
 
+class _ProdLast(torch.autograd.Function):
+    """`torch.prod(x, dim=-1)` with `torch.prod`'s gradient, bit for bit,
+    computed on the device alone. PyTorch's backward of `prod` reads its
+    count of zero factors back to the host to pick a formula, which a CUDA
+    graph cannot hold; here both formulas run and a `where` on the device
+    picks PyTorch's: `g * (prod / x)` where no factor is zero, else the
+    products of the other factors (exclusive products from both ends).
+    Those are written out, not `cumprod`s: a `cumprod` over a last dimension
+    of 2 or 3 runs one scan a row on the card, slower than the rest of the
+    step's loss. With at most 3 factors (the scales: 3 beam, 2 surfel) each
+    exclusive product has at most two, so any order of multiplication gives
+    `cumprod`'s bits; more factors are refused."""
+
+    @staticmethod
+    def forward(ctx, x):
+        if x.shape[-1] > 3:
+            raise ValueError(f"prod_last takes at most 3 factors, got {x.shape[-1]}")
+        out = torch.prod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        g, out = g.unsqueeze(-1), out.unsqueeze(-1)
+        n = x.shape[-1]
+        left, right = [torch.ones_like(x[..., 0])], [torch.ones_like(x[..., 0])]
+        for i in range(n - 1):
+            left.append(left[-1] * x[..., i])
+            right.append(right[-1] * x[..., n - 1 - i])
+        others = torch.stack(left, -1) * torch.stack(right[::-1], -1)
+        return torch.where((x == 0).any(), g * others, g * (out / x))
+
+
+def prod_last(x: torch.Tensor) -> torch.Tensor:
+    """The product over the last dimension (`_ProdLast`)."""
+    return _ProdLast.apply(x)
+
+
 def lidar_losses(
     render_color: torch.Tensor,   # [2,H,W] intensity, raydrop
     render_depth: torch.Tensor,   # [H,W]
@@ -118,7 +157,7 @@ def lidar_losses(
 
     mask_f = scaling_mask.to(scaling.dtype)
     n_sel = mask_f.sum().clamp_min(1.0)
-    scaling_reg = scale_reg * torch.sum(torch.prod(scaling, dim=-1) * mask_f) / n_sel
+    scaling_reg = scale_reg * torch.sum(prod_last(scaling) * mask_f) / n_sel
 
     pred_gx = torch.abs(depth[:, :, :-1] - depth[:, :, 1:])
     gt_gx = torch.abs(gt_depth[:, :, :-1] - gt_depth[:, :, 1:])

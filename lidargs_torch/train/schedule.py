@@ -3,7 +3,8 @@ get_expon_lr_func). Counterpart of `lidargs_tpu/train/schedule.py`.
 
 A schedule maps the step (a Python int or a tensor) to a float32 scalar
 tensor on the step's device, so the optimizer reads it without a host
-round trip."""
+round trip. The constants are filled on that device by a kernel, never
+copied from the host, so a CUDA graph can hold the step."""
 from __future__ import annotations
 
 import math
@@ -27,8 +28,8 @@ def expon_lr(s: LrSchedule):
 
     def fn(step):
         step = _as_step(step)
-        log_init = torch.log(torch.tensor(s.init, dtype=_F32, device=step.device))
-        log_final = torch.log(torch.tensor(s.final, dtype=_F32, device=step.device))
+        log_init = torch.log(torch.full((), s.init, dtype=_F32, device=step.device))
+        log_final = torch.log(torch.full((), s.final, dtype=_F32, device=step.device))
         if s.delay_steps > 0:
             delay = s.delay_mult + (1 - s.delay_mult) * torch.sin(
                 0.5 * math.pi * torch.clamp(step / s.delay_steps, 0.0, 1.0))
@@ -42,4 +43,4 @@ def expon_lr(s: LrSchedule):
 
 
 def const_lr(value: float):
-    return lambda step: torch.tensor(value, dtype=_F32, device=_as_step(step).device)
+    return lambda step: torch.full((), value, dtype=_F32, device=_as_step(step).device)

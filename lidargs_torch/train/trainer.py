@@ -1,13 +1,19 @@
 """Training step and its orchestration: render -> 5-term loss -> backward -> Adam,
 plus the densification statistics.
 
-Counterpart of `lidargs_tpu/train/trainer.py`, for both variants. The step
-is eager PyTorch. The beam variant composites through kernels K1 and K2 on
-the card (`ops/composite_kernel.py`) and projects through its hand VJP; the
-surfel (2DGS) variant (`variant="surfel"`) composites through K5 and K6
-(`ops/surfel_kernel.py`), differentiates its preprocess with autograd and
-adds the distortion and normal-consistency regularizers, each gated on the
-step. Densify and prune run between steps (`models/densify.py`).
+Counterpart of `lidargs_tpu/train/trainer.py`, for both variants.
+`train_step` is eager PyTorch. The beam variant composites through kernels
+K1 and K2 on the card (`ops/composite_kernel.py`) and projects through its
+hand VJP; the surfel (2DGS) variant (`variant="surfel"`) composites through
+K5 and K6 (`ops/surfel_kernel.py`), differentiates its preprocess with
+autograd and adds the distortion and normal-consistency regularizers, each
+gated on the step. Densify and prune run between steps
+(`models/densify.py`), eagerly.
+
+On a card, `Trainer.step` replays `train_step` as one CUDA graph with the
+state donated (`StepGraphs`, the counterpart of JAX's `jax.jit(train_step,
+donate_argnums=(0,))`), and `Trainer.render` replays the render as one
+(`train/graphs.py`). `Trainer(graphed=False)` runs both eagerly.
 
 The densification signal: a zeros proxy [C, k, 3] is added to the
 unit-sphere means after the projection (beam) or to the decoded world means
@@ -19,7 +25,9 @@ Adam moments still decay.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from dataclasses import field as dc_field
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,6 +35,8 @@ import torch
 from ..config import ModelConfig, OptConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..models.field import AnchorField, render_fn
+from .graphs import (RenderGraphs, StaticProgram, copy_frame, frame_layout, frame_like,
+                     layout, use_graphs)
 from .losses import LossTerms, lidar_losses, normal_consistency_loss
 from .optim import AdamState, adam_update, init_adam, lr_schedules, tree_leaves, tree_unflatten
 
@@ -178,26 +188,144 @@ def train_step(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
     return apply_step(state, grads, stats, ocfg), metrics
 
 
+def state_leaves(state: TrainState) -> list:
+    """Every tensor of a TrainState, in a fixed order."""
+    return (tree_leaves(state.params) + tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu)
+            + [state.opt.count, state.valid, state.step, state.opacity_accum,
+               state.anchor_demon, state.offset_grad_accum, state.offset_denom])
+
+
+def clone_state(state: TrainState) -> TrainState:
+    p, o = state.params, state.opt
+    clone = lambda t: tree_unflatten(t, [x.clone() for x in tree_leaves(t)])
+    return TrainState(clone(p), AdamState(clone(o.mu), clone(o.nu), o.count.clone()),
+                      *(x.clone() for x in state[2:]))
+
+
+def clone_metrics(m: StepMetrics) -> StepMetrics:
+    return StepMetrics(LossTerms(*(x.clone() for x in m.loss)),
+                       *(x.clone() for x in m[1:]))
+
+
+class StepGraphs:
+    """`train_step` as static programs (`train/graphs.py`): one per
+    (update_stats, frame layout) key, the frame layout saying whether it has
+    a pixel mask. All of them share one set of static state buffers: the
+    program writes the new TrainState into them (donation, as JAX's
+    `donate_argnums=(0,)`), and `run` returns them. A state that is not
+    those buffers (the first call's, a densify's, a maintain's, a resumed or
+    loaded one) is copied in, leaf by leaf, before the replay; a state of
+    another layout (capacity) drops every program and is captured anew. The
+    frame is copied into static frame buffers before each replay. `step`
+    is `train_step` with the trainer's fixed arguments (bg, configs,
+    variant)."""
+
+    def __init__(self, step, pool):
+        self.train_step, self.pool = step, pool
+        self.state: Optional[TrainState] = None
+        self.layout = None
+        self.frames: dict = {}
+        self.programs: dict = {}
+
+    def run(self, state: TrainState, frame: LidarFrame, update_stats: bool):
+        leaves = state_leaves(state)
+        lay = layout(leaves)
+        if lay != self.layout:
+            self.programs.clear()
+            self.frames.clear()
+            self.state, self.layout = clone_state(state), lay
+        else:
+            for dst, src in zip(state_leaves(self.state), leaves):
+                if dst is not src:
+                    dst.copy_(src)
+        flay = frame_layout(frame)
+        static_frame = self.frames.get(flay)
+        if static_frame is None:
+            static_frame = self.frames[flay] = frame_like(frame)
+        else:
+            copy_frame(static_frame, frame)
+        prog = self.programs.get((update_stats, flay))
+        if prog is None:
+            prog = self.programs[(update_stats, flay)] = self._program(static_frame,
+                                                                      update_stats)
+        return self.state, clone_metrics(prog.run())
+
+    def _program(self, frame: LidarFrame, update_stats: bool) -> StaticProgram:
+        # the closures hold the static buffers, not self: no reference cycle
+        # keeps a dropped trainer's graphs and pool alive
+        state, step = self.state, self.train_step
+
+        def compute():
+            return step(state, frame, update_stats=update_stats)
+
+        def commit(out):
+            new, metrics = out
+            for dst, src in zip(state_leaves(state), state_leaves(new)):
+                if dst is not src:
+                    dst.copy_(src)
+            return metrics
+
+        return StaticProgram(compute, commit, state.valid.device, self.pool)
+
+
 @dataclass
 class Trainer:
     """Host-side orchestration: the step with its statistics rule and the densify
-    and maintenance cadence."""
+    and maintenance cadence.
+
+    `graphed` picks how `step` and `render` run: None (the default) as CUDA
+    graphs on a CUDA state and eagerly on the CPU; False eagerly everywhere
+    (the witness the graphs are held against); True as static programs
+    everywhere, where on the CPU, which has no graphs, the program's
+    function is called in place of a replay (the CPU tests' stand-in). The
+    variant and the configs are fixed per Trainer, as JAX's `partial` fixes
+    them in its jitted step. A trainer's graphs share one memory pool.
+
+    Donation: a graphed `step` returns the trainer's static state buffers,
+    which the next `step` overwrites in place, as JAX's donated arrays are
+    reused. A caller that keeps a state that `step` returned across a later
+    `step` must clone it (`clone_state`). A state passed in that is not
+    those buffers is copied in and left as it is."""
 
     mcfg: ModelConfig
     ocfg: OptConfig
     rcfg: RasterConfig
     bg: torch.Tensor
     variant: str = "beam"                   # "beam" | "surfel"
+    graphed: Optional[bool] = None
+    _pool: object = dc_field(default=None, init=False, repr=False, compare=False)
+    _steps: Optional[StepGraphs] = dc_field(default=None, init=False, repr=False, compare=False)
+    _renders: Optional[RenderGraphs] = dc_field(default=None, init=False, repr=False,
+                                             compare=False)
+
+    def graph_pool(self, device: torch.device):
+        """The memory pool of this trainer's graphs on `device` (None off
+        the card)."""
+        if self._pool is None and device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def render(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
         """The forward render of this trainer's variant: RenderOut (beam) or
-        SurfelOut (surfel), both with color, depth and occ."""
-        return render_fn(self.variant)(params, valid, frame, self.mcfg, self.rcfg, self.bg)[0]
+        SurfelOut (surfel), both with color, depth and occ. Graphed, it
+        returns clones of the graph's outputs."""
+        if self._renders is None:
+            self._renders = RenderGraphs(self.variant, self.mcfg, self.rcfg, self.bg,
+                                         self.graphed, self.graph_pool(valid.device))
+        return self._renders(params, valid, frame)
 
     def step(self, state: TrainState, frame: LidarFrame, iteration: int):
+        """One step: (TrainState, StepMetrics). Graphed, the state returned is
+        the static buffers (see the class's note on donation)."""
         collect = self.ocfg.start_stat < iteration < self.ocfg.update_until
-        return train_step(state, frame, self.bg, self.mcfg, self.rcfg, self.ocfg,
-                          update_stats=collect, variant=self.variant)
+        if not use_graphs(self.graphed, state.valid.device):
+            return train_step(state, frame, self.bg, self.mcfg, self.rcfg, self.ocfg,
+                              update_stats=collect, variant=self.variant)
+        if self._steps is None:
+            step = functools.partial(train_step, bg=self.bg, mcfg=self.mcfg, rcfg=self.rcfg,
+                                     ocfg=self.ocfg, variant=self.variant)
+            self._steps = StepGraphs(step, self.graph_pool(state.valid.device))
+        return self._steps.run(state, frame, collect)
 
     def densify(self, state: TrainState, generator: Optional[torch.Generator],
                 voxel_size: float, draws: Optional[torch.Tensor] = None):

@@ -113,6 +113,30 @@ def test_port_evaluates_a_jax_snapshot_as_jax_does(jax_run):
         f"{i:03d}_{n}.png" for i in range(4) for n in ("intensity", "depth", "gt_intensity"))
 
 
+def test_port_evaluates_the_best_snapshot_of_a_jax_run(tmp_path):
+    """`--load_iteration best` loads `point_cloud/iteration_best`, the best
+    test-PSNR snapshot of a JAX CLI run (whose own parser refuses the
+    value), and evaluates it as JAX's final evaluation of the same
+    parameters (the run's one test iteration is its last)."""
+    data = tmp_path / "data"
+    _make_dataset(str(data))
+    out = tmp_path / "jax"
+    jcli.main(["-s", str(data), "-m", str(out), *BASE, "--iterations", "2",
+               "--test_iterations", "2", "--save_iterations"])
+    assert (out / "point_cloud" / "iteration_best" / "point_cloud.ply").exists()
+    with pytest.raises(SystemExit):
+        jcli.build_config(["-s", str(data), "--load_iteration", "best"])
+    port = tmp_path / "port"
+    shutil.copytree(out, port)
+    cli.main(["-s", str(data), "-m", str(port), *BASE, "--load_iteration", "best",
+              "--device", "cpu"])
+    _assert_results_match(json.loads((port / "results.json").read_text()),
+                          json.loads((out / "results.json").read_text()))
+    assert cli.build_config(["-s", "/x", "--load_iteration", "7"])[1].load_iteration == 7
+    with pytest.raises(SystemExit):
+        cli.build_config(["-s", "/x", "--load_iteration", "last"])
+
+
 def test_port_resumes_a_jax_checkpoint(jax_run, monkeypatch):
     """The port continues JAX's run from its checkpoint, and JAX reads the
     checkpoint the port writes."""

@@ -297,7 +297,11 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  DYN_INIT_SAMPLES=3000, DYN_STEPS=6, DYN_TIMED=1,
                  DYN_VOXEL={"background": 1.0, "vehicle": 0.3},
                  DYN_CAPACITY={"background": 4096, "vehicle": 512},
-                 DYN_MIN_ANCHORS={"background": 100, "vehicle": 5})
+                 DYN_MIN_ANCHORS={"background": 100, "vehicle": 5},
+                 # phase 34: 4 steps of each kind (Trainer(graphed=True) runs the
+                 # graphs' bookkeeping on the CPU), a 100-anchor vehicle-style field
+                 GRAPH_STEPS={"beam": 4, "surfel": 4, "masked": 4}, GRAPH_TIMED=2,
+                 GRAPH_VEHICLE=dict(anchors=100, capacity=256), GRAPH_CLI_CAPACITY=1024)
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
@@ -306,6 +310,8 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "profile_render",
                         lambda fn, frames=3: {"frames": frames, "device_ms_per_frame": "n/a"})
     monkeypatch.setattr(cuda_build, "build", lambda names, csrc=None: {})
+    monkeypatch.setattr(chip_smoke, "sync_checked", lambda fn, label: fn())
+    monkeypatch.setattr(chip_smoke, "pool_bytes", lambda pool: "not measured")
     # four CLI steps leave the ray-drop channel untrained, so a test frame's
     # render can be empty and its chamfer distance inf (the reference's value
     # for an empty cloud): require the metrics, finite but for that
@@ -410,3 +416,13 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
         assert all(a["pixels"] > 0 for a in t["test_after"])
     assert dyn["launches"] == {"K1": 20, "K2": 12}
     assert kernels[0]["launches_dynamic"] == 20 and kernels[1]["launches_dynamic"] == 12
+    # phase 34: the static-buffer steps equal eager bit for bit, with a
+    # densify and both statistics modes, one kernel pair a step; the renders
+    graphs = timing["graphs"]
+    for name, (fwd, bwd) in (("beam", ("K1", "K2")), ("surfel", ("K5", "K6")),
+                             ("masked", ("K1", "K2"))):
+        g = graphs[name]
+        assert g["graph_vs_eager"]["bit_equal"] and g["losses_equal"] and g["render_bit_equal"]
+        assert g["launches_graphed"][fwd] == g["launches_graphed"][bwd] == 4
+        assert (g["densify_after"], g["stats_until"]) == (2, 3)
+    assert graphs["masked"]["anchors"] == 100

@@ -118,31 +118,44 @@ then:
      one; times one frame's LPIPS (CUDA events) and holds it against the
      CPU's.
  27. trains data-parallel in one process (`parallel/shard.py` `DPTrainer`,
-     DP_BATCH frames a step): DP_BATCH identical frames give one
+     DP_BATCH frames a step, replaying its two CUDA graphs around the
+     collectives by default): DP_BATCH identical frames give one
      `Trainer.step`'s parameters (DP_TOL) and DP_BATCH times its visits;
      DP_BATCH distinct frames train N_STEPS steps, DP_BATCH K1 and K2
      launches each, and densify once (grown - pruned = the change); the
-     step is timed (CUDA events) beside DP_BATCH x phase 9's and profiled;
-     SURFEL_DP_STEPS surfel DP steps launch DP_BATCH K5 and K6 each; the
      witness (`dp_grouped`) trains the N_STEPS steps again in one process
-     with the gradients summed in phase 28's order;
+     with the gradients summed in phase 28's order; `DPTrainer(graphed=
+     False)` trains them again, and both take two steps without the
+     statistics from their densified states: every state leaf bit for bit
+     (or within a second eager run's spread), losses and densify equal; a
+     graphed step runs under `set_sync_debug_mode` and must not
+     synchronize; the graphed and the eager step are timed (CUDA events,
+     median, min and max of TRAIN_TIMED after 3 warm-ups) beside DP_BATCH x
+     phase 9's and profiled (device ms, launches, busy share); the graph
+     pool's bytes at 1, 2 and DP_BATCH frames and at the CLI's capacity;
+     SURFEL_DP_STEPS surfel DP steps launch DP_BATCH K5 and K6 each, held to
+     eager's bit for bit with and without the statistics, both timed;
  28. starts a fleet of DP_FLEET processes on this card (gloo, through
      `parallel/scaling.py` `launch_fleet`; this script with `--fleet` is
-     the rank) that trains the same steps, each rank its share of every
-     batch: DP_BATCH / DP_FLEET K1 and K2 launches a rank and step, equal
-     fingerprints, `valid` after the densify bit for bit and the state
-     against phase 27's and the witness's (DP_TOL); it reports the step's
-     ms and the all-reduce's calls and bytes, and its ms in three parts
-     (`collectives.settle` on: waiting for the card and the other rank,
-     the host copies, the transfer). Ranks sharing one card: not a scaling
-     figure;
+     the rank) that trains the same steps, graphed, each rank its share of
+     every batch: DP_BATCH / DP_FLEET K1 and K2 launches a rank and step,
+     equal fingerprints, `valid` after the densify bit for bit and the
+     state against phase 27's and the witness's (DP_TOL); each rank then
+     trains them eagerly and holds its graphed state to that run's (within
+     DP_TOL's fleet_param_atol, bit equality reported); it reports the
+     graphed and eager step's ms and the all-reduce's calls and bytes, and
+     its ms in three parts (`collectives.settle` on: waiting for the card
+     and the other rank, the host copies, the transfer). Ranks sharing one
+     card: not a scaling figure;
  29. in the same fleet renders phase 1's frame 0 with `render_field_sharded`
      (anchors and tiles over DP_FLEET ranks: one K1 launch a rank on half
      the tiles), against phase 1's image (color 1e-5, depth 1e-4, and
      whether bit-equal), the gradient of JAX's test loss against the
      unsharded render's (DP_TOL), and runs `measure_dp_rate`;
  30. on phase 19's street, runs the CLI with `--data_parallel 1 --dp_batch
-     DP_BATCH` (DP_BATCH K1 and K2 launches a step), then a fleet of
+     DP_BATCH` (DP_BATCH K1 and K2 launches a step; on the card every step
+     returns the same, donated, state buffers: its graphs replay; host ms a
+     step, each ending in a synchronize), then a fleet of
      DP_FLEET processes (`--num_processes --process_id --coordinator
      --dp_batch DP_FLEET`, an evaluation at half and a snapshot at the
      end): one coordinator's files, rank 1's log `outputs.p1.log`, one K1
@@ -176,9 +189,10 @@ then:
      (torch.profiler), and the graph pool's bytes, also of one beam step at
      the CLI's capacity 2**17.
 
-`Trainer`, `measure_fps` and `run_eval` replay CUDA graphs on the card by
-default, so phases 1-2, 7-9, 12, 15-24 and 31-33 run graphed steps and
-renders (a graph replay adds its captured launches to the counts).
+`Trainer`, `DPTrainer`, `measure_fps` and `run_eval` replay CUDA graphs on
+the card by default, so phases 1-2, 7-9, 12, 15-24, 27-28, 30-33 and
+phase 29's `measure_dp_rate` run graphed steps and renders (a graph replay
+adds its captured launches to the counts).
 
 It prints a timing line, a `kernels` line, the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
@@ -1645,10 +1659,11 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
 
 
 @contextlib.contextmanager
-def probe(owner, name: str, counters=()):
+def probe(owner, name: str, counters=(), after=None):
     """Wrap `owner.name` while the block runs: each call's host seconds
-    (start and duration), its result, and how far each of `counters` (zero-
-    argument functions reading a launch count) moved during it."""
+    (start and duration, `after()` included where it is given, e.g. a device
+    synchronize), its result, and how far each of `counters` (zero-argument
+    functions reading a launch count) moved during it."""
     orig = getattr(owner, name)
     calls = []
 
@@ -1656,6 +1671,8 @@ def probe(owner, name: str, counters=()):
         before = [c() for c in counters]
         t0 = time.perf_counter()
         out = orig(*a, **k)
+        if after is not None:
+            after()
         calls.append({"start": t0, "s": time.perf_counter() - t0, "result": out,
                       "launches": [c() - b for c, b in zip(counters, before)]})
         return out
@@ -2162,6 +2179,45 @@ def state_gap(a, b) -> dict:
             "leaves_differing": diff}
 
 
+def hold_to_eager(label: str, got, want, rerun) -> dict:
+    """A graphed run's state `got` against an eager run's `want`, leaf by
+    leaf (`state_gap`): bit for bit, or else within eager's own spread,
+    `rerun()`'s state (a second eager run from the same state) against
+    `want`; a leaf beyond it fails the phase."""
+    gap = state_gap(got, want)
+    out = {"graph_vs_eager": gap}
+    if not gap["bit_equal"]:
+        spread = state_gap(rerun(), want)
+        out["eager_vs_eager"] = spread
+        over = {k: v for k, v in gap["leaves_differing"].items()
+                if v > spread["leaves_differing"].get(k, 0.0)}
+        if over:
+            fail(f"{label} state differs from eager beyond eager's own spread: {over} "
+                 f"(spread {spread['leaves_differing']})")
+    return out
+
+
+def ms_and_profile(ms: dict, prof: dict) -> dict:
+    """Each key's CUDA-event ms (median, min, max) and, where `prof` has the
+    key, its profile: device ms, device launches and runtime calls a call,
+    and the device's busy share (device ms over the median)."""
+    import numpy as np
+
+    out = {}
+    for k, v in ms.items():
+        out[f"{k}_ms_median"] = float(np.median(v))
+        out[f"{k}_ms_min"], out[f"{k}_ms_max"] = min(v), max(v)
+        p = prof.get(k)
+        if p is None:
+            continue
+        out[f"{k}_device_ms"] = p["device_ms_per_frame"]
+        out[f"{k}_launches"] = p.get("device_launches_per_frame", "not measured")
+        out[f"{k}_runtime_calls"] = p.get("runtime_calls_per_frame")
+        if isinstance(p["device_ms_per_frame"], float):
+            out[f"{k}_device_busy_share"] = p["device_ms_per_frame"] / out[f"{k}_ms_median"]
+    return out
+
+
 def graph_steps(trainer, state, frames, n: int, dev):
     """`n` steps of `trainer` from `state`, a densify after step n // 2:
     (a clone of the final state, the losses, the K1/K2/K5/K6 launches)."""
@@ -2224,21 +2280,11 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
     g, loss_g, launch_g = graph_steps(graphed, state0, frames, n, dev)
     if launch_g[k_fwd] != n or launch_g[k_bwd] != n:
         fail(f"phase 34: {n} graphed {name} steps launched {launch_g}")
-    gap = state_gap(g, e1)
     out = {"steps": n, "densify_after": n // 2, "stats_until": ocfg.update_until,
            "launches_graphed": launch_g, "launches_eager": launch_e,
-           "loss_first": loss_g[0], "loss_last": loss_g[-1],
-           "losses_equal": loss_g == loss_e, "graph_vs_eager": gap}
-    if not gap["bit_equal"]:
-        # eager's own spread: a second eager run from the same state
-        e2, *_ = graph_steps(make(False), state0, frames, n, dev)
-        spread = state_gap(e2, e1)
-        out["eager_vs_eager"] = spread
-        over = {k: v for k, v in gap["leaves_differing"].items()
-                if v > spread["leaves_differing"].get(k, 0.0)}
-        if over:
-            fail(f"phase 34: graphed {name} state differs from eager beyond eager's own "
-                 f"spread: {over} (spread {spread['leaves_differing']})")
+           "loss_first": loss_g[0], "loss_last": loss_g[-1], "losses_equal": loss_g == loss_e,
+           **hold_to_eager(f"phase 34: graphed {name}", g, e1,
+                           lambda: graph_steps(make(False), state0, frames, n, dev)[0])}
 
     # the render: graphed against eager, on the trained state
     with torch.no_grad():
@@ -2270,15 +2316,7 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
                 "eager_step": profile_render(step_of(eager, "e"), frames=3),
                 "graph_frame": profile_render(frame_of(graphed), frames=3),
                 "eager_frame": profile_render(frame_of(eager), frames=3)}
-    for k, v in ms.items():
-        out[f"{k}_ms_median"] = float(np.median(v))
-        out[f"{k}_ms_min"], out[f"{k}_ms_max"] = min(v), max(v)
-        p = prof[k]
-        out[f"{k}_device_ms"] = p["device_ms_per_frame"]
-        out[f"{k}_launches"] = p.get("device_launches_per_frame", "not measured")
-        out[f"{k}_runtime_calls"] = p.get("runtime_calls_per_frame")
-        if isinstance(p["device_ms_per_frame"], float):
-            out[f"{k}_device_busy_share"] = p["device_ms_per_frame"] / out[f"{k}_ms_median"]
+    out.update(ms_and_profile(ms, prof))
     out["pool_bytes"] = pool_bytes(graphed.graph_pool(dev))
     print(f"# phase 34 {name}: {json.dumps(out)}", file=sys.stderr)
     return out
@@ -2376,10 +2414,18 @@ def render_grads(render, params):
     return out, [torch.zeros_like(x) if gx is None else gx for gx, x in zip(g, leaves)]
 
 
+def dp_graphed(dev):
+    """`DPTrainer`'s `graphed` for the main path: its default, which replays
+    the step's CUDA graphs on a card; on the CPU rehearsal True, the
+    programs' bookkeeping with each function called in place of a replay."""
+    return None if dev.type == "cuda" else True
+
+
 def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: bool = True):
     """`steps` data-parallel steps, each on the frames `local` of `frames`
     stacked, then one densify (unless not `densify`): (first step's state,
-    final state, densified state, densify summary, per-step records: host
+    final state (both cloned: a graphed step donates its state), densified
+    state, densify summary, per-step records: host
     ms (ending in a synchronize), kernel launches by `counters`, collective
     calls and bytes, ms in the collectives, in the host copies and waiting
     (`parallel/collectives.py` `stats`), loss)."""
@@ -2387,6 +2433,7 @@ def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: 
 
     from lidargs_torch.lidar import stack_frames
     from lidargs_torch.parallel import collectives
+    from lidargs_torch.train.trainer import clone_state
 
     batch = stack_frames([frames[i] for i in local])
     first, per_step = None, []
@@ -2404,7 +2451,9 @@ def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: 
                          "copy_ms": collectives.stats["copy_s"] * 1e3,
                          "wait_ms": collectives.stats["wait_s"] * 1e3,
                          "loss": float(m.loss.total)})
-        first = state if first is None else first
+        # a graphed step donates its state: the next step overwrites it
+        first = clone_state(state) if first is None else first
+    state = clone_state(state)
     if not densify:
         return first, state, None, None, per_step
     n_before = int(state.valid.sum())
@@ -2416,6 +2465,41 @@ def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: 
     if summary["n_anchors_after"] != n_before + summary["n_grown"] - summary["n_pruned"]:
         fail(f"data-parallel densify: anchor count does not add up: {summary}")
     return first, state, dense, summary, per_step
+
+
+def dp_nostats(trainer, state, batch, steps: int = 2):
+    """`steps` data-parallel steps of `batch` from `state` without the
+    statistics (an iteration past OPT's update_until): (a clone of the
+    final state, the losses)."""
+    from lidargs_torch.train.trainer import clone_state
+
+    losses = []
+    for _ in range(steps):
+        state, m = trainer.step(state, batch, OPT["update_until"])
+        losses.append(float(m.loss.total))
+    return clone_state(state), losses
+
+
+def dp_pool(dev, batch: int, capacity: int, frames, ocfg, rcfg):
+    """The graph pool's bytes of one graphed data-parallel beam step of
+    `batch` of `frames` on the smoke scene's anchors in `capacity` rows."""
+    import torch
+
+    from lidargs_torch.config import ModelConfig
+    from lidargs_torch.lidar import stack_frames
+    from lidargs_torch.models.field import AnchorField
+    from lidargs_torch.parallel import DPTrainer, make_mesh
+    from lidargs_torch.train import init_train_state
+    from lidargs_torch.utils.testing import shell_field
+
+    mcfg = ModelConfig(**{**MODEL, "anchor_capacity": capacity})
+    params, valid = shell_field(mcfg, N_ANCHORS, seed=0, device=dev)
+    tr = DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=torch.zeros(2, device=dev),
+                   mesh=make_mesh(), graphed=dp_graphed(dev))
+    tr.step(init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg),
+            stack_frames([frames[i % len(frames)] for i in range(batch)]), 1)
+    sync(dev)
+    return pool_bytes(tr.graph_pool(dev))
 
 
 def dp_grouped(trainer, state, frames, groups, steps: int):
@@ -2536,16 +2620,25 @@ def dp_rank(cfg: dict, rank_args) -> dict:
     rec = {"process_id": rt.process_id, "backend": rt.backend, "device": str(dev),
            "fingerprints": rt.fingerprint(state0)}
 
-    # --- 28. phase 27's steps, this rank's share of each batch ---
+    # --- 28. phase 27's steps, this rank's share of each batch, graphed and
+    # then eager ---
     mesh = rt.global_mesh()
-    trainer = DPTrainer(mcfg=mcfg, ocfg=OptConfig(**OPT), rcfg=rcfg, bg=bg, mesh=mesh)
+    trainer, eager = (DPTrainer(mcfg=mcfg, ocfg=OptConfig(**OPT), rcfg=rcfg, bg=bg, mesh=mesh,
+                                graphed=g) for g in (dp_graphed(dev), False))
     frames = train_frames(dev, beams, DP_BATCH)
     local = rt.local_indices(list(range(DP_BATCH)), mesh)
     counters = (lambda: ck.launches, lambda: ck.bwd_launches)
     collectives.settle = True       # wait apart from the transfer (collectives.py)
     first, final, dense, densify, per_step = dp_train(trainer, state0, frames, local, N_STEPS,
                                                       dev, counters)
-    rec.update(local=local, per_step=per_step, densify=densify)
+    _, e_final, e_dense, _, e_steps = dp_train(eager, state0, frames, local, N_STEPS, dev,
+                                               counters)
+    # every rank holds the same state, so each finds the same gap; a rerun
+    # (hold_to_eager) would call the collectives on one rank alone
+    rec.update(local=local, per_step=per_step, densify=densify, eager_per_step=e_steps,
+               graphed=trainer._steps is not None,
+               graphed_vs_eager=state_gap(final, e_final),
+               graphed_vs_eager_dense_valid=bool(torch.equal(dense.valid, e_dense.valid)))
 
     # --- 29. the sharded render of phase 1's frame 0, its gradient, the rate ---
     frame0 = LidarFrame.from_lidar2world(sensor_poses(N_FRAMES, seed=1)[0], beams,
@@ -2634,7 +2727,8 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, o0, frame0, train: dict):
     bg = torch.zeros(2, device=dev)
     state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
     frames = train_frames(dev, beams, DP_BATCH)
-    dp = DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, mesh=make_mesh())
+    dp, eager = (DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, mesh=make_mesh(), graphed=g)
+                 for g in (dp_graphed(dev), False))
     counters = (lambda: ck.launches, lambda: ck.bwd_launches)
 
     # --- 27a. DP_BATCH identical frames: one DP step equals one Trainer.step ---
@@ -2671,38 +2765,102 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, o0, frame0, train: dict):
         fail(f"one-process DP steps launched (K1, K2) {[s['launches'] for s in per_step]}")
     if not np.isfinite([s["loss"] for s in per_step]).all():
         fail(f"non-finite DP losses: {[s['loss'] for s in per_step]}")
+    if dev.type == "cuda" and dp._steps is None:
+        fail("the one-process DP step did not replay its CUDA graphs")
     # --- 27c. the witness: one process, the gradients summed in the fleet's order ---
     local_n = DP_BATCH // DP_FLEET
     groups = [list(range(r * local_n, (r + 1) * local_n)) for r in range(DP_FLEET)]
     w_first, w_final = dp_grouped(dp, state0, frames, groups, N_STEPS)
     witness = {"groups": groups, "vs_one_process": param_gap(w_final.params, final.params)}
-    held = [final]
 
-    def one_step():
-        held[0], _ = dp.step(held[0], stack_frames(frames), 1)
+    # --- 27d. graphed against eager: the same steps and densify, then steps
+    # without the statistics from the densified state ---
+    e_first, e_final, e_dense, e_densify, e_steps = dp_train(
+        eager, state0, frames, range(DP_BATCH), N_STEPS, dev, counters)
+    batch = stack_frames(frames)
+    g_nostats, g_losses = dp_nostats(dp, dense, batch)
+    e_nostats, e_losses = dp_nostats(eager, e_dense, batch)
+    vs_eager = {
+        "losses_equal": ([s["loss"] for s in per_step] == [s["loss"] for s in e_steps]
+                         and g_losses == e_losses),
+        "densify_equal": densify == e_densify,
+        "final": hold_to_eager("phase 27: the graphed DP step", final, e_final, lambda: dp_train(
+            eager, state0, frames, range(DP_BATCH), N_STEPS, dev, counters, densify=False)[1]),
+        "nostats_after_densify": hold_to_eager(
+            "phase 27: the graphed DP step without statistics", g_nostats, e_nostats,
+            lambda: dp_nostats(eager, e_dense, batch)[0]),
+    }
 
-    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
-    prof = profile_render(one_step, frames=3)
+    # the graphed step makes no synchronization; graphed and eager timed and
+    # profiled in the same call
+    held = {"g": final, "e": final}
+
+    def step_of(tr_, key):
+        def one_step():
+            held[key] = tr_.step(held[key], batch, 1)[0]
+        return one_step
+
+    sync_checked(step_of(dp, "g"), "a graphed one-process DP step")
+    ms = {"graph_step": time_ms(step_of(dp, "g"), TRAIN_TIMED, 3),
+          "eager_step": time_ms(step_of(eager, "e"), TRAIN_TIMED, 3)}
+    prof = {k: profile_render(step_of(tr_, k[0]), frames=3)
+            for k, tr_ in (("graph_step", dp), ("eager_step", eager))}
+    # the pool: this trainer's (both statistics modes), then one mode's at
+    # 1, 2 and DP_BATCH frames, and at the CLI's capacity
+    cap = MODEL["anchor_capacity"]
+    pools = {"both_modes": pool_bytes(dp.graph_pool(dev)),
+             **{f"B{b}_capacity_{c}": dp_pool(dev, b, c, frames, ocfg, rcfg)
+                for b, c in ((1, cap), (2, cap), (DP_BATCH, cap),
+                             (DP_BATCH, GRAPH_CLI_CAPACITY))}}
 
     # the surfel variant's DP step at a smaller count: K5 and K6 per frame
     srcfg = RasterConfig(**SURFEL_RASTER)
-    sdp = DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=srcfg, bg=bg, mesh=make_mesh(), variant="surfel")
+    sdp, sdp_e = (DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=srcfg, bg=bg, mesh=make_mesh(),
+                            variant="surfel", graphed=g) for g in (dp_graphed(dev), False))
+    s_counters = (lambda: sk.launches, lambda: sk.bwd_launches)
     sk.launches = sk.bwd_launches = 0
-    *_, s_steps = dp_train(sdp, state0, frames, range(DP_BATCH), SURFEL_DP_STEPS, dev,
-                           (lambda: sk.launches, lambda: sk.bwd_launches), densify=False)
+    _, s_final, _, _, s_steps = dp_train(sdp, state0, frames, range(DP_BATCH), SURFEL_DP_STEPS,
+                                         dev, s_counters, densify=False)
     if any(s["launches"] != [DP_BATCH, DP_BATCH] for s in s_steps):
         fail(f"surfel DP steps launched (K5, K6) {[s['launches'] for s in s_steps]}")
     s_launches = {"K5": sk.launches, "K6": sk.bwd_launches}
+    _, se_final, _, _, se_steps = dp_train(sdp_e, state0, frames, range(DP_BATCH),
+                                           SURFEL_DP_STEPS, dev, s_counters, densify=False)
+    sg_nostats, sg_losses = dp_nostats(sdp, s_final, batch)
+    se_nostats, se_losses = dp_nostats(sdp_e, se_final, batch)
+    s_held = {"g": s_final, "e": s_final}
+
+    def s_step_of(tr_, key):
+        def one_step():
+            s_held[key] = tr_.step(s_held[key], batch, 1)[0]
+        return one_step
+
+    s_ms = {"graph_step": time_ms(s_step_of(sdp, "g"), TRAIN_TIMED, 3),
+            "eager_step": time_ms(s_step_of(sdp_e, "e"), TRAIN_TIMED, 3)}
+    surfel = {
+        "steps": SURFEL_DP_STEPS, "launches": s_launches,
+        "losses": [s["loss"] for s in s_steps], "host_ms": [s["ms"] for s in s_steps],
+        "losses_equal": ([s["loss"] for s in s_steps] == [s["loss"] for s in se_steps]
+                         and sg_losses == se_losses),
+        "final": hold_to_eager("phase 27: the graphed surfel DP step", s_final, se_final,
+                               lambda: dp_train(sdp_e, state0, frames, range(DP_BATCH),
+                                                SURFEL_DP_STEPS, dev, s_counters,
+                                                densify=False)[1]),
+        "nostats": hold_to_eager("phase 27: the graphed surfel DP step without statistics",
+                                 sg_nostats, se_nostats,
+                                 lambda: dp_nostats(sdp_e, se_final, batch)[0]),
+        "pool_bytes": pool_bytes(sdp.graph_pool(dev)), **ms_and_profile(s_ms, {}),
+    }
     one_proc = {
         "batch": DP_BATCH, "steps": N_STEPS, "identical": identical, "launches": launches,
-        "witness_fleet_order": witness,
+        "graphed": dp._steps is not None, "witness_fleet_order": witness,
         "loss_first": per_step[0]["loss"], "loss_last": per_step[-1]["loss"],
-        "densify": densify, "step_ms_median": med(step_ms), "step_ms_min": min(step_ms),
-        "step_samples": len(step_ms), "single_step_ms_x_batch":
-            DP_BATCH * train["step_ms_median"], "profile": profile_summary(prof),
-        "surfel": {"steps": SURFEL_DP_STEPS, "launches": s_launches,
-                   "losses": [s["loss"] for s in s_steps],
-                   "host_ms": [s["ms"] for s in s_steps]},
+        "densify": densify, "vs_eager": vs_eager, **ms_and_profile(ms, prof),
+        "step_samples": len(ms["graph_step"]),
+        "single_step_ms_x_batch": DP_BATCH * train["step_ms_median"],
+        "profile": profile_summary(prof["graph_step"]),
+        "eager_profile": profile_summary(prof["eager_step"]), "pool_bytes": pools,
+        "surfel": surfel,
     }
     print(f"# dp one process: {json.dumps(one_proc)}", file=sys.stderr)
 
@@ -2741,11 +2899,27 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, o0, frame0, train: dict):
                 and loss_rel <= DP_TOL["fleet_loss_rel"]
                 and vs_witness["beyond_atol"] == 0 and first_vs_witness["beyond_atol"] == 0
                 and torch.equal(res["final"]["anchor_demon"], final.anchor_demon.cpu()))
+    # each rank's graphed steps against its eager ones (the same processes)
+    for r in ranks:
+        gap = r["graphed_vs_eager"]
+        if (dev.type == "cuda" and not r["graphed"]) or not r["graphed_vs_eager_dense_valid"] \
+                or gap["max_abs"] > DP_TOL["fleet_param_atol"]:
+            fail(f"fleet rank {r['process_id']}: graphed {r['graphed']}, graphed against eager "
+                 f"{gap}, valid after the densify equal {r['graphed_vs_eager_dense_valid']}")
     steps_ms = [s["ms"] for r in ranks for s in r["per_step"][1:]]
     coll = coord["per_step"][1:]
+    e_coll = coord["eager_per_step"][1:]
     fleet = {
         "label": f"{DP_FLEET} ranks share one card: not a scaling figure",
         "backend": coord["backend"], "devices": [r["device"] for r in ranks],
+        "graphed": [r["graphed"] for r in ranks],
+        "graphed_vs_eager": [r["graphed_vs_eager"] for r in ranks],
+        "eager_losses_equal": all([s["loss"] for s in r["per_step"]]
+                                  == [s["loss"] for s in r["eager_per_step"]] for r in ranks),
+        "eager_step_ms_median": med([s["ms"] for r in ranks for s in r["eager_per_step"][1:]]),
+        "eager_collective_ms_per_step_median": med([s["collective_ms"] for s in e_coll]),
+        "eager_copy_ms_per_step_median": med([s["copy_ms"] for s in e_coll]),
+        "eager_wait_ms_per_step_median": med([s["wait_ms"] for s in e_coll]),
         "wall_s": wall_s, "fingerprints": prints, "densify": coord["densify"],
         "first_step_grad_rel_err_max": max(grad_err.values()),
         "loss_rel_err_max": loss_rel, "final_params_vs_witness": vs_witness,
@@ -2829,7 +3003,10 @@ def cli_dp_phase(dev, base: list, work: Path) -> dict:
     one, fleet_out = work / "dp_one", work / "dp_fleet"
     common = ["--iterations", str(CLI_DP_ITERS), "--log_every", str(CLI_DP_ITERS)]
     ck.launches = ck.bwd_launches = 0
-    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches)) as steps:
+    # each step ends in a synchronize: 6 steps would not fill the launch
+    # queue, and the gaps would time the enqueue
+    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches),
+               after=lambda: sync(dev)) as steps:
         cli.main(base + ["-m", str(one), *common, "--data_parallel", "1", "--dp_batch",
                          str(DP_BATCH), "--test_iterations", "--save_iterations",
                          str(CLI_DP_ITERS)])
@@ -2837,6 +3014,10 @@ def cli_dp_phase(dev, base: list, work: Path) -> dict:
         fail(f"CLI --dp_batch {DP_BATCH}: {len(steps)} steps launching (K1, K2) "
              f"{[c['launches'] for c in steps]}")
     one_gaps = np.diff([c["start"] for c in steps]) * 1e3
+    # a graphed step returns its static state buffers every time (donation)
+    donated = all(c["result"][0] is steps[0]["result"][0] for c in steps)
+    if dev.type == "cuda" and not donated:
+        fail(f"CLI --dp_batch {DP_BATCH}: the steps did not replay CUDA graphs")
     one_test = cli_results(one)
 
     argv = base + ["-m", str(fleet_out), *common, "--dp_batch", str(DP_FLEET),
@@ -2864,8 +3045,9 @@ def cli_dp_phase(dev, base: list, work: Path) -> dict:
     if not n_anchors > 0 or not bool(torch.isfinite(field.params["anchor"]).all()):
         fail(f"CLI fleet snapshot loads {n_anchors} anchors")
     gaps = [g for r in ranks for g in r["host_ms_per_step"]]
-    return {"one_process": {"steps": len(steps), "host_ms_per_step_median":
-                            float(np.median(one_gaps)), "test": one_test},
+    return {"one_process": {"steps": len(steps), "graphed": donated,
+                            "host_ms_per_step_median": float(np.median(one_gaps)),
+                            "host_ms_per_step": one_gaps.tolist(), "test": one_test},
             "fleet": {"label": f"{DP_FLEET} ranks share one card: not a scaling figure",
                       "wall_s": wall_s, "steps": [r["steps"] for r in ranks],
                       "launches_per_step": ranks[0]["launches"][0], "files": files,

@@ -14,6 +14,8 @@ On a card, `Trainer.step` replays `train_step` as one CUDA graph with the
 state donated (`StepGraphs`, the counterpart of JAX's `jax.jit(train_step,
 donate_argnums=(0,))`), and `Trainer.render` replays the render as one
 (`train/graphs.py`). `Trainer(graphed=False)` runs both eagerly.
+`DPTrainer` (`parallel/shard.py`) shares the dispatch and `StepGraphs`
+with programs of its own (`step_fns`).
 
 The densification signal: a zeros proxy [C, k, 3] is added to the
 unit-sphere means after the projection (beam) or to the decoded world means
@@ -207,21 +209,49 @@ def clone_metrics(m: StepMetrics) -> StepMetrics:
                        *(x.clone() for x in m[1:]))
 
 
-class StepGraphs:
-    """`train_step` as static programs (`train/graphs.py`): one per
-    (update_stats, frame layout) key, the frame layout saying whether it has
-    a pixel mask. All of them share one set of static state buffers: the
-    program writes the new TrainState into them (donation, as JAX's
-    `donate_argnums=(0,)`), and `run` returns them. A state that is not
-    those buffers (the first call's, a densify's, a maintain's, a resumed or
-    loaded one) is copied in, leaf by leaf, before the replay; a state of
-    another layout (capacity) drops every program and is captured anew. The
-    frame is copied into static frame buffers before each replay. `step`
-    is `train_step` with the trainer's fixed arguments (bg, configs,
-    variant)."""
+def commit_into(state: TrainState):
+    """A program's commit for a step over the static state `state`: write
+    the new TrainState into it, leaf by leaf (donation), and return the
+    metrics."""
+    def commit(out):
+        new, metrics = out
+        for dst, src in zip(state_leaves(state), state_leaves(new)):
+            if dst is not src:
+                dst.copy_(src)
+        return metrics
+    return commit
 
-    def __init__(self, step, pool):
-        self.train_step, self.pool = step, pool
+
+def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool, pool):
+    """`step` (`train_step` with the trainer's fixed arguments) over the
+    static state and frame as one StaticProgram: its `run`."""
+    # the closures hold the static buffers, not the trainer: no reference
+    # cycle keeps a dropped trainer's graphs and pool alive
+    def compute():
+        return step(state, frame, update_stats=update_stats)
+
+    return StaticProgram(compute, commit_into(state), state.valid.device, pool).run
+
+
+class StepGraphs:
+    """A training step as static programs (`train/graphs.py`): one set per
+    (update_stats, frame layout) key, the frame layout saying whether it has
+    a pixel mask and how many frames a batch stacks. `build(state, frame,
+    update_stats, pool)` makes a key's programs over the static state and
+    frame buffers and returns a function that runs them (replays) and
+    returns the step's metrics: `step_program` for `train_step`, or the
+    data-parallel step's two programs around its collectives
+    (`parallel/shard.py` `dp_programs`). All keys share one set of static
+    state buffers: the programs write the new TrainState into them
+    (donation, as JAX's `donate_argnums=(0,)`), and `run` returns them. A
+    state that is not those buffers (the first call's, a densify's, a
+    maintain's, a resumed or loaded one) is copied in, leaf by leaf, before
+    the replay; a state of another layout (capacity) drops every program and
+    is captured anew. The frame is copied into static frame buffers before
+    each replay."""
+
+    def __init__(self, build, pool):
+        self.build, self.pool = build, pool
         self.state: Optional[TrainState] = None
         self.layout = None
         self.frames: dict = {}
@@ -244,28 +274,11 @@ class StepGraphs:
             static_frame = self.frames[flay] = frame_like(frame)
         else:
             copy_frame(static_frame, frame)
-        prog = self.programs.get((update_stats, flay))
-        if prog is None:
-            prog = self.programs[(update_stats, flay)] = self._program(static_frame,
-                                                                      update_stats)
-        return self.state, clone_metrics(prog.run())
-
-    def _program(self, frame: LidarFrame, update_stats: bool) -> StaticProgram:
-        # the closures hold the static buffers, not self: no reference cycle
-        # keeps a dropped trainer's graphs and pool alive
-        state, step = self.state, self.train_step
-
-        def compute():
-            return step(state, frame, update_stats=update_stats)
-
-        def commit(out):
-            new, metrics = out
-            for dst, src in zip(state_leaves(state), state_leaves(new)):
-                if dst is not src:
-                    dst.copy_(src)
-            return metrics
-
-        return StaticProgram(compute, commit, state.valid.device, self.pool)
+        run = self.programs.get((update_stats, flay))
+        if run is None:
+            run = self.programs[(update_stats, flay)] = self.build(
+                self.state, static_frame, update_stats, self.pool)
+        return self.state, clone_metrics(run())
 
 
 @dataclass
@@ -315,17 +328,29 @@ class Trainer:
         return self._renders(params, valid, frame)
 
     def step(self, state: TrainState, frame: LidarFrame, iteration: int):
-        """One step: (TrainState, StepMetrics). Graphed, the state returned is
-        the static buffers (see the class's note on donation)."""
-        collect = self.ocfg.start_stat < iteration < self.ocfg.update_until
+        """One step: (TrainState, StepMetrics), the statistics collected
+        between `start_stat` and `update_until`. Graphed, the state returned
+        is the static buffers (see the class's note on donation)."""
+        return self.run_step(state, frame,
+                             self.ocfg.start_stat < iteration < self.ocfg.update_until)
+
+    def run_step(self, state: TrainState, frame: LidarFrame, update_stats: bool):
+        """`step` with the statistics mode given (JAX's `_step` and
+        `_step_nostats`): eager or graphed as `graphed` says."""
+        eager, build = self.step_fns()
         if not use_graphs(self.graphed, state.valid.device):
-            return train_step(state, frame, self.bg, self.mcfg, self.rcfg, self.ocfg,
-                              update_stats=collect, variant=self.variant)
+            return eager(state, frame, update_stats=update_stats)
         if self._steps is None:
-            step = functools.partial(train_step, bg=self.bg, mcfg=self.mcfg, rcfg=self.rcfg,
-                                     ocfg=self.ocfg, variant=self.variant)
-            self._steps = StepGraphs(step, self.graph_pool(state.valid.device))
-        return self._steps.run(state, frame, collect)
+            self._steps = StepGraphs(build, self.graph_pool(state.valid.device))
+        return self._steps.run(state, frame, update_stats)
+
+    def step_fns(self):
+        """(the eager step, fn(state, frame, update_stats=...); the function
+        that makes its static programs, which `StepGraphs` takes), with this
+        trainer's fixed arguments: `train_step` and `step_program`."""
+        step = functools.partial(train_step, bg=self.bg, mcfg=self.mcfg, rcfg=self.rcfg,
+                                 ocfg=self.ocfg, variant=self.variant)
+        return step, functools.partial(step_program, step)
 
     def densify(self, state: TrainState, generator: Optional[torch.Generator],
                 voxel_size: float, draws: Optional[torch.Tensor] = None):

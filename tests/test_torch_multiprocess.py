@@ -4,7 +4,8 @@ port's launcher (`parallel/scaling.py` `launch_fleet`), the worker being
 this file's `__main__`.
 
 The fleet trains four data-parallel steps of four frames (two per rank,
-from the shared `frame_schedule`) with a densify after the second, and
+from the shared `frame_schedule`) with a densify after the second, eagerly
+and again with the step's static programs (`graphed=True`), and
 renders one frame with `render_field_sharded` over a 1x2 tile axis, with
 the gradient of JAX's test loss (`tests/test_parallel.py`). The test holds
 the coordinator's results against the same run in one process of the port
@@ -20,6 +21,7 @@ Tolerances, each with its reason:
     against ((f0+f1)+f2)+f3); against one process that sums in the fleet's
     order (`local_sums` of each half, added, `apply_sums`): the whole state
     equal bit for bit;
+  * the fleet's graphed steps against its eager ones: equal bit for bit;
   * the sharded render against one process's `render_field` of the port:
     equal bit for bit on the CPU (the same rows, sort and tiles);
   * against JAX's `render_field`: color atol 1e-5, depth 1e-4 up to
@@ -47,24 +49,30 @@ def _render_loss(out):
     return (out.color ** 2).mean() + 0.01 * out.depth.mean()
 
 
-def _train(state, frames, cfgs, mesh, rt=None):
+def _train(state, frames, cfgs, mesh, rt=None, graphed=None):
     """STEPS data-parallel steps of BATCH frames from the shared schedule
     (this rank's slice of each), a densify after DENSIFY_AT with draws from
-    a CPU generator seeded 7: (state after the first step, final state,
-    losses, densify counts)."""
+    a CPU generator seeded 7, the step run as `DPTrainer(graphed=graphed)`
+    runs it (on the CPU None is eager): (state after the first step, final
+    state, losses, densify counts)."""
+    from functools import partial
+
     from lidargs_torch.lidar import stack_frames
     from lidargs_torch.models.densify import densify_step
-    from lidargs_torch.parallel import frame_schedule, make_dp_trainer
+    from lidargs_torch.parallel import DPTrainer, frame_schedule
+    from lidargs_torch.train.trainer import clone_state
 
     mcfg, rcfg, ocfg = cfgs
-    step = make_dp_trainer(mesh, mcfg, rcfg, ocfg, torch.zeros(2))
+    step = partial(DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=torch.zeros(2), mesh=mesh,
+                             graphed=graphed).run_step, update_stats=True)
     first, losses, dens = None, [], None
     for t in range(STEPS):
         idx = frame_schedule(0, t, BATCH, len(frames))
         loc = rt.local_indices(idx, mesh) if rt is not None else idx
         state, m = step(state, stack_frames([frames[i] for i in loc]))
         losses.append(float(m.loss.total))
-        first = state if first is None else first
+        # a graphed step donates its state: the next step overwrites it
+        first = clone_state(state) if first is None else first
         if t + 1 == DENSIFY_AT:
             state, ds = densify_step(state, mcfg, ocfg, 4.0, check_interval=2,
                                      generator=torch.Generator().manual_seed(7))
@@ -135,10 +143,12 @@ def worker(argv) -> None:
     state0 = rt.replicate_tree(inputs["state"])
     prints = rt.fingerprint(state0)
     first, final, losses, dens = _train(state0, inputs["frames"], inputs["cfgs"], mesh, rt)
+    graphed = _train(state0, inputs["frames"], inputs["cfgs"], mesh, rt, graphed=True)
     out, grads = _sharded_render(inputs, rt.global_mesh(data=1, tile=2))
     rt.sync("done")
     if rt.is_coordinator:
         torch.save({"first": first, "final": final, "losses": losses, "densify": dens,
+                    "graphed": graphed,
                     "fingerprints": prints, "backend": rt.backend,
                     "color": out.color.detach(), "depth": out.depth.detach(),
                     "n_overflow": int(out.n_overflow), "visible": out.visible,
@@ -258,6 +268,21 @@ def test_fleet_training_equals_one_process_in_the_fleets_order(fleet):
                     + list(fa[2:]), tree_leaves(fb.params) + tree_leaves(fb.opt.mu)
                     + tree_leaves(fb.opt.nu) + list(fb[2:])):
         assert torch.equal(a, b)
+
+
+def test_fleet_graphed_training_equals_its_eager_run(fleet):
+    """The same processes train the steps again with the step's programs
+    (`DPTrainer(graphed=True)`: static buffers, the all-reduces in place
+    between programs A and B): the eager run's states, losses and densify
+    bit for bit."""
+    from lidargs_torch.train.trainer import state_leaves
+
+    res = fleet[0]
+    first, final, losses, dens = res["graphed"]
+    assert losses == res["losses"] and dens == res["densify"]
+    for got, want in ((first, res["first"]), (final, res["final"])):
+        for a, b in zip(state_leaves(got), state_leaves(want)):
+            assert torch.equal(a, b)
 
 
 def test_fleet_sharded_render_matches_one_process_and_jax(fleet):

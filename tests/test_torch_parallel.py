@@ -58,6 +58,7 @@ from lidargs_torch.models import densify as td
 from lidargs_torch.ops import rasterize as tr
 from lidargs_torch.parallel import Runtime, RuntimeConfig, frame_schedule, make_dp_trainer
 from lidargs_torch.parallel import make_mesh
+from lidargs_torch.parallel.shard import local_sums
 from lidargs_torch.train import trainer as tt
 from lidargs_torch.utils.params import train_state_from_jax
 from lidargs_torch.utils.testing import (
@@ -271,8 +272,17 @@ def test_dp_step_matches_jax(variant):
                             torch.from_numpy(bg), variant=variant)
     t1, tm = tstep(train_state_from_jax(js0, device="cpu"), stack_frames(tfs))
     np.testing.assert_allclose(float(tm.loss.total), float(jm.loss.total), rtol=tol["loss"])
-    for f in ("n_anchors", "n_visible", "n_dropped", "n_overflow"):
+    for f in ("n_anchors", "n_dropped", "n_overflow"):
         assert abs(int(getattr(tm, f)) - int(getattr(jm, f))) <= 2, f
+    # n_visible is each rank's first frame's, maxed over the data axis: JAX's
+    # 4 devices read every frame's, as 4 ranks of one frame each do; the
+    # one-process step reads its first frame's (test_torch_dp_graph.py holds
+    # one process to JAX's 1-device mesh)
+    ranks = [local_sums(train_state_from_jax(js0, device="cpu"), stack_frames([f]),
+                        torch.from_numpy(bg), TM(**model), TR(**raster), TO(**opt),
+                        variant=variant)[1] for f in tfs]
+    assert abs(int(torch.stack(ranks).amax(0)[0]) - int(jm.n_visible)) <= 2
+    assert int(tm.n_visible) == int(ranks[0][0])
     n_live = 0
     for (path, gj), (_, gt), (_, pj), (_, pt) in zip(
             _leaves(j1.opt.mu), _leaves(t1.opt.mu), _leaves(j1.params), _leaves(t1.params)):

@@ -393,12 +393,26 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert dp["fleet"]["first_step_mu_vs_witness"]["bit_equal"]
     assert dp["one_process"]["witness_fleet_order"]["groups"] == [[0, 1], [2, 3]]
     assert min(dp["fleet"][f"{k}_ms_per_step_median"] for k in ("collective", "copy", "wait")) >= 0
+    # the graphed step (its programs' bookkeeping on the CPU) against eager,
+    # bit for bit: one process, both variants and statistics modes; each
+    # rank of the fleet
+    one = dp["one_process"]
+    assert one["graphed"] and one["vs_eager"]["losses_equal"] and one["vs_eager"]["densify_equal"]
+    for part in (one["vs_eager"]["final"], one["vs_eager"]["nostats_after_densify"],
+                 one["surfel"]["final"], one["surfel"]["nostats"]):
+        assert part["graph_vs_eager"]["bit_equal"]
+    assert one["surfel"]["losses_equal"] and set(one["pool_bytes"]) == {
+        "both_modes", "B1_capacity_512", "B2_capacity_512", "B4_capacity_512",
+        "B4_capacity_1024"}
+    assert dp["fleet"]["graphed"] == [True, True] and dp["fleet"]["eager_losses_equal"]
+    assert all(g["bit_equal"] for g in dp["fleet"]["graphed_vs_eager"])
     assert dp["sharded"]["tiles_per_rank"] == 4 and dp["sharded"]["bit_equal"]
     assert dp["sharded"]["grad_launches"] == [[1, 1], [1, 1]]
     assert kernels[0]["launches_dp"] == 8 and kernels[0]["launches_sharded"] == 1
     assert kernels[1]["launches_dp"] == 8 and kernels[5]["launches_dp"] == 4
     cdp = cli["dp"]
     assert cdp["one_process"]["steps"] == 2 and cdp["fleet"]["steps"] == [2, 2]
+    assert cdp["one_process"]["graphed"] is False      # the CLI's default on the CPU: eager
     assert cdp["fleet"]["launches_per_step"] == [1, 1] and cdp["fleet"]["snapshot_anchors"] > 0
     assert "outputs.p1.log" in cdp["fleet"]["files"]
     # phases 31-33: a background and a vehicle sub-scene of 46 + 4 frames,

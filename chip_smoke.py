@@ -89,15 +89,26 @@ then:
      and final evaluations with the chamfer distance and F-score, FPS, the
      dumps and a torch.profiler trace of CLI_PROFILE_STEPS steps; with the
      counts set to 0 just before and read just after, every
-     `Trainer.step` call must launch K1 and K2 once each; `results.json`
-     must hold finite metrics;
- 21. holds `mean_sq_dist_3nn` on the init cloud (KNN_POINTS points) and
-     `chamfer_distance`/`fscore` on test frame 0's dumped render against
-     its GT against a float64 k-d tree (scipy.spatial.cKDTree), and counts
-     the init cloud's voxels at 0.2 m and at the median 3-NN estimate;
+     `Trainer.step` call must launch K1 and K2 once each, every frame an
+     evaluation scores with the chamfer N1 twice (one a direction; none
+     where a cloud is empty), and the init N2 once (the anchors' 3-NN
+     scales); `results.json` must hold finite metrics;
+ 21. holds `mean_sq_dist_3nn` (N2) on the init cloud (KNN_POINTS points)
+     and `chamfer_distance`/`fscore` (N1) on test frame 0's dumped render
+     against its GT against a float64 k-d tree (scipy.spatial.cKDTree), and
+     counts the init cloud's voxels at 0.2 m and at the median 3-NN
+     estimate; holds N2 and N1 against their plain versions on the same
+     points and clouds (each row within `gram_tol` of the tree's neighbour,
+     the chamfer distance and F-score as against the tree), two launches of
+     each bit for bit, and times each kernel, its plain version and the
+     library calls (addmm and topk / amin) that the plain version makes;
+     times `voxelize_points` on the init cloud and `pano_to_lidar` on one
+     frame (the torch ops that answer the native `voxel_unique` and
+     `pano_to_points`);
  22. resumes from the checkpoint to the end (`--start_checkpoint`: K1 and
      K2 once per step again, a densify) and evaluates the snapshot alone
-     (`--load_iteration`: metrics with chamfer, FPS, 12 PNG renders);
+     (`--load_iteration`: metrics with chamfer, N1 twice a scored frame,
+     FPS, 12 PNG renders);
  23. trains the surfel variant through the CLI at its defaults
      (h1/K384/cap32), CLI_SURFEL_ITERS iterations, K5 and K6 once per step;
  24. dumps the beam snapshot's renders (`--load_iteration --dump_renders`),
@@ -166,8 +177,10 @@ then:
      in the opposite lane driving 1.0 m a frame ahead of the sensor (which
      moves 0.6), raycast alone (`raycast_world`) and taken where it is
      nearer than the street; reads it with `read_dynamic_scene` into a
-     background and a vehicle sub-scene; holds `knn3_mean_sq_dist` of the
-     background's DYN_INIT_SAMPLES init points against the k-d tree;
+     background and a vehicle sub-scene; holds `knn3_mean_sq_dist` (N3, one
+     launch) of the background's DYN_INIT_SAMPLES init points against the
+     k-d tree and against its plain version bit for bit, two launches bit
+     for bit, and times N3 and the plain version;
  32. trains each sub-scene DYN_STEPS `Trainer.step`s through the masked
      losses at the CLI's raster defaults (one K1 and one K2 launch a step,
      counted), with one densify; the loss must fall; times a step (CUDA
@@ -194,7 +207,8 @@ the card by default, so phases 1-2, 7-9, 12, 15-24, 27-28, 30-33 and
 phase 29's `measure_dp_rate` run graphed steps and renders (a graph replay
 adds its captured launches to the counts).
 
-It prints a timing line, a `kernels` line, the card's name and power limit
+It prints a timing line, a `kernels` line (K1-K8, then the nearest-neighbour
+kernels N1-N3 of `csrc/knn.cu`), the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
 the last line, `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line; without a CUDA device it exits non-zero at once.
@@ -267,6 +281,12 @@ stop one instance earlier or later.
   * knn3_mean_sq_dist (phase 31) against the k-d tree: each point within
     1e-6 of the tree's value relative (direct float32 differences: about
     eight roundings of the result's size), plus 1e-12 m^2.
+  * N1 and N2 against their plain versions (phase 21): each row within
+    `gram_tol` of the tree's neighbour (the kernels round the dot product
+    and the -2 step in another order than cuBLAS's addmm), the chamfer
+    distance within the mean of those bounds, the F-score within the share
+    of points near tau; N3 against its plain version (phase 31) bit for bit
+    (both round every step alone); two launches of each bit for bit.
   * K4, K8: the owned rows bit for bit equal to K2's, K6's rows [0, count)
     on the same inputs and every other row of dbuf exactly zero; the owned
     rows against the plain versions' within K2_TOL. A fused step's
@@ -339,6 +359,17 @@ CLI_SURFEL_ITERS = 20
 CLI_LOG_EVERY = 50
 CLI_PROFILE_STEPS = 5
 KNN_POINTS = 500_000          # init-cloud points held against the k-d tree
+# FP32 operations per point pair of the nearest-neighbour kernels N1-N3
+# (csrc/knn.cu; each add, multiply, compare or select one): the Gram value
+# |p|^2 - 2 q.p is three multiplies and three adds (the -2 scales the staged
+# point once, not per pair), the direct one three subtracts, three
+# multiplies and two adds; one compare against the minimum or the k-th
+# smallest. The sorted insertion after a compare that wins is left out: it
+# runs O(k log N) times a row, not once a pair.
+OPS_GRAM_PAIR = 7
+OPS_DIRECT_PAIR = 9
+KNN_TIMED = 5                 # kernel launches timed after a warm-up (N1-N3)
+PLAIN_KNN_TIMED = 2           # plain and library calls timed (seconds each at 500k points)
 REFINE_EPOCHS = 5             # refiner epochs over the dumps (JAX's default: 100)
 REFINE_TIMED = 20             # refine steps timed per arch after warm-up
 UNET_CARD_TOL = {"out_max": 1e-4, "rel": 5e-2, "global_rel": 1e-5, "whole": 3e-2}
@@ -764,14 +795,48 @@ def time_vs_plain(kernel, plain, args) -> tuple:
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, ms: float,
-                 plain_ms: float, b: dict, **errors) -> dict:
+                 plain_ms: float, b: dict, library_ms: float | None = None,
+                 **errors) -> dict:
     """One kernel's entry of the `kernels` line; a forward kernel's carries
-    its bound's (tile, warp, row) visits."""
+    its bound's (tile, warp, row) visits, a nearest-neighbour kernel's its
+    pairs."""
     visits = {k: b[k] for k in ("warp_row_visits", "warp_row_visits_in_rect",
-                                "warp_row_visits_masked") if k in b}
+                                "warp_row_visits_masked", "pairs") if k in b}
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **errors, **visits, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": library_ms}
+
+
+def knn_bound(kernel: str, n_q: int, n_p: int, pairs: int, kk: int = 1) -> dict:
+    """The bound of a nearest-neighbour kernel on `n_q` query rows and `n_p`
+    point rows that compares `pairs` point pairs (the valid ones for N1):
+    each input read once, each output written once (N1: both sets [N, 3]
+    float32 and their bool masks, [n_q] out; N2: both sets, [n_q, kk] out;
+    N3: one set of n_q = n_p points, [n_q] out), against `pairs` times the
+    operations a pair."""
+    if kernel == "N1":
+        n_bytes, ops = 13 * (n_q + n_p) + 4 * n_q, OPS_GRAM_PAIR
+    elif kernel == "N2":
+        n_bytes, ops = 12 * (n_q + n_p) + 4 * n_q * kk, OPS_GRAM_PAIR
+    elif kernel == "N3":
+        n_bytes, ops = 16 * n_q, OPS_DIRECT_PAIR
+    else:
+        raise ValueError(f"unknown kernel {kernel}")
+    return {**bound(n_bytes, ops * pairs), "pairs": pairs, "ops_per_pair": ops}
+
+
+def knn_times(kernel, plain, library=None) -> dict:
+    """Median device ms of a nearest-neighbour kernel's wrapper (KNN_TIMED
+    launches after one warm-up), of its plain version and of the library
+    calls that the plain version makes (PLAIN_KNN_TIMED each), from CUDA
+    events."""
+    import numpy as np
+
+    out = {"ms": float(np.median(time_ms(kernel, KNN_TIMED, 1))),
+           "plain_ms": float(np.median(time_ms(plain, PLAIN_KNN_TIMED, 0)))}
+    out["library_ms"] = (None if library is None
+                         else float(np.median(time_ms(library, PLAIN_KNN_TIMED, 0))))
+    return out
 
 
 def profile_render(render, frames: int = 3) -> dict:
@@ -853,7 +918,8 @@ def run(dev) -> None:
 
     # --- build every kernel of the path ---
     t0 = time.perf_counter()
-    libs = cuda_build.build(["composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd"])
+    libs = cuda_build.build(["composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
+                             "knn"])
     build_s = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text().strip()
@@ -988,6 +1054,7 @@ def run(dev) -> None:
         entry["launches_cli"] = cli[run_]["launches"][key]
     dynamic = cli.pop("dynamic")
     k2["launches_dynamic"] = dynamic["launches"]["K2"]
+    n_entries = knn_entries(cli, dynamic)
 
     timing = {
         "card": card_csv,
@@ -1023,7 +1090,7 @@ def run(dev) -> None:
             launches_dynamic=dynamic["launches"]["K1"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
-        ), k2, k3, k4, k5, k6, k7, k8],
+        ), k2, k3, k4, k5, k6, k7, k8, *n_entries],
     }
     print(json.dumps({"timing": timing}))
     print(json.dumps(kernels))
@@ -1031,6 +1098,32 @@ def run(dev) -> None:
     # the run uses one device
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
+
+
+def knn_entries(cli: dict, dynamic: dict) -> list:
+    """The `kernels` line's entries of N1-N3: launches on their paths
+    (phase 20's chamfer evaluations and init, phase 22's eval-only, phase
+    21's oracle call, phase 31's), and the comparisons, times and bounds of
+    phases 21 and 31."""
+    src = "lidargs_torch/csrc/knn.cu"
+    ch, nn, n3 = cli["chamfer_oracle"], cli["knn_oracle"], dynamic["knn3_oracle"]
+
+    def entry(name, replaces, launches, o, **extra):
+        t = o["kernel"]
+        return kernel_entry(name, src, replaces, launches, t["ms"], t["plain_ms"], o["bound"],
+                            library_ms=t["library_ms"], **extra,
+                            max_abs_err=o["vs_plain"]["max_abs_err"])
+
+    return [
+        entry("knn_chamfer", "lidargs_tpu/ops/knn.py:60", cli["beam"]["launches"]["N1"], ch,
+              launches_eval_only=cli["eval_only"]["launches"]["N1"],
+              max_err_over_tol=ch["vs_plain"]["max_err_over_tol"]),
+        entry("knn_gram_topk", "lidargs_tpu/ops/knn.py:22", cli["beam"]["launches"]["N2"], nn,
+              launches_oracle=nn["launches"],
+              max_err_over_tol=nn["vs_plain"]["max_err_over_tol"]),
+        entry("knn3_direct", "lidargs_tpu/native/lidargs_native.cpp:80", n3["launches"], n3,
+              bit_equal=n3["vs_plain"]["bit_equal"]),
+    ]
 
 
 def train_frames(dev, beams, n: int | None = None) -> list:
@@ -1711,26 +1804,37 @@ def gram_tol(x, y):
 
 
 def knn_oracle(dev, points, direct: bool = False):
-    """`mean_sq_dist_3nn` on the card against a float64 k-d tree
+    """`mean_sq_dist_3nn` (N2) on the card against a float64 k-d tree
     (scipy.spatial.cKDTree) on the same float32 points: every row within
     `gram_tol` (the sorted k smallest move by at most the largest error).
-    With `direct`, `knn3_mean_sq_dist` (direct differences) within
-    DYN_KNN_TOL of the tree's value, timed once without a warm-up run."""
+    With `direct`, `knn3_mean_sq_dist` (N3, direct differences) within
+    DYN_KNN_TOL of the tree's value, timed once without a warm-up run. The
+    launches of that one call are counted (the counter set to 0 just before
+    and read just after). Then the kernel against its plain version on the
+    same points: N2's 3 nearest (`knn_sqdist`) each within `gram_tol` of the
+    tree's neighbour of that rank, N3 bit for bit; two launches bit for bit;
+    the kernel, plain and library times (`knn_times`) and the bound."""
     import numpy as np
     import torch
     from scipy.spatial import cKDTree
 
-    from lidargs_torch.ops.knn import knn3_mean_sq_dist, mean_sq_dist_3nn
+    from lidargs_torch.ops import knn
+    from lidargs_torch.ops import knn_kernel as nk
 
-    fn = knn3_mean_sq_dist if direct else mean_sq_dist_3nn
+    fn = knn.knn3_mean_sq_dist if direct else knn.mean_sq_dist_3nn
+    counter = "knn3_launches" if direct else "knn_launches"
     pts = torch.from_numpy(points).to(dev)
     if not direct:
         fn(pts)                                 # warm-up
     torch.cuda.synchronize()
+    setattr(nk, counter, 0)
     t0 = time.perf_counter()
     got = fn(pts)
     torch.cuda.synchronize()
     knn_ms = (time.perf_counter() - t0) * 1e3
+    launches = getattr(nk, counter)
+    if launches != 1:
+        fail(f"{fn.__name__}: {launches} launches of its kernel in one call")
     got = got.cpu().numpy().astype(np.float64)
     p64 = points.astype(np.float64)
     t0 = time.perf_counter()
@@ -1740,12 +1844,47 @@ def knn_oracle(dev, points, direct: bool = False):
     tol = (DYN_KNN_TOL["rel"] * want + DYN_KNN_TOL["abs"] if direct
            else gram_tol(p64, p64[idx[:, 3]]))
     err = np.abs(got - want)
-    out = {"points": len(points), "ms": knn_ms, "ckdtree_s": tree_s,
+    out = {"points": len(points), "ms": knn_ms, "ckdtree_s": tree_s, "launches": launches,
            "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
            "max_err_over_tol": float((err / tol).max()), "max_tol": float(tol.max()),
            "median_port": float(np.median(got)), "median_oracle": float(np.median(want))}
     if not out["max_err_over_tol"] <= 1.0:
         fail(f"{fn.__name__} against cKDTree: {out}")
+
+    # --- the kernel against its plain version on the same points ---
+    n = len(points)
+    if direct:
+        call = lambda: knn.knn3_mean_sq_dist(pts)
+        plain = lambda: knn.knn3_mean_sq_dist_plain(pts)
+        library = None             # no PyTorch call computes a 3-NN by direct differences
+        b = knn_bound("N3", n, n, n * (n - 1))
+    else:
+        call = lambda: knn.knn_sqdist(pts, pts, 3, exclude_self=True)
+        plain = lambda: knn.knn_sqdist_plain(pts, pts, 3, exclude_self=True)
+        p2 = (pts * pts).sum(-1)
+        pT = pts.T.contiguous()
+        rows = knn._rows_per_chunk(pts, n, None)
+        # the library calls of the plain version alone (addmm + topk), the
+        # norms made outside the timed span
+        library = lambda: [torch.topk(torch.addmm(p2[None, :], pts[s:s + rows], pT, alpha=-2.0),
+                                      4, dim=1, largest=False, sorted=True)
+                           for s in range(0, n, rows)]
+        b = knn_bound("N2", n, n, n * n, kk=4)
+    k1, k2, want_p = call(), call(), plain()
+    torch.cuda.synchronize()
+    vs = {"launches_bit_equal": bool(torch.equal(k1, k2)),
+          "max_abs_err": float((k1 - want_p).abs().max())}
+    if direct:
+        vs.update(bit_equal=bool(torch.equal(k1, want_p)), n_differ=int((k1 != want_p).sum()))
+        ok = vs["bit_equal"]
+    else:
+        ptol = np.stack([gram_tol(p64, p64[idx[:, c]]) for c in (1, 2, 3)], 1)
+        perr = np.abs(k1.cpu().numpy().astype(np.float64) - want_p.cpu().numpy())
+        vs["max_err_over_tol"] = float((perr / ptol).max())
+        ok = vs["max_err_over_tol"] <= 1.0
+    if not (ok and vs["launches_bit_equal"]):
+        fail(f"{'N3' if direct else 'N2'} against its plain version: {vs}")
+    out.update(vs_plain=vs, kernel=knn_times(call, plain, library), bound=b)
     return out
 
 
@@ -1754,12 +1893,16 @@ def chamfer_oracle(dev, dump: Path, beams, depth_min: float, depth_max: float):
     render against its GT (the clouds `evaluate_frame` builds), against a
     float64 k-d tree: each point's squared distance within `gram_tol`, the
     chamfer distance within the mean of the bounds, the F-score within the
-    share of points whose distance lies within its bound of tau."""
+    share of points whose distance lies within its bound of tau. Then N1
+    (`_chamfer_dir`, both directions) against its plain version on the same
+    clouds with the same bounds, two launches bit for bit, the kernel, plain
+    and library times of one direction (`knn_times`) and the bound."""
     import numpy as np
     import torch
     from scipy.spatial import cKDTree
 
     from lidargs_torch.lidar.pano import pano_to_lidar
+    from lidargs_torch.ops import knn
     from lidargs_torch.ops.knn import chamfer_distance, fscore
 
     tau = 0.05
@@ -1792,7 +1935,53 @@ def chamfer_oracle(dev, dump: Path, beams, depth_min: float, depth_max: float):
     if not (out["max_err_over_tol"] <= 1.0 and abs(cd - cd_want) <= out["cd_tol"]
             and abs(f - f_want) <= near + 1e-6):
         fail(f"chamfer/F-score against cKDTree: {out}")
+
+    # --- N1 against its plain version on the same clouds ---
+    a, bb = (x.to(torch.float32).contiguous() for x in (pred, gt))
+    q1, q2 = knn._chamfer_dir_plain(a, v1, bb, v2), knn._chamfer_dir_plain(bb, v2, a, v1)
+    again = knn._chamfer_dir(a, v1, bb, v2)
+    torch.cuda.synchronize()
+    pe1 = np.abs(d1.cpu().numpy().astype(np.float64) - q1.cpu().numpy())
+    pe2 = np.abs(d2.cpu().numpy().astype(np.float64) - q2.cpu().numpy())
+    cd_plain = float(q1.sum() / v1.sum().clamp_min(1) + q2.sum() / v2.sum().clamp_min(1))
+    f_plain = fscore(q1, q2, tau, v1, v2)[0]
+    vs = {"max_err_over_tol": float(max((pe1 / t1).max(), (pe2 / t2).max())),
+          "max_abs_err": float(max(pe1.max(), pe2.max())), "cd_plain": cd_plain,
+          "fscore_plain": f_plain, "launches_bit_equal": bool(torch.equal(d1, again))}
+    if not (vs["max_err_over_tol"] <= 1.0 and abs(cd - cd_plain) <= out["cd_tol"]
+            and abs(f - f_plain) <= near + 1e-6 and vs["launches_bit_equal"]):
+        fail(f"N1 against its plain version: {vs}")
+    b2 = torch.where(v2, (bb * bb).sum(-1), torch.inf)
+    bT = bb.T.contiguous()
+    rows = knn._rows_per_chunk(a, bb.shape[0], None)
+    # the library calls of the plain version alone (addmm + amin), the norms
+    # made outside the timed span
+    library = lambda: [torch.addmm(b2[None, :], a[s:s + rows], bT, alpha=-2.0).amin(1)
+                       for s in range(0, a.shape[0], rows)]
+    times = knn_times(lambda: knn._chamfer_dir(a, v1, bb, v2),
+                      lambda: knn._chamfer_dir_plain(a, v1, bb, v2), library)
+    out.update(vs_plain=vs, kernel=times,
+               bound=knn_bound("N1", a.shape[0], bb.shape[0], int(v1.sum()) * int(v2.sum())))
     return out
+
+
+def chamfer_launches(label: str, chamfers: list, sweeps: int, out: Path) -> dict:
+    """N1's launches in a CLI run's evaluations (`probe(metrics,
+    "_chamfer_metrics", (N1's count,))`): `sweeps` sweeps over the frames
+    that `per_view.json` lists, each frame scored once, with two launches
+    (one a direction) unless a cloud is empty (an infinite distance and no
+    launch). Fails unless that holds and some frame launched."""
+    import numpy as np
+
+    n_frames = sum(len(v) for v in json.loads((out / "per_view.json").read_text()).values())
+    if len(chamfers) != sweeps * n_frames:
+        fail(f"{label}: {len(chamfers)} chamfer frames, not {sweeps} x {n_frames}")
+    bad = [(c["result"], c["launches"]) for c in chamfers
+           if c["launches"][0] != (2 if np.isfinite(c["result"][0]) else 0)]
+    launches = sum(c["launches"][0] for c in chamfers)
+    if bad or launches == 0:
+        fail(f"{label}: N1 launches per chamfer frame {bad[:4]}, {launches} in all")
+    return {"frames": len(chamfers), "N1": launches}
 
 
 def cli_results(out: Path, split: str = "test") -> dict:
@@ -1818,8 +2007,10 @@ def cli_phases(dev):
     from lidargs_torch.data.ply import read_point_cloud
     from lidargs_torch.data.synthetic import make_street_dataset
     from lidargs_torch.data.waymo import WAYMO_TEST_IDX
+    from lidargs_torch.lidar.pano import pano_to_lidar
     from lidargs_torch.models.field import voxelize_points
     from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import knn_kernel as nk
     from lidargs_torch.ops import surfel_kernel as sk
     from lidargs_torch.train import cli, metrics
     from lidargs_torch.train.trainer import Trainer
@@ -1845,15 +2036,23 @@ def cli_phases(dev):
     beam_counts = (lambda: ck.launches, lambda: ck.bwd_launches)
 
     # --- 20. the beam variant trains, evaluates, saves and profiles ---
-    ck.launches = ck.bwd_launches = 0
+    n1_count = (lambda: nk.chamfer_launches,)
+    ck.launches = ck.bwd_launches = nk.chamfer_launches = nk.knn_launches = 0
     with probe(Trainer, "step", beam_counts) as steps, \
             probe(cli, "run_eval") as evals, probe(cli, "measure_fps") as fps, \
-            probe(metrics, "_chamfer_metrics") as chamfers:
+            probe(metrics, "_chamfer_metrics", n1_count) as chamfers:
         cli.main(argv + ["--dump_renders", "--profile_steps", str(CLI_PROFILE_STEPS)])
-    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    launches = {"K1": ck.launches, "K2": ck.bwd_launches, "N1": nk.chamfer_launches,
+                "N2": nk.knn_launches}
     per_step = {tuple(c["launches"]) for c in steps}
     if len(steps) != CLI_ITERS or per_step != {(1, 1)}:
         fail(f"CLI beam run: {len(steps)} steps launching (K1, K2) {per_step} times each")
+    scored = chamfer_launches("CLI beam run", chamfers, len(evals), out)
+    # the init's 3-NN: the anchors' scales, and the voxel size's median at 0
+    n2_want = 1 if float(CLI_VOXEL) > 0 else 2
+    if scored["N1"] != launches["N1"] or launches["N2"] != n2_want:
+        fail(f"CLI beam run: N1 {launches['N1']} (chamfer frames: {scored}), N2 "
+             f"{launches['N2']} (not {n2_want}) launches")
     log = (out / "outputs.log").read_text()
     if f"iter {CLI_ITERS}: densify" not in log:
         fail("CLI beam run: no densify at the last iteration")
@@ -1874,6 +2073,7 @@ def cli_phases(dev):
         "profiled_steps": CLI_PROFILE_STEPS,
         "fps": fps[-1]["result"], "eval_s": [c["s"] for c in evals],
         "chamfer_ms_per_frame_median": float(np.median([c["s"] for c in chamfers]) * 1e3),
+        "chamfer_frames": scored["frames"],
         "anchors": int(re.search(r"(\d+) anchors, voxel", log).group(1)), "test": test,
     }
     print(f"# cli beam: {json.dumps(beam)}", file=sys.stderr)
@@ -1885,7 +2085,19 @@ def cli_phases(dev):
               for v in (float(CLI_VOXEL), knn["median_port"])}
     beams = json.loads((root / "transforms_train.json").read_text())["beam_inclinations"]
     chamfer = chamfer_oracle(dev, out / "renders" / "test_000.npy", beams, 5.0, 80.0)
-    print(f"# cli oracle: 3-NN {knn}; voxels {voxels}; chamfer {chamfer}", file=sys.stderr)
+    # the port's torch-op answers to the native library's other two functions
+    # (voxel_unique, pano_to_points): device ms by CUDA events
+    init_dev = torch.from_numpy(init).to(dev)
+    r0 = torch.from_numpy(np.load(out / "renders" / "test_000.npy")).to(dev)
+    b0 = torch.as_tensor(beams, dtype=torch.float32, device=dev)
+    native_ms = {
+        "points": len(init),
+        "voxelize_points_ms": float(np.median(time_ms(
+            lambda: voxelize_points(init_dev, float(CLI_VOXEL)), KNN_TIMED, 1))),
+        "pano_to_lidar_ms": float(np.median(time_ms(
+            lambda: pano_to_lidar(r0[5] * r0[3], b0), KNN_TIMED, 1)))}
+    print(f"# cli oracle: 3-NN {knn}; voxels {voxels}; chamfer {chamfer}; native "
+          f"counterparts {native_ms}", file=sys.stderr)
 
     # --- 22. resume from the checkpoint, then evaluate the snapshot alone ---
     ck.launches = ck.bwd_launches = 0
@@ -1897,8 +2109,14 @@ def cli_phases(dev):
     if f"resumed from iteration {half}" not in log or f"iter {CLI_ITERS}: densify" not in log:
         fail("CLI resume: no resume or no densify in its log")
     resumed = cli_results(out)
-    with probe(cli, "run_eval") as evals:
+    nk.chamfer_launches = 0
+    with probe(cli, "run_eval") as evals, \
+            probe(metrics, "_chamfer_metrics", n1_count) as chamfers:
         cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--eval_chamfer"])
+    eval_n1 = nk.chamfer_launches
+    scored_eo = chamfer_launches("CLI eval-only", chamfers, len(evals), out)
+    if scored_eo["N1"] != eval_n1:
+        fail(f"CLI eval-only: {eval_n1} N1 launches, {scored_eo} in the chamfer frames")
     eval_only = cli_results(out)
     n_png = len(list((out / "test_renders").glob("*.png")))
     if n_png != 3 * n_test:
@@ -1927,8 +2145,11 @@ def cli_phases(dev):
     summary = {
         "scene": CLI_SCENE, "dataset_s": dataset_s, "beam": beam,
         "knn_oracle": knn, "voxels": voxels, "chamfer_oracle": chamfer,
+        "native_counterparts": native_ms,
         "resume": {"steps": len(steps), "test": resumed},
-        "eval_only": {"eval_s": evals[-1]["s"], "test": eval_only},
+        "eval_only": {"eval_s": evals[-1]["s"], "test": eval_only, "launches": {"N1": eval_n1},
+                      "chamfer_ms_per_frame_median": float(
+                          np.median([c["s"] for c in chamfers]) * 1e3)},
         "surfel": {"steps": len(s_steps), "launches": s_launches, "test": s_test,
                    "host_ms_per_step_median": float(np.median(s_gaps))},
         "refine": refine,
@@ -2364,21 +2585,29 @@ def count_plain_launches(setter=setattr) -> None:
     CPU rehearsal of this script (`tests/test_torch_smoke_bounds.py`) and
     its fleets' ranks on the CPU, where no kernel launches."""
     from lidargs_torch.ops import composite_kernel as ck
+    from lidargs_torch.ops import knn
+    from lidargs_torch.ops import knn_kernel as nk
     from lidargs_torch.ops import surfel_kernel as sk
 
-    for mod, name, counter in ((ck, "composite_tiles", "launches"),
-                               (ck, "composite_tiles_bwd", "bwd_launches"),
-                               (ck, "composite_windows", "windows_launches"),
-                               (ck, "composite_windows_bwd", "windows_bwd_launches"),
-                               (sk, "surfel_composite_tiles", "launches"),
-                               (sk, "surfel_composite_tiles_bwd", "bwd_launches"),
-                               (sk, "surfel_composite_windows", "windows_launches"),
-                               (sk, "surfel_composite_windows_bwd", "windows_bwd_launches")):
-        def counted(*a, mod=mod, plain=getattr(mod, name + "_plain"), counter=counter):
-            setattr(mod, counter, getattr(mod, counter) + 1)
-            return plain(*a)
+    # (module, function, module of its counter, counter); the distances
+    # dispatch in `ops/knn.py`, their counters live in `ops/knn_kernel.py`
+    for mod, name, cmod, counter in ((ck, "composite_tiles", ck, "launches"),
+                                     (ck, "composite_tiles_bwd", ck, "bwd_launches"),
+                                     (ck, "composite_windows", ck, "windows_launches"),
+                                     (ck, "composite_windows_bwd", ck, "windows_bwd_launches"),
+                                     (sk, "surfel_composite_tiles", sk, "launches"),
+                                     (sk, "surfel_composite_tiles_bwd", sk, "bwd_launches"),
+                                     (sk, "surfel_composite_windows", sk, "windows_launches"),
+                                     (sk, "surfel_composite_windows_bwd", sk,
+                                      "windows_bwd_launches"),
+                                     (knn, "_chamfer_dir", nk, "chamfer_launches"),
+                                     (knn, "knn_sqdist", nk, "knn_launches"),
+                                     (knn, "knn3_mean_sq_dist", nk, "knn3_launches")):
+        def counted(*a, plain=getattr(mod, name + "_plain"), cmod=cmod, counter=counter, **k):
+            setattr(cmod, counter, getattr(cmod, counter) + 1)
+            return plain(*a, **k)
         setter(mod, name, counted)
-        setter(mod, counter, 0)
+        setter(cmod, counter, 0)
 
 
 def sync(dev) -> None:

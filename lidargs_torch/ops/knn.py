@@ -7,22 +7,33 @@ float32 (TF32 off, `lidargs_torch/__init__.py`), the k smallest per row,
 `max(d2, 0)`, invalid rows masked out with inf, and the F-score of the
 reference on the *squared* distances.
 
-The work is chunked over query rows so that a chunk's [rows, N] distance
-block stays within `BLOCK_ELEMS` elements of its device (4 GiB of float32
-on a card, 64 MiB on the CPU). A chunk's block is `addmm(|y|^2, x, y^T, alpha=-2)` followed by the row minimum (or
-the k smallest) and then `+ |x|^2`: rounding is monotone, so adding the
-row's constant after the minimum gives the same value as adding it to
-every element first. Nothing here moves a tensor to another device.
+The plain versions chunk the work over query rows so that a chunk's
+[rows, N] distance block stays within `BLOCK_ELEMS` elements of its device
+(4 GiB of float32 on a card, 64 MiB on the CPU). A chunk's block is
+`addmm(|y|^2, x, y^T, alpha=-2)` followed by the row minimum (or the k
+smallest) and then `+ |x|^2`: rounding is monotone, so adding the row's
+constant after the minimum gives the same value as adding it to every
+element first. The kernels keep that order. Nothing here moves a tensor to
+another device.
 
 `knn3_mean_sq_dist` is the counterpart of the JAX package's native
 `lidargs_tpu.native.knn3_mean_sq_dist` (a grid hash in C++) with its
 semantics instead: squared distances from direct coordinate differences,
 which keep a near neighbour's distance to float32 rounding of its own size
 at any range (no Gram-form cancellation), in chunks of query rows.
+
+On a CUDA tensor the public functions launch the hand-written kernels of
+`ops/knn_kernel.py` (`csrc/knn.cu`): N1 for each direction of
+`chamfer_distance`, N2 for `knn_sqdist` (and `mean_sq_dist_3nn`), N3 for
+`knn3_mean_sq_dist`, with no distance block in memory. On a CPU tensor they
+run the plain versions below (`_chamfer_dir_plain`, `knn_sqdist_plain`,
+`knn3_mean_sq_dist_plain`). There is no path from one to the other.
 """
 from __future__ import annotations
 
 import torch
+
+from . import knn_kernel
 
 BLOCK_ELEMS = {"cuda": 2 ** 30, "cpu": 2 ** 24}
 
@@ -50,7 +61,21 @@ def _f32(x, device=None) -> torch.Tensor:
 def knn_sqdist(queries, points, k: int, chunk=None, exclude_self: bool = False):
     """k smallest squared distances [Nq, k] (ascending) from each query to
     `points`, on the device of `queries`. With `exclude_self` the k+1
-    smallest are taken and the first (the zero self-distance) dropped."""
+    smallest are taken and the first (the smallest, the zero self-distance
+    where the queries are the points) dropped. N2 on a CUDA tensor (k + 1
+    at most `knn_kernel.MAX_K`), the plain version on a CPU tensor."""
+    q = _f32(queries)
+    if q.device.type == "cpu":
+        return knn_sqdist_plain(q, points, k, chunk, exclude_self)
+    out = knn_kernel.knn_sqdist(q.contiguous(), _f32(points, q.device).contiguous(),
+                                k + 1 if exclude_self else k)
+    return out[:, 1:] if exclude_self else out
+
+
+def knn_sqdist_plain(queries, points, k: int, chunk=None, exclude_self: bool = False):
+    """The plain version of `knn_sqdist` (and of N2): a chunk's [rows, N]
+    block of `addmm(|p|^2, q, p^T, alpha=-2)`, its k smallest, then
+    `+ |q|^2`."""
     q = _f32(queries)
     p = _f32(points, q.device)
     _check_no_tf32(q)
@@ -82,11 +107,21 @@ def knn3_mean_sq_dist(points, chunk=None) -> torch.Tensor:
     the float32 coordinate differences, the point itself is excluded (a
     duplicate counts as a neighbour at 0), the three smallest are summed in
     ascending order and divided by 3 even when fewer than three exist, and
-    the result is 0 for N <= 1.
+    the result is 0 for N <= 1. N3 on a CUDA tensor (its bits are the plain
+    version's), the plain version on a CPU tensor."""
+    p = _f32(points)
+    if p.device.type == "cpu":
+        return knn3_mean_sq_dist_plain(p, chunk)
+    return knn_kernel.knn3_mean_sq_dist(p.contiguous())
 
-    A chunk is `rows` query rows against all N points: three [rows, N]
-    float32 blocks at a time, `rows` = a quarter of `BLOCK_ELEMS` // N
-    unless `chunk` is given."""
+
+def knn3_mean_sq_dist_plain(points, chunk=None) -> torch.Tensor:
+    """The plain version of `knn3_mean_sq_dist` (and of N3). A chunk is
+    `rows` query rows against all N points: three [rows, N] float32 blocks
+    at a time, `rows` = a quarter of `BLOCK_ELEMS` // N unless `chunk` is
+    given. The sum is divided by a tensor of 3, a true division on either
+    device (PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, one rounding more)."""
     p = _f32(points)
     n = p.shape[0]
     if n <= 1:
@@ -108,13 +143,25 @@ def knn3_mean_sq_dist(points, chunk=None) -> torch.Tensor:
         acc = best[:, 0]
         for j in range(1, k):
             acc = acc + best[:, j]
-        out.append(acc / 3.0)
+        out.append(acc / torch.full_like(acc, 3.0))
     return torch.cat(out)
 
 
 def _chamfer_dir(a, a_valid, b, b_valid, chunk=None) -> torch.Tensor:
     """min_j |a_i - b_j|^2 for every valid a_i (0 where a_i is invalid;
-    invalid b rows excluded)."""
+    invalid b rows excluded; +inf where no b row is valid). N1 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if a.device.type == "cpu":
+        return _chamfer_dir_plain(a, a_valid, b, b_valid, chunk)
+    return knn_kernel.chamfer_dir(a.contiguous(), a_valid.contiguous(), b.contiguous(),
+                                  b_valid.contiguous())
+
+
+def _chamfer_dir_plain(a, a_valid, b, b_valid, chunk=None) -> torch.Tensor:
+    """The plain version of `_chamfer_dir` (and of N1): a chunk's [rows, Nb]
+    block of `addmm(|b|^2, a, b^T, alpha=-2)` with +inf norms on the
+    invalid b rows, its row minimum, then `+ |a|^2`."""
+    _check_no_tf32(a)
     a2 = (a * a).sum(-1)
     if b.shape[0] == 0:
         return torch.where(a_valid, torch.inf, 0.0)
@@ -134,7 +181,6 @@ def chamfer_distance(pred, gt, chunk=None, pred_valid=None, gt_valid=None):
     out (default: every row valid)."""
     a = _f32(pred)
     b = _f32(gt, a.device)
-    _check_no_tf32(a)
     av = (torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
           if pred_valid is None else pred_valid.to(a.device))
     bv = (torch.ones(b.shape[0], dtype=torch.bool, device=a.device)

@@ -51,7 +51,8 @@ ELSEWHERE = {
         ("ops/surfel_kernel.py", "surfel_composite_windows",
          "K7/K8 behind one autograd function"),
     ("native/__init__.py", "knn3_mean_sq_dist"):
-        ("ops/knn.py", "knn3_mean_sq_dist", "the exact 3-NN on the device"),
+        ("ops/knn.py", "knn3_mean_sq_dist",
+         "the exact 3-NN on the device: kernel N3 of csrc/knn.cu on a card"),
     ("native/__init__.py", "voxel_unique"):
         ("models/field.py", "voxelize_points", "the voxel dedup on the device"),
     ("native/__init__.py", "pano_to_points"):
@@ -85,7 +86,8 @@ JAX_ONLY = {
         "picks the Pallas backend on a TPU; the port's wrappers launch their kernel on a CUDA "
         "tensor",
     ("ops/knn.py", "_chunk_knn_sqdist"):
-        "a lax.map chunk body; the port's chunks are a Python loop in knn_sqdist",
+        "a lax.map chunk body; on a card knn_sqdist launches kernel N2 of csrc/knn.cu, "
+        "on the CPU its plain version loops over chunks",
     ("models/raydrop.py", "_conv"): "a functional convolution; the port's is nn.Conv2d",
     ("models/raydrop.py", "_bn"): "a functional batch norm; the port's is nn.BatchNorm2d",
     ("train/lpips.py", "_conv3x3"): "a functional convolution; the port's is nn.Conv2d",

@@ -200,6 +200,34 @@ def test_walked_surfel_pairs_counts_the_sequential_walk(case):
     assert want[4] <= want[6] <= want[7] and want[6] < want[5]
 
 
+@pytest.mark.parametrize("kernel,n_q,n_p,pairs,kk,n_bytes,ops", [
+    # N1: both [N, 3] float32 sets and their bool masks read, [n_q] written;
+    # 7 operations a valid pair (the Gram value's three multiplies and three
+    # adds, one compare)
+    ("N1", 1000, 800, 900 * 700, 1, 13 * 1800 + 4 * 1000, 7),
+    # N2: both sets read, [n_q, kk] written
+    ("N2", 500, 500, 500 * 500, 4, 12 * 1000 + 4 * 500 * 4, 7),
+    # N3: one set read, [n] written; 9 operations a pair of distinct points
+    # (three subtracts, three multiplies, two adds, one compare)
+    ("N3", 300, 300, 300 * 299, 1, 16 * 300, 9),
+])
+def test_knn_bound_counts_pairs_operations_and_bytes(kernel, n_q, n_p, pairs, kk, n_bytes, ops):
+    """The bound of N1-N3 in `chip_smoke.py`: the pairs times the operations
+    a pair over the FP32 peak, beside each input byte read once and each
+    output byte written once over the memory rate; the larger names it."""
+    b = chip_smoke.knn_bound(kernel, n_q, n_p, pairs, kk)
+    assert (b["pairs"], b["ops_per_pair"], b["bytes"], b["ops"]) == (pairs, ops, n_bytes,
+                                                                    ops * pairs)
+    assert b["ops_ms"] == pytest.approx(ops * pairs / chip_smoke.PEAK_FP32_OPS_PER_S * 1e3)
+    assert b["bytes_ms"] == pytest.approx(n_bytes / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    assert b["bound_ms"] == max(b["ops_ms"], b["bytes_ms"]) and b["bound_by"] == "operations"
+    # a frame of the street evaluation: 169,600 points a side, ~2.9 ms a direction
+    frame = chip_smoke.knn_bound("N1", 169_600, 169_600, 169_600 ** 2)
+    assert 2.9 < frame["bound_ms"] < 3.1
+    with pytest.raises(ValueError, match="unknown kernel"):
+        chip_smoke.knn_bound("N4", 1, 1, 1)
+
+
 def test_kernel_ab_needs_labelled_source_trees():
     with pytest.raises(SystemExit, match="LABEL=CSRC_DIR"):
         kernel_ab.main([])
@@ -331,8 +359,13 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
         "composite_fwd", "composite_bwd", "composite_fwd_windows", "composite_bwd_windows",
-        "surfel_fwd", "surfel_bwd", "surfel_fwd_windows", "surfel_bwd_windows"]
-    assert [k["launches"] for k in kernels] == [3, 2] * 4
+        "surfel_fwd", "surfel_bwd", "surfel_fwd_windows", "surfel_bwd_windows",
+        "knn_chamfer", "knn_gram_topk", "knn3_direct"]
+    assert [k["launches"] for k in kernels[:8]] == [3, 2] * 4
+    assert all(k["source"] == "lidargs_torch/csrc/knn.cu" for k in kernels[8:])
+    assert [k["replaces"] for k in kernels[8:]] == [
+        "lidargs_tpu/ops/knn.py:60", "lidargs_tpu/ops/knn.py:22",
+        "lidargs_tpu/native/lidargs_native.cpp:80"]
     timing = json.loads(lines[-4])["timing"]
     surfel = timing["surfel"]
     assert surfel["k5_launches_train"] == surfel["k6_launches"] == 2
@@ -360,9 +393,28 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert cli["beam"]["launches"]["K2"] == 4 and cli["beam"]["launches"]["K1"] > 4
     assert [k.get("launches_cli") for k in kernels] == [
         cli["beam"]["launches"]["K1"], 4, None, None, cli["surfel"]["launches"]["K5"], 2,
-        None, None]
+        None, None, None, None, None]
     assert cli["knn_oracle"]["points"] == 3000 and cli["knn_oracle"]["max_err_over_tol"] <= 1
     assert cli["chamfer_oracle"]["max_err_over_tol"] <= 1
+    # N1-N3: two N1 launches a chamfer frame with both clouds (phase 20's two
+    # sweeps of 12 frames, phase 22's one), one N2 launch at the init (the
+    # anchors' scales at voxel 1.0), one in the oracle, one N3 launch in
+    # phase 31; each held to its plain version and timed beside it
+    n1, n2, n3 = kernels[8:]
+    assert cli["beam"]["chamfer_frames"] == 24
+    assert 0 < n1["launches"] == cli["beam"]["launches"]["N1"] <= 48 and n1["launches"] % 2 == 0
+    assert 0 < n1["launches_eval_only"] == cli["eval_only"]["launches"]["N1"] <= 24
+    assert n2["launches"] == cli["beam"]["launches"]["N2"] == 1 and n2["launches_oracle"] == 1
+    assert n3["launches"] == 1 and n3["bit_equal"]
+    for k in (n1, n2, n3):
+        assert k["ms"] == k["plain_ms"] == 1.0 and k["bound_by"] == "operations"
+        assert k["max_abs_err"] == 0.0 and k["bound_ms"] > 0
+    assert n1["library_ms"] == n2["library_ms"] == 1.0 and n3["library_ms"] is None
+    oracle = cli["chamfer_oracle"]
+    assert n1["pairs"] == oracle["pred_points"] * oracle["gt_points"]
+    assert oracle["vs_plain"]["launches_bit_equal"] and oracle["vs_plain"]["max_err_over_tol"] == 0
+    assert n2["pairs"] == 3000 ** 2 and n3["pairs"] == 3000 * 2999
+    assert cli["knn_oracle"]["vs_plain"]["launches_bit_equal"]
     for run in (cli["beam"], cli["resume"], cli["eval_only"]):
         assert {"depth_cd", "depth_fscore"} <= set(run["test"])
         assert np.isfinite(run["test"]["intensity_psnr"])

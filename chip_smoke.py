@@ -825,6 +825,24 @@ def knn_bound(kernel: str, n_q: int, n_p: int, pairs: int, kk: int = 1) -> dict:
     return {**bound(n_bytes, ops * pairs), "pairs": pairs, "ops_per_pair": ops}
 
 
+def knn_plan(dev, n_q: int, n_p: int, kk=None) -> dict:
+    """The launch plan N1 (`kk` None) or N2 runs on these shapes on this card
+    (`ops/knn_kernel.py` `plan_on_card`): rows a thread R, cluster size S,
+    row blocks, slice rows, blocks, the blocks an SM holds, and the merge
+    (the partners' lists read by cluster rank 0 from their shared memory)."""
+    import dataclasses
+
+    from lidargs_torch.ops import knn_kernel as nk
+
+    plan = nk.plan_on_card(n_q, n_p, dev, kk)
+    return {**dataclasses.asdict(plan), "blocks": plan.blocks,
+            "blocks_per_sm": nk.card_plan_inputs(dev.index or 0, kk)[1], "merge": "cluster"}
+
+
+# N3 keeps one query row a thread and one block over the whole set
+N3_PLAN = {"rows_per_thread": 1, "cluster": 1, "merge": "none"}
+
+
 def knn_times(kernel, plain, library=None) -> dict:
     """Median device ms of a nearest-neighbour kernel's wrapper (KNN_TIMED
     launches after one warm-up), of its plain version and of the library
@@ -1103,8 +1121,9 @@ def run(dev) -> None:
 def knn_entries(cli: dict, dynamic: dict) -> list:
     """The `kernels` line's entries of N1-N3: launches on their paths
     (phase 20's chamfer evaluations and init, phase 22's eval-only, phase
-    21's oracle call, phase 31's), and the comparisons, times and bounds of
-    phases 21 and 31."""
+    21's oracle call, phase 31's), the comparisons, times and bounds of
+    phases 21 and 31, each kernel's launch plan and the pairs it compares a
+    second."""
     src = "lidargs_torch/csrc/knn.cu"
     ch, nn, n3 = cli["chamfer_oracle"], cli["knn_oracle"], dynamic["knn3_oracle"]
 
@@ -1112,7 +1131,8 @@ def knn_entries(cli: dict, dynamic: dict) -> list:
         t = o["kernel"]
         return kernel_entry(name, src, replaces, launches, t["ms"], t["plain_ms"], o["bound"],
                             library_ms=t["library_ms"], **extra,
-                            max_abs_err=o["vs_plain"]["max_abs_err"])
+                            max_abs_err=o["vs_plain"]["max_abs_err"], plan=o["plan"],
+                            pairs_per_s=o["bound"]["pairs"] / (t["ms"] / 1e3))
 
     return [
         entry("knn_chamfer", "lidargs_tpu/ops/knn.py:60", cli["beam"]["launches"]["N1"], ch,
@@ -1858,6 +1878,7 @@ def knn_oracle(dev, points, direct: bool = False):
         plain = lambda: knn.knn3_mean_sq_dist_plain(pts)
         library = None             # no PyTorch call computes a 3-NN by direct differences
         b = knn_bound("N3", n, n, n * (n - 1))
+        plan = N3_PLAN
     else:
         call = lambda: knn.knn_sqdist(pts, pts, 3, exclude_self=True)
         plain = lambda: knn.knn_sqdist_plain(pts, pts, 3, exclude_self=True)
@@ -1870,6 +1891,7 @@ def knn_oracle(dev, points, direct: bool = False):
                                       4, dim=1, largest=False, sorted=True)
                            for s in range(0, n, rows)]
         b = knn_bound("N2", n, n, n * n, kk=4)
+        plan = knn_plan(dev, n, n, 4)
     k1, k2, want_p = call(), call(), plain()
     torch.cuda.synchronize()
     vs = {"launches_bit_equal": bool(torch.equal(k1, k2)),
@@ -1884,7 +1906,7 @@ def knn_oracle(dev, points, direct: bool = False):
         ok = vs["max_err_over_tol"] <= 1.0
     if not (ok and vs["launches_bit_equal"]):
         fail(f"{'N3' if direct else 'N2'} against its plain version: {vs}")
-    out.update(vs_plain=vs, kernel=knn_times(call, plain, library), bound=b)
+    out.update(vs_plain=vs, kernel=knn_times(call, plain, library), bound=b, plan=plan)
     return out
 
 
@@ -1961,7 +1983,8 @@ def chamfer_oracle(dev, dump: Path, beams, depth_min: float, depth_max: float):
     times = knn_times(lambda: knn._chamfer_dir(a, v1, bb, v2),
                       lambda: knn._chamfer_dir_plain(a, v1, bb, v2), library)
     out.update(vs_plain=vs, kernel=times,
-               bound=knn_bound("N1", a.shape[0], bb.shape[0], int(v1.sum()) * int(v2.sum())))
+               bound=knn_bound("N1", a.shape[0], bb.shape[0], int(v1.sum()) * int(v2.sum())),
+               plan=knn_plan(dev, a.shape[0], bb.shape[0]))
     return out
 
 

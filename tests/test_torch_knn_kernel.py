@@ -2,7 +2,9 @@
 nearest-neighbour distances against the JAX package's `ops/knn.py` and its
 native `knn3_mean_sq_dist` on the kernels' edge cases, the public functions
 of `lidargs_torch/ops/knn.py` against the plain versions, the wrappers'
-input checks, and (on a card) the kernels against the plain versions.
+input checks, N1's and N2's launch plan and packed point rows, a plain
+mirror of their split of the point set and merge against the unsplit plain
+versions, and (on a card) the kernels against the plain versions.
 
 Edge cases: validity masks on both sides, an empty valid set (+inf for a
 valid row, 0 for an invalid one), duplicates and ties, sets of 0 and 1
@@ -19,11 +21,17 @@ Tolerances, each with its reason:
     contract a product and a sum into an FMA);
   * an infinite distance, a masked row's 0 and the public functions against
     the plain versions on the CPU: equal;
+  * the packed rows against (-2 p, |p|^2) and the split-and-merge mirror
+    against the unsplit plain versions: equal bit for bit (the scaling by
+    -2 is exact; a minimum and the k smallest do not depend on how the
+    values are split);
   * on the card, N1 and N2 against the plain versions: the Gram bound above
     (the kernels round the dot product and the -2 step in another order than
     cuBLAS's addmm); N3 bit for bit (both round every step alone); two
     launches of each kernel bit for bit (no atomics).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -218,6 +226,135 @@ def test_wrappers_refuse_tensors_off_the_card():
     assert (nk.chamfer_launches, nk.knn_launches, nk.knn3_launches) == before
 
 
+H100_SMS = 132
+# blocks of N1's and N2's instances an H100 SM holds (their registers: the
+# card's occupancy query, `knn_kernel.card_plan_inputs`)
+BLOCKS_PER_SM = {None: 8, 4: 6}
+
+
+def _plan_ok(plan, n_q, n_p, kk=None, n_sm=H100_SMS, blocks_per_sm=8):
+    """The invariants of every launch plan: the row blocks cover the rows,
+    the last one ragged at most; whole groups a slice; the slices cover the
+    points, the padding less than a group a slice (the last slices may hold
+    padding alone); and no other cluster size fills the resident blocks'
+    waves better."""
+    rows = nk.THREADS * plan.rows_per_thread
+    assert plan.rows_per_thread == nk.rows_per_thread(kk) == (8 if kk is None else 4)
+    assert (plan.row_blocks - 1) * rows < n_q <= plan.row_blocks * rows
+    top = nk.MAX_CLUSTER if kk is None else nk.TOPK_MAX_CLUSTER
+    assert 1 <= plan.cluster <= top and plan.slice_rows % nk.GROUP == 0
+    assert plan.packed_rows >= n_p and plan.packed_rows - n_p < plan.cluster * nk.GROUP
+    resident = n_sm * blocks_per_sm
+    fill = lambda s: plan.row_blocks * s / (resident * -(-plan.row_blocks * s // resident))
+    assert all(fill(s) <= fill(plan.cluster)
+               for s in range(1, min(top, -(-n_p // nk.GROUP)) + 1))
+
+
+@pytest.mark.parametrize("name,n_q,n_p,kk,want", [
+    # phase 21's N1, test frame 0's clouds, one direction: 158 row blocks of
+    # 1,024 rows; S = 6 gives 948 blocks, one wave of the 1,056 resident
+    ("chamfer_frame", 160_899, 162_912, None, (8, 6, 158, 27_152)),
+    # a full frame of the evaluation, both sides 64 x 2650
+    ("chamfer_full", 169_600, 169_600, None, (8, 6, 166, 28_272)),
+    # N2 on the 500k init cloud (phases 20-21), k = 3 + the query: 977 row
+    # blocks of 512 rows, two slices
+    ("init_3nn", 500_000, 500_000, 4, (4, 2, 977, 250_000)),
+])
+def test_launch_plan_on_the_smoke_shapes(name, n_q, n_p, kk, want):
+    """N1's and N2's launch plans on the shapes `chip_smoke.py` gives them
+    at an H100's 132 SMs."""
+    plan = nk.launch_plan(n_q, n_p, H100_SMS, BLOCKS_PER_SM[kk], kk)
+    assert dataclasses.astuple(plan) == want
+    _plan_ok(plan, n_q, n_p, kk, blocks_per_sm=BLOCKS_PER_SM[kk])
+
+
+@pytest.mark.parametrize("n_q,n_p,kk,want", [
+    (1025, 5000, None, (8, 8, 2, 632)),     # a ragged last row block of one row
+    (3000, 100, None, (8, 8, 3, 16)),       # slices shorter than a stage, the last padding
+    (3000, 100, 1, (4, 2, 6, 56)),
+    (10, 3, 1, (4, 1, 1, 8)),               # fewer points than a group: one slice
+    (1025, 9, None, (8, 2, 2, 8)),          # two groups: two slices
+    (7, 0, None, (8, 1, 1, 0)),             # N1 against no point: nothing staged
+    (4096, 9, 8, (4, 2, 8, 8)),             # k = 8
+    (1, 1, None, (8, 1, 1, 8)),
+])
+def test_launch_plan_edges(n_q, n_p, kk, want):
+    """The plan at its edges: a ragged last block, a slice shorter than a
+    stage, fewer points than a cluster's blocks, no points, k of 1 and 8."""
+    plan = nk.launch_plan(n_q, n_p, H100_SMS, 8, kk)
+    assert dataclasses.astuple(plan) == want
+    _plan_ok(plan, n_q, n_p, kk)
+    assert plan.slice_rows < nk.STAGE_ROWS or n_p > 1000
+    with pytest.raises(ValueError, match="no launch plan"):
+        nk.launch_plan(0, n_p, H100_SMS, 8, kk)
+    with pytest.raises(ValueError, match="no launch plan"):
+        nk.launch_plan(n_q, n_p, H100_SMS, 0, kk)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_packed_rows_are_the_scaled_points_and_norms(masked):
+    """The wrapper's packed stage rows: (-2 p, |p|^2) bit for bit (the norm
+    the plain versions compute, +inf on an invalid row), the rows past the
+    set (0, 0, 0, +inf)."""
+    p = torch.from_numpy(_with_duplicates(_street_points(80, 1003, 0.1), 81))
+    p[:5] = 0.0                                          # -2 * 0 is -0.0
+    valid = torch.from_numpy(_masks(82, 1003, 1003)[1]) if masked else None
+    plan = nk.launch_plan(777, 1003, H100_SMS, 8, None if masked else 4)
+    packed = nk.pack_points(p, plan, valid)
+    assert packed.dtype == torch.float32 and tuple(packed.shape) == (plan.packed_rows, 4)
+    bits = lambda x: x.contiguous().view(torch.int32)
+    want = torch.from_numpy(np.float32(-2.0) * p.numpy())
+    assert torch.equal(bits(packed[:1003, :3]), bits(want))
+    norms = (p * p).sum(-1)
+    if masked:
+        norms = torch.where(valid, norms, torch.inf)
+        assert torch.isinf(packed[:1003, 3][~valid]).all()
+    assert torch.equal(bits(packed[:1003, 3]), bits(norms))
+    pad = packed[1003:]
+    assert len(pad) > 0 and (bits(pad[:, :3]) == 0).all() and torch.isinf(pad[:, 3]).all()
+
+
+def _split_merge(values, plan, kk):
+    """A plain mirror of N1's / N2's split and merge: `values` [nq, np]
+    padded with +inf to the plan's packed rows, each slice's kk smallest
+    (+inf where a slice holds fewer), then the kk smallest of the slices'
+    lists, ascending."""
+    nq, n = values.shape
+    v = torch.cat([values, values.new_full((nq, plan.packed_rows - n), torch.inf)], 1)
+    lists = []
+    for r in range(plan.cluster):
+        sl = v[:, r * plan.slice_rows:(r + 1) * plan.slice_rows]
+        best = torch.topk(sl, min(kk, sl.shape[1]), dim=1, largest=False, sorted=True).values
+        lists.append(torch.cat([best, v.new_full((nq, kk - best.shape[1]), torch.inf)], 1))
+    return torch.topk(torch.cat(lists, 1), kk, dim=1, largest=False, sorted=True).values
+
+
+@pytest.mark.parametrize("kk,n_p,cluster", [(1, 261, 8), (4, 261, 8), (8, 261, 2), (8, 20, 3),
+                                            (4, 4, 1), (4, 100, 8)])
+def test_split_and_merge_equal_the_unsplit_plain_versions(kk, n_p, cluster):
+    """Slices of the point set as a launch plan cuts them, each reduced to
+    its minimum (N1) or its kk smallest (N2) and merged, give the unsplit
+    plain versions' bits, with ties (duplicate points) and invalid rows;
+    slices shorter than kk, and slices of padding alone (100 points in 8
+    slices of 16), too."""
+    a = _street_points(90, 300, 0.1)
+    b = np.concatenate([_with_duplicates(_street_points(91, n_p, 0.1), 92)[:n_p - n_p // 4],
+                        a[:n_p // 4]])
+    av, bv = (torch.from_numpy(m) for m in _masks(93, 300, n_p))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    groups = -(-n_p // nk.GROUP)
+    plan = nk.LaunchPlan(4, cluster, 1, nk.GROUP * -(-groups // cluster))
+    # the plain versions' values before + |q|^2: one addmm block each
+    gram = lambda q, p, p2: torch.addmm(p2[None, :], q, p.T.contiguous(), alpha=-2.0)
+    q2 = (ta * ta).sum(-1)
+    got = _split_merge(gram(ta, tb, (tb * tb).sum(-1)), plan, kk) + q2[:, None]
+    assert torch.equal(got, tk.knn_sqdist_plain(ta, tb, kk))
+    b2 = torch.where(bv, (tb * tb).sum(-1), torch.inf)
+    mins = _split_merge(gram(ta, tb, b2), plan, 1)[:, 0] + q2
+    assert torch.equal(torch.where(av, mins.clamp_min(0.0), 0.0),
+                       tk._chamfer_dir_plain(ta, av, tb, bv))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -279,3 +416,44 @@ def test_n3_equals_plain_on_card():
     assert torch.equal(got, again) and torch.equal(got, tk.knn3_mean_sq_dist_plain(pts))
     for n in range(1, 6):
         assert torch.equal(tk.knn3_mean_sq_dist(pts[:n]), tk.knn3_mean_sq_dist_plain(pts[:n]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n_p", [(1, 1), (1025, 7), (2049, 100), (3 * 1024 + 17, 5003)])
+def test_n1_n2_ragged_plans_on_card(n_q, n_p):
+    """N1 and N2 (k = 1, 4, 8 where the set has them) where the plan cuts the
+    row blocks and the slices raggedly, and a slice is shorter than a stage:
+    within the Gram bound of the plain versions, two launches bit for bit."""
+    dev = _card()
+    q = torch.from_numpy(_street_points(100, n_q, 0.1)).to(dev)
+    p = torch.from_numpy(_with_duplicates(_street_points(101, n_p, 0.1), 102)).to(dev)
+    qv, pv = (torch.from_numpy(m).to(dev) for m in _masks(103, n_q, n_p))
+    qn, pn = q.cpu().numpy(), p.cpu().numpy()
+    got, again = tk._chamfer_dir(q, qv, p, pv), tk._chamfer_dir(q, qv, p, pv)
+    want = tk._chamfer_dir_plain(q, qv, p, pv)
+    assert torch.equal(got, again) and bool((got[~qv] == 0).all())
+    m = (qv & (pv.any())).cpu().numpy()
+    if m.any():
+        tol = torch.from_numpy(_tol(qn[m], pn[pv.cpu().numpy()])).to(dev)
+        assert bool(((got[m] - want[m]).abs() <= tol).all())
+    for k in (1, 4, 8):
+        if k > n_p:
+            continue
+        got, again = tk.knn_sqdist(q, p, k), tk.knn_sqdist(q, p, k)
+        tol = torch.from_numpy(_tol(qn, pn)[:, None]).to(dev)
+        assert torch.equal(got, again)
+        assert bool(((got - tk.knn_sqdist_plain(q, p, k)).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises_on_card(monkeypatch):
+    """A plan the kernel refuses (a cluster beyond 8 blocks) raises at the
+    launch, and nothing is counted; nothing runs in its place."""
+    dev = _card()
+    pts = torch.from_numpy(_street_points(110, 500)).to(dev)
+    bad = nk.LaunchPlan(4, 9, 1, 64)
+    monkeypatch.setattr(nk, "launch_plan", lambda *a, **k: bad)
+    before = nk.knn_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tk.knn_sqdist(pts, pts, 4)
+    assert nk.knn_launches == before

@@ -30,6 +30,7 @@ import torch
 
 import chip_smoke
 from lidargs_torch.config import RasterConfig as TCfg
+from lidargs_torch.ops import knn_kernel
 from lidargs_torch.ops.projection import PackedCols as PC
 from lidargs_torch.utils import cuda_build, kernel_ab
 from lidargs_torch.ops.surfel import SurfelCols as S
@@ -233,23 +234,46 @@ def test_kernel_ab_needs_labelled_source_trees():
         kernel_ab.main([])
     with pytest.raises(SystemExit, match="LABEL=CSRC_DIR"):
         kernel_ab.main(["out", "lidargs_torch/csrc"])
+    with pytest.raises(SystemExit, match="LABEL=CSRC_DIR"):          # a source of KERNELS only
+        kernel_ab.main(["out", "knn3", "new=lidargs_torch/csrc"])
 
 
 @pytest.mark.parametrize("name", sorted(kernel_ab.KERNELS))
 def test_kernel_ab_binds_exported_launch_functions(name):
     """Each launch function `KERNELS` names is an `extern "C"` function of
-    its source, with the tensor pointers and float constants `_bind`
+    its source, with the tensor pointers, ints and float constants `_bind`
     declares for it (a text check: the sources build only on the card)."""
-    symbol, n_ptr, n_float = kernel_ab.KERNELS[name]
     src = (cuda_build.CSRC / f"{name}.cu").read_text()
     exported = src[src.index('extern "C" {'):]
-    m = re.search(rf"\bint {symbol}\(([^)]*)\)\s*{{", exported)
-    assert m, f"{symbol} is not an extern \"C\" function of {name}.cu"
-    params = [" ".join(p.split()) for p in m.group(1).split(",")]
-    assert [p.split()[0] for p in params[n_ptr:n_ptr + 5]] == ["int"] * 5
-    assert len(params) == n_ptr + 5 + n_float + 1 and params[-1] == "void* stream"
-    assert all("*" in p for p in params[:n_ptr])
-    assert all(p.split()[0] == "float" for p in params[n_ptr + 5:-1])
+    for symbol, n_ptr, n_int, n_float in kernel_ab.KERNELS[name]:
+        m = re.search(rf"\bint {symbol}\(([^)]*)\)\s*{{", exported)
+        assert m, f"{symbol} is not an extern \"C\" function of {name}.cu"
+        params = [" ".join(p.split()) for p in m.group(1).split(",")]
+        assert [p.split()[0] for p in params[n_ptr:n_ptr + n_int]] == ["int"] * n_int
+        assert len(params) == n_ptr + n_int + n_float + 1 and params[-1] == "void* stream"
+        assert all("*" in p for p in params[:n_ptr])
+        assert all(p.split()[0] == "float" for p in params[n_ptr + n_int:-1])
+    if name == "knn":
+        assert kernel_ab.knn_interface(cuda_build.CSRC / "knn.cu") is kernel_ab.KERNELS["knn"]
+
+
+def test_kernel_ab_knn_binds_the_first_design_and_its_plans(tmp_path):
+    """A `knn.cu` whose N1 takes the point rows and their norms (the first
+    design) is bound by `KNN_ROWS`; the plans with another cluster size
+    keep the package's rows and cover the same points."""
+    old = tmp_path / "knn.cu"
+    old.write_text('extern "C" {\nint lidargs_knn_chamfer(const float* a, const float* a2, '
+                   'const uint8_t* a_valid,\n const float* b, const float* b2, float* out, '
+                   'int na, int nb, void* stream) {}\n}')
+    assert kernel_ab.knn_interface(old) is kernel_ab.KNN_ROWS
+    assert [s[1:] for s in kernel_ab.KNN_ROWS] == [(6, 2, 0), (5, 3, 0)]
+    base = knn_kernel.launch_plan(160_899, 162_912, 132, 8)
+    assert kernel_ab.knn_plan(160_899, 162_912, 132, 8, None) == base
+    for cluster in kernel_ab.KNN_CLUSTERS:
+        plan = kernel_ab.knn_plan(160_899, 162_912, 132, 8, None, cluster)
+        assert (plan.rows_per_thread, plan.row_blocks) == (base.rows_per_thread, base.row_blocks)
+        assert plan.cluster == cluster
+        assert 0 <= plan.packed_rows - 162_912 < plan.cluster * knn_kernel.GROUP
 
 
 def test_kernel_ab_reads_resources_and_scales_columns():
@@ -258,6 +282,14 @@ def test_kernel_ab_reads_resources_and_scales_columns():
            "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
            "ptxas info    : Used 96 registers, used 1 barriers\n")
     assert kernel_ab.resources(log) == {"2,1,128,4": [96, 12, 16]}
+    knn_log = ("ptxas info    : Function properties for _ZN49_GLOBAL__N__1_11gram_kernelILi4ELi8E"
+               "Lb0EEEvNS_8GramArgsE\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+               "spill loads\nptxas info    : Used 90 registers, used 1 barriers\n"
+               "ptxas info    : Function properties for _ZN38_GLOBAL__N__25e71a40_6_knn_cu_"
+               "aa1a685211knn3_kernelEPKfPfi\n"
+               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+               "ptxas info    : Used 40 registers, used 1 barriers\n")
+    assert kernel_ab.resources(knn_log) == {"4,8,0": [90, 0, 0], "knn3_kernel": [40, 0, 0]}
     want = torch.zeros(3, 4, 8)
     want[..., :5] = torch.randn(3, 4, 5, generator=torch.Generator().manual_seed(0))
     assert kernel_ab.column_scaled(want.clone(), want, 5)["within_tol"]
@@ -340,6 +372,7 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cuda_build, "build", lambda names, csrc=None: {})
     monkeypatch.setattr(chip_smoke, "sync_checked", lambda fn, label: fn())
     monkeypatch.setattr(chip_smoke, "pool_bytes", lambda pool: "not measured")
+    monkeypatch.setattr(knn_kernel, "card_plan_inputs", lambda index, kk: (132, 8))
     # four CLI steps leave the ray-drop channel untrained, so a test frame's
     # render can be empty and its chamfer distance inf (the reference's value
     # for an empty cloud): require the metrics, finite but for that
@@ -414,6 +447,13 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert n1["pairs"] == oracle["pred_points"] * oracle["gt_points"]
     assert oracle["vs_plain"]["launches_bit_equal"] and oracle["vs_plain"]["max_err_over_tol"] == 0
     assert n2["pairs"] == 3000 ** 2 and n3["pairs"] == 3000 * 2999
+    # each entry carries its launch plan (132 SMs of 8 blocks stubbed) and
+    # pairs a second
+    assert n1["plan"]["merge"] == n2["plan"]["merge"] == "cluster"
+    assert n2["plan"]["rows_per_thread"] == 4 and n2["plan"]["cluster"] == 2
+    assert n1["plan"]["rows_per_thread"] == 8 and n1["plan"]["blocks_per_sm"] == 8
+    assert n3["plan"] == chip_smoke.N3_PLAN
+    assert all(k["pairs_per_s"] == k["pairs"] / 1e-3 for k in (n1, n2, n3))
     assert cli["knn_oracle"]["vs_plain"]["launches_bit_equal"]
     for run in (cli["beam"], cli["resume"], cli["eval_only"]):
         assert {"depth_cd", "depth_fscore"} <= set(run["test"])

@@ -119,9 +119,12 @@ then:
      refine`, `--arch mlp` (128x4 on 169,600 rays a step) and `--arch unet`
      (channels 32 on 64x2656), REFINE_EPOCHS epochs (JAX's default is 100:
      listed as `reduced`): finite losses, the last epoch's below the first
-     step's; times one step of each (CUDA events) and profiles 3; holds the
-     UNet's output and parameter gradients on one dumped frame on the card
-     against the same on the CPU;
+     step's; trains the UNet again from equal inputs and requires every
+     parameter and the loss history equal bit for bit, then runs one UNet
+     refine step under `torch.use_deterministic_algorithms(True)`, which
+     must not raise; times one step of each (CUDA events) and profiles 3;
+     holds the UNet's output and parameter gradients on one dumped frame on
+     the card against the same on the CPU;
  26. evaluates the snapshot with each refiner and a random LPIPS npz in the
      converter's layout (`--raydrop_refiner`, `--lpips_weights`, no
      chamfer): finite `intensity_lpips` and the refined ray-drop metrics in
@@ -180,7 +183,8 @@ then:
      background and a vehicle sub-scene; holds `knn3_mean_sq_dist` (N3, one
      launch) of the background's DYN_INIT_SAMPLES init points against the
      k-d tree and against its plain version bit for bit, two launches bit
-     for bit, and times N3 and the plain version;
+     for bit, and times N3 and the plain version, beside the launch plan it
+     ran (rows a thread, cluster size, blocks);
  32. trains each sub-scene DYN_STEPS `Trainer.step`s through the masked
      losses at the CLI's raster defaults (one K1 and one K2 launch a step,
      counted), with one densify; the loss must fall; times a step (CUDA
@@ -225,7 +229,9 @@ stop one instance earlier or later.
     H100 read a mean of 3.9e-9, a max of 9.7e-7 and no element beyond 2e-5
     over 183,125 touched rows: the max allows ~1000 times that, and a flip
     whose pixel carries more than 0.1% of its column's largest gradient
-    fails.
+    fails. A miss (K2, K4, K6 or K8) leaves the backward's arguments, the
+    kernel's dinst and the worst element's column share in an npz under
+    $CHIP_SMOKE_OUT (else build/chip_smoke/) and prints its path first.
   * Gradients of one step, kernels against plain versions, per parameter
     leaf: |g_k - g_p| / |g_p| <= 1e-2 and cosine >= 0.999 (both variants).
   * K5 (and the tiled surfel render against the golden one): features, T,
@@ -259,7 +265,16 @@ stop one instance earlier or later.
     backward takes each channel's mean out of the cotangent and the weight
     gradients above it sum that against positive activations, so a rounding
     error in the mean returns multiplied by about sqrt(pixels)
-    (`tests/test_torch_raydrop.py` measures the spread on the CPU).
+    (`tests/test_torch_raydrop.py` measures the spread on the CPU). A leaf
+    whose exact gradient is 0 (found by a float64 pass on the CPU,
+    `utils/unet_repro.py` `zero_exact_leaves`: `inc.bias`, which reaches
+    the loss only through training-mode BatchNorms) is rounding noise on
+    both sides, so its own norm is no scale: it is held within
+    `zero_eps` = 64 float32 epsilons of the norm over channels of the
+    per-channel L1 norm of the gradient at its module's output, the terms
+    its gradient sums. The H100 read 0.06-0.09 such epsilons against
+    float64 at init on 64 x 2656 frames, its host's CPU 2.4-7.5 (the CPU's
+    sums dominate; `utils/unet_repro.py`).
   * LPIPS of one frame on the card against the CPU: 1e-4 relative (float32
     convolutions and means in another order).
   * Data-parallel (DP_TOL): DP_BATCH identical frames against one step,
@@ -297,6 +312,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -372,7 +388,8 @@ KNN_TIMED = 5                 # kernel launches timed after a warm-up (N1-N3)
 PLAIN_KNN_TIMED = 2           # plain and library calls timed (seconds each at 500k points)
 REFINE_EPOCHS = 5             # refiner epochs over the dumps (JAX's default: 100)
 REFINE_TIMED = 20             # refine steps timed per arch after warm-up
-UNET_CARD_TOL = {"out_max": 1e-4, "rel": 5e-2, "global_rel": 1e-5, "whole": 3e-2}
+UNET_CARD_TOL = {"out_max": 1e-4, "rel": 5e-2, "global_rel": 1e-5, "whole": 3e-2,
+                 "zero_eps": 64}
 LPIPS_CARD_RTOL = 1e-4
 # data-parallel and multi-process training, the sharded render (phases 27-30)
 DP_BATCH = 4                  # frames a data-parallel step
@@ -582,11 +599,44 @@ def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
     return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
-def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
+def out_dir() -> Path:
+    """Where the run leaves files for later study: $CHIP_SMOKE_OUT, else
+    build/chip_smoke/ of this checkout."""
+    return Path(os.environ.get("CHIP_SMOKE_OUT") or ROOT / "build" / "chip_smoke")
+
+
+def save_bwd_miss(name: str, args: tuple, got, scaled) -> Path:
+    """Keep a backward kernel's miss for study: an npz under `out_dir()`
+    with the captured arguments of the backward (tensors as `arg<i>`, the
+    others, a RasterConfig as its fields, in the JSON `meta`), the kernel's
+    dinst as compared (`dinst`), and the worst element's index and column
+    share (`scaled`: |got - want| over the column's largest magnitude)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    out = out_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"miss_{re.sub(r'[^A-Za-z0-9]+', '_', name).strip('_')}.npz"
+    arrays = {f"arg{i}": a.detach().cpu().numpy() for i, a in enumerate(args)
+              if isinstance(a, torch.Tensor)}
+    meta = {f"arg{i}": dataclasses.asdict(a) if dataclasses.is_dataclass(a) else a
+            for i, a in enumerate(args) if not isinstance(a, torch.Tensor)}
+    worst = np.unravel_index(int(scaled.argmax()), tuple(scaled.shape))
+    np.savez_compressed(path, **arrays, dinst=got.detach().cpu().numpy(),
+                        worst_index=np.array(worst), worst_share=float(scaled.max()),
+                        meta=json.dumps(meta))
+    return path
+
+
+def check_dinst(name: str, got, want, nv: int, tol: dict, inputs: tuple = ()) -> dict:
     """A backward kernel's dinst ([T, K, F], or the owned rows [n, F] of a
     window kernel's dbuf) against the plain version's, each of its first
     `nv` columns scaled by its largest magnitude; the columns after must be
-    zero. Fails out of `tol`."""
+    zero. Fails out of `tol`, after leaving `inputs` (the backward's
+    arguments) and the worst element's column share in an npz
+    (`save_bwd_miss`) and printing its path."""
     import torch
 
     if not bool(torch.isfinite(got).all()):
@@ -602,6 +652,9 @@ def check_dinst(name: str, got, want, nv: int, tol: dict) -> dict:
            "rows_touched": int((want[..., :nv].abs().amax(-1) > 0).sum())}
     for k in ("mean", "far_count", "max"):
         if not err[k] <= tol[k]:
+            if inputs:
+                path = save_bwd_miss(name, inputs, got, d)
+                print(f"# {name}: the miss's inputs are in {path}", file=sys.stderr)
             fail(f"{name} vs plain: {k} = {err[k]:.3e} exceeds {tol[k]:.1e} ({err})")
     print(f"# {name} vs plain (one step's inputs): {err}", file=sys.stderr)
     return err
@@ -771,9 +824,9 @@ def kernel_vs_plain(mod, name: str, grads, nv: int, tol: dict, label: str):
         own = owned_rows(*captured[0][1:3], d_k.shape[0])
         if bool((d_k[~own] != 0).any()):
             fail(f"{label}: a row that no tile owns is not zero")
-        err = check_dinst(label, d_k[own], d_p[own], nv, tol)
+        err = check_dinst(label, d_k[own], d_p[own], nv, tol, captured[0])
     else:
-        err = check_dinst(label, d_k, d_p, nv, tol)
+        err = check_dinst(label, d_k, d_p, nv, tol, captured[0])
     vs_plain = grad_diff({**g_k, "proxy": pg_k}, {**g_p, "proxy": pg_p})
     for leaf, e in vs_plain.items():
         if e["norm"] == 0:
@@ -825,22 +878,20 @@ def knn_bound(kernel: str, n_q: int, n_p: int, pairs: int, kk: int = 1) -> dict:
     return {**bound(n_bytes, ops * pairs), "pairs": pairs, "ops_per_pair": ops}
 
 
-def knn_plan(dev, n_q: int, n_p: int, kk=None) -> dict:
-    """The launch plan N1 (`kk` None) or N2 runs on these shapes on this card
-    (`ops/knn_kernel.py` `plan_on_card`): rows a thread R, cluster size S,
-    row blocks, slice rows, blocks, the blocks an SM holds, and the merge
-    (the partners' lists read by cluster rank 0 from their shared memory)."""
+def knn_plan(dev, n_q: int, n_p: int, kk=None, direct: bool = False) -> dict:
+    """The launch plan N1 (`kk` None), N2 or N3 (`direct`) runs on these
+    shapes on this card (`ops/knn_kernel.py` `plan_on_card`): rows a thread
+    R, cluster size S, row blocks, slice rows, blocks, the blocks an SM
+    holds, and the merge (the partners' lists read by cluster rank 0 from
+    their shared memory)."""
     import dataclasses
 
     from lidargs_torch.ops import knn_kernel as nk
 
-    plan = nk.plan_on_card(n_q, n_p, dev, kk)
+    plan = nk.plan_on_card(n_q, n_p, dev, kk, direct)
     return {**dataclasses.asdict(plan), "blocks": plan.blocks,
-            "blocks_per_sm": nk.card_plan_inputs(dev.index or 0, kk)[1], "merge": "cluster"}
-
-
-# N3 keeps one query row a thread and one block over the whole set
-N3_PLAN = {"rows_per_thread": 1, "cluster": 1, "merge": "none"}
+            "blocks_per_sm": nk.card_plan_inputs(dev.index or 0, kk, direct)[1],
+            "merge": "cluster"}
 
 
 def knn_times(kernel, plain, library=None) -> dict:
@@ -904,6 +955,10 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--fleet":
         fleet_worker(json.loads(sys.argv[2]), sys.argv[3:])
         return
+    # cuBLAS is deterministic only with a fixed workspace, which must be set
+    # before CUDA starts: phase 25 runs a UNet step under
+    # torch.use_deterministic_algorithms(True), which refuses cuBLAS without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1878,7 +1933,7 @@ def knn_oracle(dev, points, direct: bool = False):
         plain = lambda: knn.knn3_mean_sq_dist_plain(pts)
         library = None             # no PyTorch call computes a 3-NN by direct differences
         b = knn_bound("N3", n, n, n * (n - 1))
-        plan = N3_PLAN
+        plan = knn_plan(dev, n, n, direct=True)
     else:
         call = lambda: knn.knn_sqdist(pts, pts, 3, exclude_self=True)
         plain = lambda: knn.knn_sqdist_plain(pts, pts, 3, exclude_self=True)
@@ -2185,36 +2240,79 @@ def cli_phases(dev):
 
 def unet_card_vs_cpu(model, x, gt) -> dict:
     """The UNet's output and parameter gradients (the MSE over the real
-    pixels of one padded frame `x`) on its device against a copy on the
-    CPU, within UNET_CARD_TOL."""
+    pixels of one padded frame `x`) on its device, under deterministic
+    cuDNN, against a copy on the CPU, within UNET_CARD_TOL. A leaf whose
+    exact gradient is 0 (`utils/unet_repro.py` `zero_exact_leaves`, a
+    float64 pass on the CPU) is rounding noise on both sides: it is bounded
+    by `zero_eps` float32 epsilons of its rounding scale, not by its own
+    norm."""
     import copy
 
     import numpy as np
-    import torch
 
-    H, W = gt.shape
-    runs = []
-    for m in (model, copy.deepcopy(model).cpu()):
-        dev = next(m.parameters()).device
-        m.zero_grad(set_to_none=True)
-        out = m(x.to(dev)[None])
-        torch.mean((out[0, 0, :H, :W] - gt.to(dev)) ** 2).backward()
-        runs.append((out.detach().cpu().numpy(),
-                     {k: p.grad.detach().cpu().numpy() for k, p in m.named_parameters()}))
-    (o_k, g_k), (o_c, g_c) = runs
+    from lidargs_torch.models import raydrop
+    from lidargs_torch.utils.unet_repro import unet_grads, zero_exact_leaves
+
+    with raydrop.deterministic_convs():
+        o_k, g_k, _ = unet_grads(model, x, gt)
+    o_c, g_c, _ = unet_grads(copy.deepcopy(model).cpu(), x, gt)
+    zero = zero_exact_leaves(model, x, gt)
     total = np.sqrt(sum(float((g ** 2).sum()) for g in g_c.values()))
     errs = {k: float(np.linalg.norm(g_k[k] - g)) for k, g in g_c.items()}
-    leaf = {k: e / (UNET_CARD_TOL["rel"] * float(np.linalg.norm(g_c[k]))
-                    + UNET_CARD_TOL["global_rel"] * total) for k, e in errs.items()}
+    eps = float(np.finfo(np.float32).eps)
+    tol = {k: (UNET_CARD_TOL["zero_eps"] * eps * zero[k] if k in zero
+               else UNET_CARD_TOL["rel"] * float(np.linalg.norm(g_c[k]))
+               + UNET_CARD_TOL["global_rel"] * total) for k in errs}
+    leaf = {k: e / tol[k] for k, e in errs.items()}
     worst = max(leaf, key=leaf.get)
     res = {"out_max_abs": float(np.abs(o_k - o_c).max()),
            "grad_whole_rel": float(np.sqrt(sum(e * e for e in errs.values())) / total),
            "grad_worst_leaf": worst,
            "grad_worst_leaf_rel": errs[worst] / max(float(np.linalg.norm(g_c[worst])), 1e-30),
-           "grad_worst_leaf_over_tol": leaf[worst], "tol": UNET_CARD_TOL}
+           "grad_worst_leaf_over_tol": leaf[worst],
+           "zero_exact_leaves": {k: {"err": errs[k], "scale": zero[k], "over_tol": leaf[k]}
+                                 for k in zero},
+           "tol": UNET_CARD_TOL}
     if not (res["out_max_abs"] <= UNET_CARD_TOL["out_max"]
             and res["grad_whole_rel"] <= UNET_CARD_TOL["whole"] and leaf[worst] <= 1.0):
         fail(f"UNet on the card against the CPU: {res}")
+    return res
+
+
+def unet_reproducible(model, hist, dumps: dict, dev, x, gt) -> dict:
+    """The UNet that `cli refine` trained, against a second training from
+    equal inputs (the same dumps, epochs and torch seed 0): every parameter
+    and the loss history equal bit for bit. Then one refine step of the
+    second model under `torch.use_deterministic_algorithms(True)`, which
+    raises if an op of the step has no deterministic CUDA implementation
+    (cuBLAS's needs CUBLAS_WORKSPACE_CONFIG, set by `main`)."""
+    import torch
+
+    from lidargs_torch.models import raydrop
+
+    t0 = time.perf_counter()
+    again, hist2 = raydrop.train_unet_refiner(
+        raydrop.init_unet(torch.Generator().manual_seed(0), in_channels=3, device=dev),
+        dumps["raydrop"], dumps["intensity"], dumps["depth"], dumps["gt"],
+        epochs=REFINE_EPOCHS)
+    train_s = time.perf_counter() - t0
+    differ = [k for (k, p), q in zip(model.named_parameters(), again.parameters())
+              if not torch.equal(p, q)]
+    res = {"second_training_s": train_s, "params_differ": differ,
+           "history_equal": hist2 == hist, "leaves": len(list(model.parameters()))}
+    if differ or not res["history_equal"]:
+        fail(f"UNet training is not reproducible: {res}, histories {hist} / {hist2}")
+    opt, sched = raydrop.refiner_optimizer(again)
+    torch.use_deterministic_algorithms(True)
+    try:
+        raydrop.refine_step(again, opt, sched, raydrop.unet_loss, x, gt)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        fail(f"a UNet refine step under torch.use_deterministic_algorithms(True): {e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["deterministic_algorithms_step"] = "ok"
+    print(f"# UNet reproducible: {json.dumps(res)}", file=sys.stderr)
     return res
 
 
@@ -2277,6 +2375,8 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
         if (len(steps) != REFINE_EPOCHS * n_train or not np.isfinite(hist).all()
                 or not hist[-1] < first):
             fail(f"refine {arch}: {len(steps)} steps, first loss {first}, history {hist}")
+        if arch == "unet":
+            refine["unet_reproducible"] = unet_reproducible(model, hist, d, dev, *args)
         opt, sched = raydrop.refiner_optimizer(model)
         step = lambda: raydrop.refine_step(model, opt, sched, loss_fn, *args)
         step_ms = time_ms(step, REFINE_TIMED, 3)

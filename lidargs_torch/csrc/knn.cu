@@ -16,7 +16,7 @@
 //      lidargs_tpu/native/lidargs_native.cpp (a C++ grid hash), on one set
 //      (q = p):
 //        each d2 = (dx*dx + dy*dy) + dz*dz of the float32 differences, each
-//        step rounded alone (no FMA); the point itself excluded by index (a
+//        step rounded alone (no FMA); the point itself excluded (a
 //        duplicate counts at 0); the three smallest summed in ascending
 //        order, (b0 + b1) + b2, over min(3, n - 1) of them, and divided by 3.
 //
@@ -26,8 +26,9 @@
 // |p|^2) (the scaling by -2 is exact; +inf norms on N1's invalid rows), cut
 // into `cluster` slices of `slice` rows each, the rows past the set padded
 // with (0, 0, 0, +inf), which no minimum or k-list takes
-// (lidargs_torch/ops/knn_kernel.py `pack_points`). A pair costs three FMAs,
-// fmaf(qx, sx, fmaf(qy, sy, fmaf(qz, sz, sw))). Adding |q_i|^2 after the
+// (lidargs_torch/ops/knn_kernel.py `pack_points`); for N3 it packs the
+// rows (x, y, z, 0), the rows past the set +inf. A Gram pair costs three
+// FMAs, fmaf(qx, sx, fmaf(qy, sy, fmaf(qz, sz, sw))). Adding |q_i|^2 after the
 // minimum is the plain versions' order: rounding is monotone, so the
 // minimum's value is the same. Only the per-pair dot product and the -2 step
 // round differently from cuBLAS's addmm. No tensor cores: TF32 would move the
@@ -43,41 +44,43 @@
 // points and distances (~1 us at 3.35 TB/s). N3 at 500,000 points is 2.5e11
 // pairs at 9 operations (three subtracts, three multiplies, two adds, one
 // compare): ~34 ms. So all three are bound by operations. A Gram pair needs
-// 3 FFMA + 1 FMNMX issue slots (the bound counts 3.5), so the design aims
-// to issue nothing else a pair.
+// 3 FFMA + 1 FMNMX issue slots (the bound counts 3.5), a direct pair 8
+// FADD / FMUL + 1 FMNMX (the bound counts 4.5: none of them is an FMA), so
+// the design aims to issue nothing else a pair.
 //
-// N1 and N2 (`gram_kernel`):
+// N1, N2 and N3 (`sweep_kernel`, one scaffold):
 //   * each thread keeps R adjacent query rows in registers (N2: R sorted
 //     k-lists), a block kThreads * R adjacent rows, so a staged point read
 //     from shared memory (one LDS.128, a broadcast) serves R pairs and the
 //     loop carries R independent chains; rows stay in the caller's order.
-//     R is 8 for N1 and 4 for N2, whose k-lists take the registers
+//     R is 8 for N1 and 4 for N2 and N3, whose k-lists take the registers
 //     (measured, utils/kernel_ab.py);
 //   * a thread-block cluster of S blocks takes the same rows, each block
 //     sweeping one slice of the point set. After `cluster.sync()` block
-//     rank 0 reads its partners' minima (N1) or k-lists (N2) from their
+//     rank 0 reads its partners' minima (N1) or k-lists (N2, N3) from their
 //     shared memory (`map_shared_rank`), merges them and writes the output:
 //     one launch, no scratch tensor, no atomics. One block of R * kThreads
 //     rows a cluster would leave the SMs idle: N1's ~161k rows make ~158
 //     such blocks for 132 SMs. The launch plan (ops/knn_kernel.py
 //     `launch_plan`) takes the S that fills the SMs' resident blocks in the
-//     fullest waves; N2 at most 2, since each slice warms its k-lists up
-//     from +inf and its insertions grow with S;
+//     fullest waves; N2 and N3 at most 2, since each slice warms its k-lists
+//     up from +inf and its insertions grow with S;
 //   * a block streams its slice through a two-stage ring in shared memory,
 //     kStageRows float4 rows a stage, by one bulk copy each (fwd_stage.cuh:
 //     one elected thread, completing on the stage's mbarrier), stage c + 1
 //     landing while the block works on stage c;
-//   * N2 keeps each row's k-list sorted by a network of fminf / fmaxf that
-//     runs only where a value beats the list's last (the k-th smallest).
-//     The kGroup values of a row from one group of staged points are
-//     tested at once, their minimum against the k-th smallest, and the
-//     offers run behind that one test (a test a pair ran 2.5x slower).
-//
-// N3 (`knn3_kernel`) keeps its first design: one thread per query row,
-// kThreads rows a block, the set staged synchronously kTile rows at a time,
-// every thread reading each row by broadcast, the query row excluded by its
-// index only in the one stage that holds the block's rows (kTile is a
-// multiple of kThreads), so the other stages pay no index compare.
+//   * N2 and N3 keep each row's k-list sorted by a network of fminf / fmaxf
+//     that runs only where a value beats the list's last (the k-th
+//     smallest). The kGroup values of a row from one group of staged points
+//     are tested at once, their minimum against the k-th smallest, and the
+//     offers run behind that one test (a test a pair ran 2.5x slower);
+//   * N3 pays no index compare for the query row itself: it keeps the K = 4
+//     smallest values with the row's own distance among them and drops the
+//     first. That distance is exactly +0 (q - q rounds to +0, and no
+//     distance is below it), so it is the list's first value, or a
+//     duplicate's equal +0 is; the other three are then the three smallest
+//     of the row's others, duplicates at 0 included, summed in ascending
+//     order as the plain version sums its top-3 by index exclusion.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,11 +98,16 @@ constexpr int kMaxK = 8;        // the most smallest values N2 keeps a row
 constexpr int kMaxCluster = 8;  // blocks a cluster: the portable cluster size
 constexpr int kRowsChamfer = 8; // R of N1: query rows a thread
 constexpr int kRowsTopK = 4;    // R of N2 (its K-lists take the registers of the rest)
-constexpr int kStageRows = 256; // packed rows a stage of N1 / N2 (4 KB of float4)
+constexpr int kRowsDirect = 4;  // R of N3
+constexpr int kDirectK = 4;     // N3's list: the three nearest and the row itself
+constexpr int kStageRows = 256; // packed rows a stage (4 KB of float4)
 constexpr int kGroup = 8;       // packed rows a thread takes from a stage at once
-constexpr int kTile = 1024;     // point rows a shared-memory stage of N3 (16 KB)
 static_assert(kStageRows % kGroup == 0, "a stage holds whole groups");
-static_assert(kTile % kThreads == 0, "N3: a block's rows must lie in one stage");
+
+// the sweep's modes (its third template argument)
+constexpr int kTopK = 0;        // N2: the K smallest Gram values
+constexpr int kChamfer = 1;     // N1: the smallest Gram value of the valid points
+constexpr int kDirect3 = 2;     // N3: the 3-NN mean by direct differences
 
 // |p|^2 - 2 q.p from a staged row (-2 p, |p|^2): three FMAs
 __device__ __forceinline__ float gram(float qx, float qy, float qz, float4 s) {
@@ -124,26 +132,29 @@ __device__ __forceinline__ void insert(float (&best)[K], float v) {
   }
 }
 
-// N2: v into the sorted k-list if it beats the k-th smallest
+// N2, N3: v into the sorted k-list if it beats the k-th smallest
 template <int K>
 __device__ __forceinline__ void offer(float (&best)[K], float v) {
   if (v < best[K - 1]) insert(best, v);
 }
 
-struct GramArgs {
-  const float* q;          // [nq, 3] query rows
-  const float* q2;         // [nq] |q|^2
+struct SweepArgs {
+  const float* q;          // [nq, 3] query rows (N3: the set itself)
+  const float* q2;         // [nq] |q|^2 (N1, N2)
   const uint8_t* q_valid;  // [nq] (N1)
-  const float4* packed;    // [cluster * slice] staged point rows (-2 p, |p|^2), padded
-  float* out;              // N1 [nq], N2 [nq, K]
+  const float4* packed;    // [cluster * slice] staged point rows, padded: N1 / N2
+                           // (-2 p, |p|^2), N3 (p, 0)
+  float* out;              // N1, N3 [nq], N2 [nq, K]
   int nq;
   int slice;               // packed rows a cluster rank sweeps, a multiple of kGroup
 };
 
-// N1 (K = 1, kChamfer) and N2 (the K smallest), R query rows a thread, the
-// point set split over the blocks of a cluster.
-template <int K, int R, bool kChamfer>
-__global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
+// N1 (K = 1, kChamfer), N2 (the K smallest, kTopK) and N3 (kDirect3, K =
+// 4), R query rows a thread, the point set split over the blocks of a
+// cluster.
+template <int K, int R, int kMode>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
+  static_assert(kMode != kDirect3 || K == kDirectK, "N3 keeps the row itself and three others");
   __shared__ __align__(128) float4 ring[2][kStageRows];  // the stages
   __shared__ uint64_t full[2];                           // each stage's barrier
   __shared__ float partial[K * R * kThreads];            // a rank's lists, for rank 0
@@ -192,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
       float4 p[kGroup];
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) p[g] = st[t + g];
-      if constexpr (kChamfer) {
+      if constexpr (kMode == kChamfer) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -205,7 +216,9 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
         for (int r = 0; r < R; ++r) {
           float v[kGroup];
 #pragma unroll
-          for (int g = 0; g < kGroup; ++g) v[g] = gram(qx[r], qy[r], qz[r], p[g]);
+          for (int g = 0; g < kGroup; ++g)
+            v[g] = kMode == kDirect3 ? direct(qx[r], qy[r], qz[r], p[g])
+                                     : gram(qx[r], qy[r], qz[r], p[g]);
           float m = v[0];
 #pragma unroll
           for (int g = 1; g < kGroup; ++g) m = fminf(m, v[g]);
@@ -237,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
 #pragma unroll
           for (int k = 0; k < K; ++k) {
             const float v = theirs[(k * R + r) * kThreads + tid];
-            if constexpr (kChamfer)
+            if constexpr (kMode == kChamfer)
               best[r][0] = fminf(best[r][0], v);
             else
               offer(best[r], v);
@@ -252,9 +265,18 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
   for (int r = 0; r < R; ++r) {
     const int i = row0 + r;
     if (i >= a.nq) break;
-    if constexpr (kChamfer) {
+    if constexpr (kMode == kChamfer) {
       const float m = __fadd_rn(best[r][0], a.q2[i]);
       a.out[i] = a.q_valid[i] ? fmaxf(m, 0.f) : 0.f;
+    } else if constexpr (kMode == kDirect3) {
+      // best[r][0] is the row's own +0 (or a duplicate's equal +0); the
+      // min(3, n - 1) values after it are the nearest others, ascending
+      const int k = min(K - 1, a.nq - 1);
+      float acc = 0.f;
+      if (k >= 1) acc = best[r][1];
+      if (k >= 2) acc = __fadd_rn(acc, best[r][2]);
+      if (k >= 3) acc = __fadd_rn(acc, best[r][3]);
+      a.out[i] = __fdiv_rn(acc, 3.f);
     } else {
       const float q2 = a.q2[i];
       float* o = a.out + static_cast<size_t>(i) * K;
@@ -264,35 +286,40 @@ __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
   }
 }
 
-using GramKernel = void (*)(GramArgs);
+using SweepKernel = void (*)(SweepArgs);
 
 // The instance of N1 (kk 0) or of N2 keeping kk values, for R rows a
 // thread; nullptr where none is built (R other than the instance's)
-GramKernel gram_instance(int kk, int rows_per_thread) {
+SweepKernel gram_instance(int kk, int rows_per_thread) {
   if (kk == 0) {
     if (rows_per_thread != kRowsChamfer) return nullptr;
-    return gram_kernel<1, kRowsChamfer, true>;
+    return sweep_kernel<1, kRowsChamfer, kChamfer>;
   }
   if (rows_per_thread != kRowsTopK) return nullptr;
   switch (kk) {
-    case 1: return gram_kernel<1, kRowsTopK, false>;
-    case 2: return gram_kernel<2, kRowsTopK, false>;
-    case 3: return gram_kernel<3, kRowsTopK, false>;
-    case 4: return gram_kernel<4, kRowsTopK, false>;
-    case 5: return gram_kernel<5, kRowsTopK, false>;
-    case 6: return gram_kernel<6, kRowsTopK, false>;
-    case 7: return gram_kernel<7, kRowsTopK, false>;
-    case kMaxK: return gram_kernel<kMaxK, kRowsTopK, false>;
+    case 1: return sweep_kernel<1, kRowsTopK, kTopK>;
+    case 2: return sweep_kernel<2, kRowsTopK, kTopK>;
+    case 3: return sweep_kernel<3, kRowsTopK, kTopK>;
+    case 4: return sweep_kernel<4, kRowsTopK, kTopK>;
+    case 5: return sweep_kernel<5, kRowsTopK, kTopK>;
+    case 6: return sweep_kernel<6, kRowsTopK, kTopK>;
+    case 7: return sweep_kernel<7, kRowsTopK, kTopK>;
+    case kMaxK: return sweep_kernel<kMaxK, kRowsTopK, kTopK>;
     default: return nullptr;
   }
 }
 
-// A cluster launch of N1 / N2: `row_blocks` clusters of `cluster` blocks,
-// each cluster R * kThreads query rows. A refused launch returns its error;
-// nothing runs in its place.
-int launch_gram(const GramArgs& a, int kk, int rows_per_thread, int row_blocks, int cluster,
-                void* stream) {
-  const GramKernel kernel = gram_instance(kk, rows_per_thread);
+// The instance of N3 for R rows a thread; nullptr where none is built
+SweepKernel direct_instance(int rows_per_thread) {
+  return rows_per_thread == kRowsDirect ? sweep_kernel<kDirectK, kRowsDirect, kDirect3>
+                                        : nullptr;
+}
+
+// A cluster launch of `kernel` (N1-N3): `row_blocks` clusters of `cluster`
+// blocks, each cluster R * kThreads query rows. A refused launch returns
+// its error; nothing runs in its place.
+int launch_sweep(const SweepArgs& a, SweepKernel kernel, int rows_per_thread, int row_blocks,
+                 int cluster, void* stream) {
   const long long rows = static_cast<long long>(kThreads) * rows_per_thread;
   if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster || a.slice < 0 ||
       a.slice % kGroup != 0 || row_blocks < 1 || row_blocks * rows < a.nq ||
@@ -314,63 +341,6 @@ int launch_gram(const GramArgs& a, int kk, int rows_per_thread, int row_blocks, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// N3: the exact 3-NN by direct differences, one query row a thread
-__global__ void __launch_bounds__(kThreads) knn3_kernel(const float* p, float* out, int n) {
-  constexpr int K = 3;
-  __shared__ float4 stage[kTile];
-
-  const int row0 = blockIdx.x * kThreads;
-  const int i = row0 + threadIdx.x;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (i < n) {
-    const float* qi = p + 3 * static_cast<size_t>(i);
-    qx = qi[0];
-    qy = qi[1];
-    qz = qi[2];
-  }
-  float best[K];
-#pragma unroll
-  for (int t = 0; t < K; ++t) best[t] = CUDART_INF_F;
-  const int self_base = row0 / kTile * kTile;               // the stage of this block's rows
-
-  for (int base = 0; base < n; base += kTile) {
-    __syncthreads();                                        // every thread has read the last stage
-    for (int t = threadIdx.x; t < kTile; t += kThreads) {
-      const int j = base + t;
-      float4 s;
-      if (j < n) {
-        const float* pj = p + 3 * static_cast<size_t>(j);
-        s = make_float4(pj[0], pj[1], pj[2], 0.f);
-      } else {
-        s = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
-      }
-      stage[t] = s;
-    }
-    __syncthreads();
-    if (base == self_base) {
-      // the stage that holds the query row: excluded by its index
-      for (int t = 0; t < kTile; ++t) {
-        const float v = base + t == i ? CUDART_INF_F : direct(qx, qy, qz, stage[t]);
-        if (v < best[2]) insert(best, v);
-      }
-    } else {
-#pragma unroll 8
-      for (int t = 0; t < kTile; ++t) {
-        const float v = direct(qx, qy, qz, stage[t]);
-        if (v < best[2]) insert(best, v);
-      }
-    }
-  }
-  if (i >= n) return;
-
-  const int k = min(3, n - 1);
-  float acc = 0.f;
-  if (k >= 1) acc = best[0];
-  if (k >= 2) acc = __fadd_rn(acc, best[1]);
-  if (k >= 3) acc = __fadd_rn(acc, best[2]);
-  out[i] = __fdiv_rn(acc, 3.f);
-}
-
 }  // namespace
 
 extern "C" {
@@ -383,8 +353,9 @@ extern "C" {
 int lidargs_knn_chamfer(const float* a, const float* a2, const uint8_t* a_valid,
                         const float* packed, float* out, int na, int slice,
                         int rows_per_thread, int row_blocks, int cluster, void* stream) {
-  const GramArgs g{a, a2, a_valid, reinterpret_cast<const float4*>(packed), out, na, slice};
-  return launch_gram(g, 0, rows_per_thread, row_blocks, cluster, stream);
+  const SweepArgs g{a, a2, a_valid, reinterpret_cast<const float4*>(packed), out, na, slice};
+  return launch_sweep(g, gram_instance(0, rows_per_thread), rows_per_thread, row_blocks,
+                      cluster, stream);
 }
 
 // Launches N2 on `stream`: out [nq, kk], the kk (1..8, at most the set's
@@ -395,8 +366,9 @@ int lidargs_knn_chamfer(const float* a, const float* a2, const uint8_t* a_valid,
 int lidargs_knn_gram_topk(const float* q, const float* q2, const float* packed, float* out,
                           int nq, int slice, int kk, int rows_per_thread, int row_blocks,
                           int cluster, void* stream) {
-  const GramArgs g{q, q2, nullptr, reinterpret_cast<const float4*>(packed), out, nq, slice};
-  return kk >= 1 ? launch_gram(g, kk, rows_per_thread, row_blocks, cluster, stream)
+  const SweepArgs g{q, q2, nullptr, reinterpret_cast<const float4*>(packed), out, nq, slice};
+  return kk >= 1 ? launch_sweep(g, gram_instance(kk, rows_per_thread), rows_per_thread,
+                                row_blocks, cluster, stream)
                  : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -404,19 +376,31 @@ int lidargs_knn_gram_topk(const float* q, const float* q2, const float* packed, 
 // thread, that one SM holds at once (registers and shared memory), for the
 // launch plan; returns the cudaError_t of the query.
 int lidargs_knn_blocks_per_sm(int kk, int rows_per_thread, int* blocks) {
-  const GramKernel kernel = gram_instance(kk, rows_per_thread);
+  const SweepKernel kernel = gram_instance(kk, rows_per_thread);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, 0));
 }
 
 // Launches N3 on `stream`: out [n], each point's mean squared distance to
-// its 3 nearest others. The caller has checked shape, type, contiguity and
-// the device, and that n > 0.
-int lidargs_knn3_direct(const float* p, float* out, int n, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  knn3_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, out, n);
-  return static_cast<int>(cudaGetLastError());
+// its 3 nearest others, against the same set packed as (p, 0) rows
+// (cluster slices of `slice` rows, the rows past the set +inf), with the
+// launch plan's rows a thread (4), row blocks and cluster size (1..8). The
+// caller has checked shape, type, contiguity and the device, and that n > 0.
+int lidargs_knn3_direct(const float* p, const float* packed, float* out, int n, int slice,
+                        int rows_per_thread, int row_blocks, int cluster, void* stream) {
+  const SweepArgs g{p, nullptr, nullptr, reinterpret_cast<const float4*>(packed), out, n, slice};
+  return launch_sweep(g, direct_instance(rows_per_thread), rows_per_thread, row_blocks, cluster,
+                      stream);
+}
+
+// *blocks = the blocks of N3, R rows a thread, that one SM holds at once,
+// for the launch plan; returns the cudaError_t of the query.
+int lidargs_knn3_blocks_per_sm(int rows_per_thread, int* blocks) {
+  const SweepKernel kernel = direct_instance(rows_per_thread);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, 0));
 }
 
 const char* lidargs_cuda_error_string(int err) {

@@ -28,6 +28,7 @@ not carried.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
@@ -143,10 +144,27 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
+def _double(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x` resized to twice its length along `dim` by the half-pixel
+    bilinear rule: out[2i] = 0.75 x[i] + 0.25 x[i-1] and out[2i+1] =
+    0.75 x[i] + 0.25 x[i+1], and the first and last outputs are x[0] and
+    x[n-1] themselves (`jax.image.resize` drops the missing neighbour's
+    weight and renormalizes). Slices, products, sums and `stack`: its
+    autograd backward gathers in a fixed order, with no atomics."""
+    n = x.shape[dim]
+    lo, hi = x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1)
+    even = torch.cat([x.narrow(dim, 0, 1), 0.75 * hi + 0.25 * lo], dim)
+    odd = torch.cat([0.75 * lo + 0.25 * hi, x.narrow(dim, n - 1, 1)], dim)
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
     """Bilinear x2 with half-pixel centres (align_corners=False), as
-    `jax.image.resize(..., "bilinear")`."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    `jax.image.resize(..., "bilinear")`: along W, then along H (the order
+    nearer XLA's rounding). Written in torch ops because the CUDA backward
+    of `F.interpolate`'s bilinear mode accumulates with atomics, in an
+    order that may change from run to run."""
+    return _double(_double(x, 3), 2)
 
 
 class AttnBlock(nn.Module):
@@ -283,14 +301,31 @@ def unet_loss(model: UNet, x, gt) -> torch.Tensor:
     return torch.mean((model(x[None])[0, 0, :H, :W] - gt) ** 2)
 
 
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN held to its deterministic algorithms, without benchmarking,
+    while the block runs (the previous flags after): the UNet's convolution
+    backwards then give the same bits from the same inputs. The flags are
+    process-wide, so they also reach the autograd engine's device thread."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def refine_step(model: nn.Module, opt, sched, loss_fn: Callable, *inputs) -> torch.Tensor:
     """One Adam step on `loss_fn(model, *inputs)`; the loss stays on the
-    device."""
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn(model, *inputs)
-    loss.backward()
-    opt.step()
-    sched.step()
+    device. A UNet's step runs under `deterministic_convs`, so that its
+    training is reproducible bit for bit on the card."""
+    with deterministic_convs() if isinstance(model, UNet) else contextlib.nullcontext():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, *inputs)
+        loss.backward()
+        opt.step()
+        sched.step()
     return loss.detach()
 
 

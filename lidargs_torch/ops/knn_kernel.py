@@ -18,12 +18,13 @@ launch too: nothing runs in its place), and adds one to its count.
 plain versions for a CPU tensor. The library is built with nvcc at the
 first launch (`utils/cuda_build.py`).
 
-N1 and N2 take the point set packed (`pack_points`) and a launch plan
-(`launch_plan`): R query rows a thread, clusters of S blocks over the same
-rows, each block sweeping one of S slices of the packed rows, and the
-number of row blocks. Both are plain functions of the shapes, the card's
-SM count and the blocks an SM holds (`card_plan_inputs` asks the card
-once), so the CPU tests reach them.
+All three take the point set packed (`pack_points`: (-2 p, |p|^2) rows for
+N1 and N2, (p, 0) rows for N3) and a launch plan (`launch_plan`): R query
+rows a thread, clusters of S blocks over the same rows, each block
+sweeping one of S slices of the packed rows, and the number of row
+blocks. Both are plain functions of the shapes, the card's SM count and
+the blocks an SM holds (`card_plan_inputs` asks the card once), so the
+CPU tests reach them.
 """
 from __future__ import annotations
 
@@ -36,11 +37,11 @@ import torch
 from ..utils import cuda_build
 
 MAX_K = 8                 # the most smallest values N2 keeps a row (registers)
-THREADS = 128             # threads a block of N1 / N2 (csrc/knn.cu kThreads)
+THREADS = 128             # threads a block of N1-N3 (csrc/knn.cu kThreads)
 GROUP = 8                 # packed rows a thread takes at once; a slice holds whole groups
 STAGE_ROWS = 256          # packed rows a shared-memory stage (csrc/knn.cu kStageRows)
 MAX_CLUSTER = 8           # blocks a cluster of N1: the portable cluster size
-TOPK_MAX_CLUSTER = 2      # of N2: each slice warms its k-lists up from +inf
+TOPK_MAX_CLUSTER = 2      # of N2 and N3: each slice warms its k-lists up from +inf
 
 # Launches of the CUDA kernels since the last reset (plain counts; the CPU
 # path does not add to them): N1, N2 and N3.
@@ -94,17 +95,18 @@ def check_k(kk: int, n_points: int) -> None:
         raise ValueError(f"k={kk} exceeds the {n_points} points of the set")
 
 
-def rows_per_thread(kk: int | None = None) -> int:
-    """R, the query rows a thread of N1 (`kk` None) or N2 keeps in
-    registers: 8, and 4 for N2, whose k-lists take the registers (the
-    faster of 4 and 8 on the card, `utils/kernel_ab.py`). The kernel is
-    built for these alone."""
-    return 8 if kk is None else 4
+def rows_per_thread(kk: int | None = None, direct: bool = False) -> int:
+    """R, the query rows a thread of N1 (`kk` None), N2 or N3 (`direct`)
+    keeps in registers: 8, and 4 for N2 and N3, whose k-lists take the
+    registers (the fastest timed on the card, `utils/kernel_ab.py`: N1 of
+    4 and 8, N2 of 4 and 8, N3 of 2, 4 and 8). The kernel is built for
+    these alone."""
+    return 4 if direct or kk is not None else 8
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """How N1 / N2 cover `n_queries` x `n_points`: `row_blocks` clusters of
+    """How N1-N3 cover `n_queries` x `n_points`: `row_blocks` clusters of
     `cluster` blocks, each cluster `THREADS * rows_per_thread` adjacent query
     rows, block rank s of a cluster sweeping packed rows [s * slice_rows,
     (s + 1) * slice_rows)."""
@@ -123,11 +125,11 @@ class LaunchPlan:
 
 
 def launch_plan(n_queries: int, n_points: int, n_sm: int, blocks_per_sm: int,
-                kk: int | None = None) -> LaunchPlan:
-    """The launch plan of N1 (`kk` None) or N2 on `n_queries` > 0 rows
-    against `n_points` points on a card of `n_sm` SMs, each holding
+                kk: int | None = None, direct: bool = False) -> LaunchPlan:
+    """The launch plan of N1 (`kk` None), N2 or N3 (`direct`) on `n_queries`
+    > 0 rows against `n_points` points on a card of `n_sm` SMs, each holding
     `blocks_per_sm` of the kernel's blocks at once. R from
-    `rows_per_thread`; the cluster size S (1..MAX_CLUSTER, N2
+    `rows_per_thread`; the cluster size S (1..MAX_CLUSTER, N2 and N3
     ..TOPK_MAX_CLUSTER, at most one slice a group of points) whose blocks
     fill the card's resident blocks in the fullest waves, blocks /
     (resident * ceil(blocks / resident)), the smaller S on a tie; slices of
@@ -136,7 +138,7 @@ def launch_plan(n_queries: int, n_points: int, n_sm: int, blocks_per_sm: int,
     if n_queries <= 0 or n_points < 0 or n_sm <= 0 or blocks_per_sm <= 0:
         raise ValueError(f"no launch plan for {n_queries} queries, {n_points} points, "
                          f"{n_sm} SMs of {blocks_per_sm} blocks")
-    r = rows_per_thread(kk)
+    r = rows_per_thread(kk, direct)
     row_blocks = -(-n_queries // (THREADS * r))
     groups = -(-n_points // GROUP)
     resident = n_sm * blocks_per_sm
@@ -145,20 +147,26 @@ def launch_plan(n_queries: int, n_points: int, n_sm: int, blocks_per_sm: int,
         blocks = row_blocks * s
         return blocks / (resident * -(-blocks // resident))
 
-    top = MAX_CLUSTER if kk is None else TOPK_MAX_CLUSTER
+    top = MAX_CLUSTER if kk is None and not direct else TOPK_MAX_CLUSTER
     cluster = max(range(1, max(1, min(top, groups)) + 1), key=lambda s: (fill(s), -s))
     return LaunchPlan(r, cluster, row_blocks, GROUP * -(-groups // cluster))
 
 
-def pack_points(p: torch.Tensor, plan: LaunchPlan,
-                valid: torch.Tensor | None = None) -> torch.Tensor:
-    """The point set as N1 / N2 stage it: [plan.packed_rows, 4] float32 rows
-    (-2 p, |p|^2) (the scaling by -2 is exact; the norm computed as the
-    plain version computes it, +inf on the rows `valid` rules out), the
-    rows past the set (0, 0, 0, +inf)."""
+def pack_points(p: torch.Tensor, plan: LaunchPlan, valid: torch.Tensor | None = None,
+                direct: bool = False) -> torch.Tensor:
+    """The point set as N1-N3 stage it: [plan.packed_rows, 4] float32 rows.
+    N1 / N2: (-2 p, |p|^2) (the scaling by -2 is exact; the norm computed
+    as the plain version computes it, +inf on the rows `valid` rules out),
+    the rows past the set (0, 0, 0, +inf). N3 (`direct`): (p, 0), the rows
+    past the set +inf."""
     n = p.shape[0]
-    p2 = (p * p).sum(-1)
     packed = torch.empty((plan.packed_rows, 4), dtype=torch.float32, device=p.device)
+    if direct:
+        packed[:n, :3] = p
+        packed[:n, 3] = 0.0
+        packed[n:] = torch.inf
+        return packed
+    p2 = (p * p).sum(-1)
     torch.mul(p, -2.0, out=packed[:n, :3])
     packed[:n, 3] = p2 if valid is None else torch.where(valid, p2, torch.inf)
     packed[n:, :3] = 0.0
@@ -167,21 +175,32 @@ def pack_points(p: torch.Tensor, plan: LaunchPlan,
 
 
 @functools.lru_cache(maxsize=None)
-def card_plan_inputs(index: int, kk: int | None) -> tuple[int, int]:
-    """(SMs of card `index`, blocks of N1 / N2's instance an SM holds)."""
-    fn, err_str = cuda_build.entry("knn", "lidargs_knn_blocks_per_sm",
-                                   [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+def card_plan_inputs(index: int, kk: int | None, direct: bool = False) -> tuple[int, int]:
+    """(SMs of card `index`, blocks of N1 / N2's instance, or N3's
+    (`direct`), an SM holds)."""
     blocks = ctypes.c_int(0)
+    out = ctypes.POINTER(ctypes.c_int)
+    if direct:
+        symbol = "lidargs_knn3_blocks_per_sm"
+        fn, err_str = cuda_build.entry("knn", symbol, [ctypes.c_int, out])
+        args = (rows_per_thread(direct=True), ctypes.byref(blocks))
+    else:
+        symbol = "lidargs_knn_blocks_per_sm"
+        fn, err_str = cuda_build.entry("knn", symbol, [ctypes.c_int, ctypes.c_int, out])
+        args = (0 if kk is None else kk, rows_per_thread(kk), ctypes.byref(blocks))
     with torch.cuda.device(index):
-        err = fn(0 if kk is None else kk, rows_per_thread(kk), ctypes.byref(blocks))
+        err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"lidargs_knn_blocks_per_sm failed: {err_str(err).decode()}")
+        raise RuntimeError(f"{symbol} failed: {err_str(err).decode()}")
     return torch.cuda.get_device_properties(index).multi_processor_count, blocks.value
 
 
-def plan_on_card(n_queries: int, n_points: int, device: torch.device, kk=None) -> LaunchPlan:
-    """`launch_plan` for N1 (`kk` None) / N2 on the card `device`."""
-    return launch_plan(n_queries, n_points, *card_plan_inputs(device.index or 0, kk), kk)
+def plan_on_card(n_queries: int, n_points: int, device: torch.device, kk=None,
+                 direct: bool = False) -> LaunchPlan:
+    """`launch_plan` for N1 (`kk` None), N2 or N3 (`direct`) on the card
+    `device`."""
+    return launch_plan(n_queries, n_points, *card_plan_inputs(device.index or 0, kk, direct),
+                       kk, direct)
 
 
 def _launch_gram(symbol: str, rows: tuple, p: torch.Tensor, out: torch.Tensor, kk=None,
@@ -235,9 +254,13 @@ def knn3_mean_sq_dist(p: torch.Tensor) -> torch.Tensor:
     global knn3_launches
     _on_card("knn3_mean_sq_dist", p)
     check_points(points=p)
-    out = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
-    if p.shape[0] == 0:
+    n = p.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=p.device)
+    if n == 0:
         return out
-    cuda_build.launch("knn", "lidargs_knn3_direct", [ctypes.c_int], (p, out), (p.shape[0],))
+    plan = plan_on_card(n, n, p.device, direct=True)
+    packed = pack_points(p, plan, direct=True)
+    cuda_build.launch("knn", "lidargs_knn3_direct", [ctypes.c_int] * 5, (p, packed, out),
+                      (n, plan.slice_rows, plan.rows_per_thread, plan.row_blocks, plan.cluster))
     knn3_launches += 1
     return out

@@ -4,7 +4,7 @@
 
 For each `csrc` directory it builds the sources of `KERNELS` that the tree
 has (K1 `composite_fwd.cu`, K2 `composite_bwd.cu`, K5 `surfel_fwd.cu`, K6
-`surfel_bwd.cu`, N1 and N2 `knn.cu`), or only the SOURCEs named, with the
+`surfel_bwd.cu`, N1-N3 `knn.cu`), or only the SOURCEs named, with the
 package's nvcc flags (all trees at once), writes each library's SASS and
 resource usage (`cuobjdump -sass -res-usage`) to OUT_DIR/<label>.<source>.sass
 and reads the registers and spill bytes of each kernel instance from the
@@ -24,12 +24,16 @@ and a cotangent drawn from a seed on every row the forward writes. The
 distance inputs are the procedural street of `chip_smoke.py`'s CLI phases
 (`make_street_dataset`, seed 0, 50 frames of 64x2650, written under
 OUT_DIR and deleted after): N1 from test frame 0's points to test frame 1's
-(~160k a side, every row valid), N2 the 4 smallest on the 500k init cloud.
-A tree whose `knn.cu` takes the packed point set runs N1 and N2 under the
-package's launch plan (`ops/knn_kernel.py` `launch_plan`), the packing in
-the timed call, and with each cluster size of `KNN_CLUSTERS`; a tree of
-the first design (point rows and norms, one row a thread) is bound by
-`KNN_ROWS`. Prints one JSON line with the card's name and power limit.
+(~160k a side, every row valid), N2 the 4 smallest and N3 the exact 3-NN
+on the 500k init cloud. A tree whose `knn.cu` takes the packed point set
+runs N1 and N2 under the package's launch plan (`ops/knn_kernel.py`
+`launch_plan`), the packing in the timed call, and with each cluster size
+of `KNN_CLUSTERS`; a tree of the first design (point rows and norms, one
+row a thread) is bound by `KNN_ROWS`. N3 likewise: a tree whose
+`lidargs_knn3_direct` takes the packed set runs under the package's plan
+at the tree's own `kRowsDirect` (R, read from its source) and at each
+cluster size; the first, one-row-a-thread N3 is bound by `KNN3_ROWS`. Prints
+one JSON line with the card's name and power limit.
 
 It judges the bits: it exits non-zero, after the JSON line, when any
 build's output (any plan's) differs from the first build's by a single
@@ -68,9 +72,12 @@ KERNELS = {"composite_fwd": (("lidargs_composite_fwd", 4, 5, 3),),
            "composite_bwd": (("lidargs_composite_bwd", 6, 5, 3),),
            "surfel_fwd": (("lidargs_surfel_fwd", 4, 5, 8),),
            "surfel_bwd": (("lidargs_surfel_bwd", 6, 5, 8),),
-           "knn": (("lidargs_knn_chamfer", 5, 5, 0), ("lidargs_knn_gram_topk", 4, 6, 0))}
+           "knn": (("lidargs_knn_chamfer", 5, 5, 0), ("lidargs_knn_gram_topk", 4, 6, 0),
+                   ("lidargs_knn3_direct", 3, 5, 0))}
 # the first design's knn interface: the point rows and their norms
 KNN_ROWS = (("lidargs_knn_chamfer", 6, 2, 0), ("lidargs_knn_gram_topk", 5, 3, 0))
+# the first design of N3: the point rows, one row a thread
+KNN3_ROWS = ("lidargs_knn3_direct", 2, 1, 0)
 # cluster sizes timed beside the package's plan (labels label@s<S>)
 KNN_CLUSTERS = (1, 2, 4, 8)
 BWD_TOL = {"mean": 1e-5, "atol": 2e-5, "far_count": 64, "max": 1e-3}
@@ -202,18 +209,41 @@ def judge(outs: dict, nvs: dict) -> tuple[dict, list]:
 
 
 def knn_interface(knn_cu: Path) -> tuple:
-    """The launch functions of a tree's `knn.cu`: `KERNELS["knn"]` where N1
-    takes the packed point set, else the first design's `KNN_ROWS`."""
+    """The launch functions of N1 and N2 in a tree's `knn.cu`: those of
+    `KERNELS["knn"]` where N1 takes the packed point set, else the first
+    design's `KNN_ROWS`."""
     m = re.search(r"\bint lidargs_knn_chamfer\(([^)]*)\)", knn_cu.read_text())
     return KERNELS["knn"] if m and "packed" in m.group(1) else KNN_ROWS
 
 
-def knn_plan(n_q: int, n_p: int, n_sm: int, blocks_per_sm: int, kk, cluster=None):
-    """The package's launch plan of N1 (`kk` None) or N2, with its cluster
-    size replaced where `cluster` is given."""
+def knn3_interface(knn_cu: Path) -> tuple:
+    """The launch function of N3 in a tree's `knn.cu`: `KERNELS["knn"]`'s
+    where it takes the packed point set, else the first design's
+    `KNN3_ROWS`."""
+    m = re.search(r"\bint lidargs_knn3_direct\(([^)]*)\)", knn_cu.read_text())
+    return KERNELS["knn"][2] if m and "packed" in m.group(1) else KNN3_ROWS
+
+
+def knn3_rows(knn_cu: Path) -> int:
+    """R, the query rows a thread of the tree's N3 (its `kRowsDirect`; 1
+    for the first design)."""
+    m = re.search(r"constexpr int kRowsDirect = (\d+);", knn_cu.read_text())
+    return int(m.group(1)) if m else 1
+
+
+def knn_plan(n_q: int, n_p: int, n_sm: int, blocks_per_sm: int, kk, cluster=None,
+             direct: bool = False, rows: int | None = None):
+    """The package's launch plan of N1 (`kk` None), N2 or N3 (`direct`),
+    with its cluster size replaced where `cluster` is given and its rows a
+    thread where `rows` is (a tree built for another R)."""
+    import dataclasses
+
     from ..ops import knn_kernel as nk
 
-    plan = nk.launch_plan(n_q, n_p, n_sm, blocks_per_sm, kk)
+    plan = nk.launch_plan(n_q, n_p, n_sm, blocks_per_sm, kk, direct)
+    if rows is not None and rows != plan.rows_per_thread:
+        plan = dataclasses.replace(plan, rows_per_thread=rows,
+                                   row_blocks=-(-n_q // (nk.THREADS * rows)))
     if cluster is None:
         return plan
     groups = -(-n_p // nk.GROUP)
@@ -221,16 +251,24 @@ def knn_plan(n_q: int, n_p: int, n_sm: int, blocks_per_sm: int, kk, cluster=None
     return nk.LaunchPlan(plan.rows_per_thread, s, plan.row_blocks, nk.GROUP * -(-groups // s))
 
 
-def _blocks_per_sm(lib: Path, kk) -> int:
-    """The blocks of N1 (`kk` None) / N2 that one SM holds, from the
-    library's own occupancy query."""
+def _blocks_per_sm(lib: Path, kk, rows3: int | None = None) -> int:
+    """The blocks of N1 (`kk` None) / N2, or of N3 built for `rows3` rows a
+    thread, that one SM holds, from the library's own occupancy query."""
     from ..ops import knn_kernel as nk
 
-    fn = ctypes.CDLL(str(lib)).lidargs_knn_blocks_per_sm
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    cdll = ctypes.CDLL(str(lib))
+    out = ctypes.POINTER(ctypes.c_int)
     n = ctypes.c_int(0)
-    if fn(0 if kk is None else kk, nk.rows_per_thread(kk), ctypes.byref(n)) != 0:
+    if rows3 is None:
+        fn = cdll.lidargs_knn_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, out]
+        args = (0 if kk is None else kk, nk.rows_per_thread(kk), ctypes.byref(n))
+    else:
+        fn = cdll.lidargs_knn3_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, out]
+        args = (rows3, ctypes.byref(n))
+    fn.restype = ctypes.c_int
+    if fn(*args) != 0:
         sys.exit(f"kernel_ab: the occupancy query of {lib} failed")
     return n.value
 
@@ -258,10 +296,10 @@ def _knn_inputs(dev, work: Path) -> dict:
 
 def _knn_calls(libs: dict, trees: dict, dev, stream, work: Path) -> tuple[dict, dict, dict]:
     """({(label, kernel): launch}, {(label, kernel): output}, {inputs and
-    plans}) of N1 and N2 for every tree that has `knn.cu`; a tree of the
-    packed interface under the package's plan (label) and with each cluster
-    size of `KNN_CLUSTERS` (label@s<S>), the packing inside the launch. The street is
-    written under `work` and deleted."""
+    plans}) of N1-N3 for every tree that has `knn.cu`; a tree of the packed
+    interface under the package's plan (label) and with each cluster size
+    of `KNN_CLUSTERS` (label@s<S>), the packing inside the launch. The
+    street is written under `work` and deleted."""
     import dataclasses
 
     import torch
@@ -279,7 +317,9 @@ def _knn_calls(libs: dict, trees: dict, dev, stream, work: Path) -> tuple[dict, 
     info = {"knn_chamfer": {"queries": a.shape[0], "points": b.shape[0],
                             "pairs": a.shape[0] * b.shape[0]},
             "knn_gram_topk": {"queries": init.shape[0], "points": init.shape[0], "k": KNN_K,
-                              "pairs": init.shape[0] ** 2}, "plans": {}}
+                              "pairs": init.shape[0] ** 2},
+            "knn3_direct": {"points": init.shape[0],
+                            "pairs": init.shape[0] * (init.shape[0] - 1)}, "plans": {}}
     calls, outs = {}, {}
     ptr = lambda ts: [t.data_ptr() for t in ts]
     # the closures hold the tensors (a pointer alone would let the caching
@@ -288,7 +328,7 @@ def _knn_calls(libs: dict, trees: dict, dev, stream, work: Path) -> tuple[dict, 
         if "knn" not in built:
             continue
         sig = knn_interface(trees[lab] / "knn.cu")
-        fns = [_bind(built["knn"], s) for s in sig]
+        fns = [_bind(built["knn"], s) for s in sig[:2]]
         for fn, (name, q, p, pn, pv, kk, shape) in zip(fns, work):
             if sig is KNN_ROWS:
                 o = torch.empty(shape, device=dev)
@@ -313,7 +353,47 @@ def _knn_calls(libs: dict, trees: dict, dev, stream, work: Path) -> tuple[dict, 
 
                 calls[key] = call
                 outs[key] = o
+        _knn3_calls(built["knn"], trees[lab] / "knn.cu", lab, init, n_sm, stream, calls, outs,
+                    info)
     return calls, outs, info
+
+
+def _knn3_calls(lib: Path, knn_cu: Path, lab: str, p, n_sm: int, stream, calls: dict,
+                outs: dict, info: dict) -> None:
+    """Add N3 of one tree's library on the points `p` to `calls` and `outs`:
+    the first design by `KNN3_ROWS`; a packed one under the package's plan
+    at the tree's R and at each cluster size of `KNN_CLUSTERS`, the packing
+    inside the launch (its plans into `info`)."""
+    import dataclasses
+
+    import torch
+
+    from ..ops import knn_kernel as nk
+
+    sig = knn3_interface(knn_cu)
+    fn = _bind(lib, sig)
+    n = p.shape[0]
+    if sig is KNN3_ROWS:
+        o = torch.empty(n, device=p.device)
+        calls[(lab, "knn3_direct")] = lambda: fn(p.data_ptr(), o.data_ptr(), n, stream)
+        outs[(lab, "knn3_direct")] = o
+        return
+    rows = knn3_rows(knn_cu)
+    bps = _blocks_per_sm(lib, None, rows)
+    for cluster in (None, *KNN_CLUSTERS):
+        key = (lab if cluster is None else f"{lab}@s{cluster}", "knn3_direct")
+        plan = knn_plan(n, n, n_sm, bps, None, cluster, direct=True, rows=rows)
+        info["plans"][f"{key[0]}.knn3_direct"] = {**dataclasses.asdict(plan),
+                                                  "blocks_per_sm": bps}
+        o = torch.empty(n, device=p.device)
+        ints = (n, plan.slice_rows, plan.rows_per_thread, plan.row_blocks, plan.cluster)
+
+        def call(o=o, ints=ints, plan=plan):
+            packed = nk.pack_points(p, plan, direct=True)
+            return fn(p.data_ptr(), packed.data_ptr(), o.data_ptr(), *ints, stream)
+
+        calls[key] = call
+        outs[key] = o
 
 
 def _composite_calls(libs: dict, dev, stream, keep: list) -> tuple[dict, dict, dict, dict]:

@@ -1,0 +1,7 @@
+"""composite_roofline.train: the composite kernels' bound over their
+device ms."""
+from portbench.readers import composite_roofline
+
+
+def read(rec):
+    return composite_roofline(rec, "train")

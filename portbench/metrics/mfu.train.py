@@ -1,0 +1,7 @@
+"""mfu.train: the FP32 operations a step needs over its traced time at
+67 TFLOP/s."""
+from portbench.readers import mfu
+
+
+def read(rec):
+    return mfu(rec, "train")

@@ -1,0 +1,387 @@
+"""Surfel (2DGS) range-view rasterizer, the reference's.
+
+A frozen copy of the port's plain surfel path (`ops/surfel.py`, and the
+plain version of K5 in `ops/surfel_kernel.py`): the preprocess and the
+chunk scan `surfel_composite`, both differentiated by autograd (the
+port's step runs kernels K5 and K6). Gaussians are 2D surfels: two
+scales, the third local axis the normal; per pixel the composite
+intersects the laser ray with the surfel plane, with the low-pass
+fallback around the projected center. The tiled render shares the cull
+sort and the binning with the beam variant (`rasterize.py`).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import RasterConfig
+from .projection import _project_rows, quat_to_rotmat, unit_x
+from .rasterize import depth_sorted, tile_lists, untile
+
+_TWO_PI = 2.0 * math.pi
+
+
+class SurfelCols:
+    """Packed per-surfel column layout [P, F] (the analogue of PackedCols)."""
+
+    TU = slice(0, 3)          # sensor-space axis-u direction * scale_u
+    TV = slice(3, 6)          # sensor-space axis-v direction * scale_v
+    TW = slice(6, 9)          # sensor-space center
+    NORMAL = slice(9, 12)     # sensor-space unit normal, flipped toward the sensor
+    OPACITY = 12
+    DEPTH = 13                # euclidean center range (the sort key)
+    FEAT0 = 14
+
+    @staticmethod
+    def center(C: int) -> slice:
+        return slice(14 + C, 16 + C)
+
+    @staticmethod
+    def rect(C: int) -> slice:
+        return slice(16 + C, 20 + C)
+
+    @staticmethod
+    def validf(C: int) -> int:
+        return 20 + C
+
+    @staticmethod
+    def width(C: int) -> int:
+        return -(-(21 + C) // 8) * 8
+
+
+def _pix_f(p: torch.Tensor, beams: torch.Tensor, W: int):
+    """Sensor-space point -> (column, row) image coordinates, row flipped,
+    with no divergence rejection. Returns (p_c, p_r, horiz2 > 0)."""
+    H = beams.shape[0]
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    horiz2 = x * x + y * y
+    safe = horiz2 > 0.0
+    one = torch.ones_like(x)
+    xs = torch.where(safe, x, one)
+    beta = math.pi - torch.atan2(y, xs)
+    p_c = beta / (_TWO_PI / W)
+    alpha_el = torch.atan2(z, torch.sqrt(torch.where(safe, horiz2, one)))
+    row, _, _ = _project_rows(alpha_el, beams, 0.0, margin=0.0)
+    return p_c, H - row - 1.0, safe
+
+
+def preprocess_surfels(
+    means3d: torch.Tensor,     # [P,3] world
+    scales2: torch.Tensor,     # [P,2] surfel scales (activated)
+    quats: torch.Tensor,       # [P,4] normalized (r,x,y,z)
+    opacities: torch.Tensor,   # [P]
+    feat: torch.Tensor,        # [P,C]
+    mask: torch.Tensor,        # [P] bool upstream validity
+    w2s_rot: torch.Tensor,     # [3,3]
+    w2s_trans: torch.Tensor,   # [3]
+    beams: torch.Tensor,       # [H] ascending inclinations
+    W: int,
+    cfg: RasterConfig,
+) -> torch.Tensor:
+    """Per-surfel preprocess -> packed [P, SurfelCols.width(C)] rows."""
+    H = beams.shape[0]
+    C = feat.shape[-1]
+    dev = means3d.device
+    rda = cfg.surfel_ray_divergence_angle
+    e_x = unit_x(3, torch.float32, dev)
+
+    tw_raw = means3d @ w2s_rot.T + w2s_trans                       # [P,3]
+    sq = (tw_raw * tw_raw).sum(-1)
+    mask = mask & (sq > 0.0)
+    tw = torch.where(mask[:, None], tw_raw, e_x)
+    dist = torch.sqrt((tw * tw).sum(-1))
+    valid = mask & (dist < cfg.far) & (dist > cfg.near)
+
+    # center pixel, rejected beyond one ray divergence from its beam
+    horiz2 = tw[:, 0] ** 2 + tw[:, 1] ** 2
+    degenerate = horiz2 <= 0.0
+    valid = valid & ~degenerate
+    tflat = torch.where(degenerate[:, None], e_x, tw)
+    beta = math.pi - torch.atan2(tflat[:, 1], tflat[:, 0])
+    p_c = beta / (_TWO_PI / W)
+    alpha_el = torch.atan2(tflat[:, 2],
+                           torch.sqrt(torch.where(degenerate, torch.ones_like(horiz2), horiz2)))
+    row, _, row_ok = _project_rows(alpha_el, beams, rda, margin=1.0)
+    valid = valid & row_ok
+    p_r = H - row - 1.0
+
+    # (Tu, Tv, Tw) and the normal in sensor space
+    R = quat_to_rotmat(quats)                                      # [P,3,3]
+    tu = (R[..., :, 0] * scales2[:, :1]) @ w2s_rot.T
+    tv = (R[..., :, 1] * scales2[:, 1:2]) @ w2s_rot.T
+    normal = R[..., :, 2] @ w2s_rot.T
+
+    # dual visibility: orient the normal toward the sensor, cull exactly
+    # edge-on surfels
+    cosv = -(tw * normal).sum(-1)
+    valid = valid & (cosv != 0.0)
+    normal = normal * torch.where(cosv > 0, 1.0, -1.0)[:, None]
+
+    # the rect: +-3 sigma axis endpoints through the range-view mapping,
+    # then the reference's 16x1 blocks (y-max a bare round(p_r + r_y)). Floor
+    # and clip carry no gradient, so it is computed on detached values.
+    with torch.no_grad():
+        twd, pcd, prd = tw.detach(), p_c.detach(), p_r.detach()
+        ext_x = torch.zeros_like(pcd)
+        ext_y = torch.zeros_like(prd)
+        for axis in (tu.detach(), tv.detach()):
+            for sgn in (1.0, -1.0):
+                ex, ey, _ = _pix_f(twd + sgn * 3.0 * axis, beams, W)
+                ext_x = torch.maximum(ext_x, (ex - pcd).abs())
+                ext_y = torch.maximum(ext_y, (ey - prd).abs())
+        r_x = torch.ceil(ext_x.clamp_min(1.0))
+        r_y = torch.ceil(ext_y.clamp_min(1.0))
+        bx = cfg.ref_block_x
+        grid_x = -(-W // bx)
+        rmin_x = torch.floor((pcd - r_x) / bx).clamp(0, grid_x)
+        rmax_x = torch.floor((pcd + r_x + bx - 1) / bx).clamp(0, grid_x)
+        rmin_y = torch.floor(prd - r_y).clamp(0, H)
+        rmax_y = torch.floor(prd + r_y + 0.5).clamp(0, H)
+        valid = valid & ((rmax_x - rmin_x) * (rmax_y - rmin_y) > 0)
+        rect = torch.stack([rmin_x * bx, rmax_x * bx, rmin_y, rmax_y], -1)
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    cols = [
+        tu, tv, tw, normal,
+        torch.where(valid, opacities, zero)[:, None],
+        torch.where(valid, dist, torch.full_like(dist, 4.0 * cfg.far))[:, None],
+        feat.to(torch.float32),
+        torch.stack([p_c, p_r], -1),
+        rect,
+        valid.to(torch.float32)[:, None],
+    ]
+    pk = torch.cat(cols, 1).to(torch.float32)
+    return F.pad(pk, (0, SurfelCols.width(C) - pk.shape[1]))
+
+
+class SurfelOut(NamedTuple):
+    color: torch.Tensor         # [C, H, W] (bg blended)
+    depth: torch.Tensor         # [H, W] expected depth
+    occ: torch.Tensor           # [H, W] 1 - final_T
+    final_T: torch.Tensor       # [H, W]
+    normal: torch.Tensor        # [3, H, W]
+    median_depth: torch.Tensor  # [H, W]
+    distortion: torch.Tensor    # [H, W] 2DGS distortion accumulator
+    visible: torch.Tensor       # [P] bool
+    n_dropped: torch.Tensor
+    n_overflow: torch.Tensor
+
+
+class PairGeom(NamedTuple):
+    """The per-pair geometry of a [L, K, F] chunk of packed surfels against
+    [L, npix] pixels. Row columns are [L, K, 1], pair values [L, K, npix]."""
+
+    tu: tuple                  # (x, y, z) columns
+    tv: tuple
+    tw: tuple
+    n: tuple
+    tu_sq: torch.Tensor        # |Tu|^2, before the 1e-20 clamp
+    tv_sq: torch.Tensor
+    tw_sq: torch.Tensor
+    tu_tu: torch.Tensor        # max(|Tu|^2, 1e-20)
+    tv_tv: torch.Tensor
+    rho_r: torch.Tensor        # sqrt(max(|Tw|^2, 1e-20)), the center range
+    hit: torch.Tensor          # dir . n != 0
+    cos2s: torch.Tensor        # dir . n where hit, else 1
+    lam2: torch.Tensor         # (Tw . n) / cos2s: the ray's distance to the plane
+    dp: tuple                  # lam2 dir - Tw
+    sx: torch.Tensor           # plane coordinates (dp . Tu) / |Tu|^2, ...
+    sy: torch.Tensor
+    dxc: torch.Tensor          # center column - pixel column
+    dyc: torch.Tensor
+    use3d: torch.Tensor        # the ray-plane value (not rho2d) is taken
+    depth: torch.Tensor        # lam2 where use3d, else rho_r
+    e: torch.Tensor            # exp(-rho / 2)
+    araw: torch.Tensor         # opacity * e
+    alpha: torch.Tensor        # min(araw, alpha_clamp)
+    passed: torch.Tensor       # valid, in rect, hit, near cut, power <= 0, alpha >= alpha_min
+
+
+def pair_geometry(inst: torch.Tensor, dirx, diry, dirz, pxf, pyf, C: int,
+                  cfg: RasterConfig) -> PairGeom:
+    """Ray-plane intersection with the rho2d low-pass fallback, alpha and
+    the pass mask (without the count) for every (row, pixel) pair; `dir*`,
+    `pxf`, `pyf` are [L, 1, npix] float. Every sum of three products is
+    (a0 b0 + a1 b1) + a2 b2, the order of `csrc/surfel_common.cuh`, so the
+    plain versions and the kernels give a pair's depth the same bits."""
+    S = SurfelCols
+    col = lambda i: inst[..., i:i + 1]
+    tu = (col(0), col(1), col(2))
+    tv = (col(3), col(4), col(5))
+    tw = (col(6), col(7), col(8))
+    n = (col(9), col(10), col(11))
+    dot = lambda a, b: a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+    tw_sq = dot(tw, tw)
+    rho_r = torch.sqrt(tw_sq.clamp_min(1e-20))
+    lam = dot(tw, n)
+    cos2 = dot(n, (dirx, diry, dirz))
+    hit = cos2 != 0.0
+    cos2s = torch.where(hit, cos2, torch.ones_like(cos2))
+    lam2 = lam / cos2s
+    dp = (lam2 * dirx - tw[0], lam2 * diry - tw[1], lam2 * dirz - tw[2])
+    tu_sq, tv_sq = dot(tu, tu), dot(tv, tv)
+    tu_tu, tv_tv = tu_sq.clamp_min(1e-20), tv_sq.clamp_min(1e-20)
+    sx = dot(dp, tu) / tu_tu
+    sy = dot(dp, tv) / tv_tv
+    rho3d = sx * sx + sy * sy
+
+    dxc = col(S.center(C).start) - pxf
+    dyc = col(S.center(C).start + 1) - pyf
+    rho2d = cfg.filter_inv_square * (40.0 * dxc * dxc + 100.0 * dyc * dyc)
+
+    pos = hit & (lam2 > 0.0)
+    use3d = pos & (rho3d <= rho2d)
+    rho = torch.where(pos, torch.minimum(rho3d, rho2d), rho2d)
+    depth = torch.where(use3d, lam2, rho_r)
+    power = -0.5 * rho
+    e = torch.exp(power)
+    araw = col(S.OPACITY) * e
+    alpha = araw.clamp_max(cfg.alpha_clamp)
+    # parity-rect mask: a surfel reaches exactly the pixels of the 16x1
+    # blocks its extent touches, whatever the physical tile shape
+    r0 = S.rect(C).start
+    passed = ((col(S.validf(C)) > 0.0)
+              & (pxf >= col(r0)) & (pxf < col(r0 + 1)) & (pyf >= col(r0 + 2))
+              & (pyf < col(r0 + 3))
+              & hit & (depth >= cfg.surfel_near) & (power <= 0.0)
+              & (alpha >= cfg.alpha_min))
+    return PairGeom(tu=tu, tv=tv, tw=tw, n=n, tu_sq=tu_sq, tv_sq=tv_sq, tw_sq=tw_sq,
+                    tu_tu=tu_tu, tv_tv=tv_tv, rho_r=rho_r, hit=hit, cos2s=cos2s, lam2=lam2,
+                    dp=dp, sx=sx, sy=sy, dxc=dxc, dyc=dyc, use3d=use3d, depth=depth, e=e,
+                    araw=araw, alpha=alpha, passed=passed)
+
+
+def _surfel_chunk(carry, inst, inst_valid, pix_dir, pix_x, pix_y, C: int,
+                  cfg: RasterConfig):
+    """One [L, K, F] chunk against [L, npix] pixels: the per-pixel surfel
+    walk (ray-plane depth, rho2d fallback, near cut, the transmittance stop
+    rule, the normal, median and distortion accumulators) in prefix-product
+    form."""
+    T, done, color, depth_acc, nrm_acc, m1, m2, dist_acc, med = carry
+    S = SurfelCols
+    d = lambda i: pix_dir[:, None, :, i]                       # [L,1,npix]
+    g = pair_geometry(inst, d(0), d(1), d(2), pix_x[:, None].to(torch.float32),
+                      pix_y[:, None].to(torch.float32), C, cfg)
+    alpha, depth = g.alpha, g.depth
+    pass_ = inst_valid[..., None] & g.passed
+    feat = inst[..., S.FEAT0:S.FEAT0 + C]
+    nrm = inst[..., S.NORMAL]
+
+    zero = torch.zeros((), dtype=torch.float32, device=inst.device)
+    one_m = 1.0 - torch.where(pass_, alpha, zero)
+    prefix = torch.cat([torch.ones_like(one_m[:, :1]), torch.cumprod(one_m, 1)[:, :-1]], 1)
+    P = T[:, None] * prefix
+    crossing = pass_ & (P * (1.0 - alpha) < cfg.transmittance_min)
+    dead = torch.cumsum(crossing.to(torch.int32), 1) > 0
+    applied = pass_ & ~dead & ~done[:, None]
+    w = torch.where(applied, alpha * P, zero)                  # [L,K,npix]
+
+    color = color + torch.einsum("lkp,lkc->lcp", w, feat)
+    depth_acc = depth_acc + (w * depth).sum(1)
+    nrm_acc = nrm_acc + torch.einsum("lkp,lkc->lcp", w, nrm)
+
+    # distortion: each instance uses the RUNNING M1/M2 and A = 1 - T before it
+    fn, nn = cfg.surfel_far, cfg.surfel_near
+    m = fn / (fn - nn) * (1.0 - nn / depth.clamp_min(1e-9))
+    wm = w * m
+    wm2 = w * m * m
+    excl = lambda x: torch.cat([torch.zeros_like(x[:, :1]), torch.cumsum(x, 1)[:, :-1]], 1)
+    m1_pre = m1[:, None] + excl(wm)
+    m2_pre = m2[:, None] + excl(wm2)
+    dist_acc = dist_acc + (w * (m * m * (1.0 - P) + m2_pre - 2.0 * m * m1_pre)).sum(1)
+    m1 = m1 + wm.sum(1)
+    m2 = m2 + wm2.sum(1)
+
+    # median depth: the depth of the LAST applied instance with T-before > 0.5
+    cand = applied & (P > 0.5)
+    K = w.shape[1]
+    idx = torch.arange(K, device=inst.device)[None, :, None]
+    last = torch.where(cand, idx, -1).amax(1)                  # [L,npix]
+    sel = cand & (idx == last[:, None])
+    med = torch.where(cand.any(1), torch.where(sel, depth, zero).sum(1), med)
+
+    T = T * torch.where(applied, 1.0 - alpha, torch.ones_like(alpha)).prod(1)
+    done = done | (crossing & ~done[:, None]).any(1)
+    return (T, done, color, depth_acc, nrm_acc, m1, m2, dist_acc, med)
+
+
+def surfel_composite(
+    inst: torch.Tensor,        # [L, K_total, F] depth-ordered packed surfels
+    inst_valid: torch.Tensor,  # [L, K_total]
+    pix_dir: torch.Tensor,     # [L, npix, 3]
+    pix_x: torch.Tensor,       # [L, npix]
+    pix_y: torch.Tensor,       # [L, npix]
+    C: int,
+    cfg: RasterConfig,
+):
+    """The chunk scan over each list: (T, done, color, depth, normal, M1,
+    M2, distortion, median), each [L, (c,) npix]."""
+    L, K_total, _ = inst.shape
+    npix = pix_x.shape[1]
+    K = min(cfg.chunk, K_total)
+    n_chunks = -(-K_total // K)
+    pad = n_chunks * K - K_total
+    inst = F.pad(inst, (0, 0, 0, pad))
+    inst_valid = F.pad(inst_valid, (0, pad))
+    f32 = dict(dtype=torch.float32, device=inst.device)
+    z = lambda *s: torch.zeros(s, **f32)
+    carry = (torch.ones((L, npix), **f32), torch.zeros((L, npix), dtype=torch.bool,
+                                                         device=inst.device),
+             z(L, C, npix), z(L, npix), z(L, 3, npix), z(L, npix), z(L, npix),
+             z(L, npix), z(L, npix))
+    for i in range(n_chunks):
+        sl = slice(i * K, (i + 1) * K)
+        carry = _surfel_chunk(carry, inst[:, sl], inst_valid[:, sl], pix_dir, pix_x, pix_y,
+                              C, cfg)
+    return carry
+
+
+OUT_ROWS = 16            # rows of K5's [T, 16, NPIX] output
+
+
+def surfel_composite_tiles_plain(inst: torch.Tensor, counts: torch.Tensor,
+                                 pix: torch.Tensor, C: int,
+                                 cfg: RasterConfig) -> torch.Tensor:
+    """The chunk scan `surfel_composite` in K5's [T, 16, NPIX] layout."""
+    T, K, _ = inst.shape
+    npix = pix.shape[-1]
+    inst_valid = (torch.arange(K, device=inst.device)[None, :]
+                  < counts.to(torch.int64)[:, None])
+    dirs = pix[:, 0:3].transpose(1, 2)
+    Tr, _done, color, dep, nrm, m1, m2, dist, med = surfel_composite(
+        inst, inst_valid, dirs, pix[:, 3].to(torch.int32), pix[:, 4].to(torch.int32), C, cfg)
+    pad = torch.zeros((T, OUT_ROWS - C - 9, npix), dtype=torch.float32, device=inst.device)
+    one = lambda x: x[:, None]
+    return torch.cat([color, one(dep), one(Tr), nrm, one(med), one(dist), one(m1), one(m2),
+                      pad], 1)
+
+
+def render_surfels(pk: torch.Tensor, beams: torch.Tensor, W: int, bg: torch.Tensor,
+                   cfg: RasterConfig, C: int = 2, probe: dict | None = None) -> SurfelOut:
+    """The tiled surfel render of packed surfels [P, F]. `probe`, when
+    given, gets the frame's TileLists (detached) under "lists"."""
+    H = beams.shape[0]
+    V = min(cfg.max_visible, pk.shape[0])
+    vf = SurfelCols.validf(C)
+    pkv = depth_sorted(pk, pk[:, SurfelCols.DEPTH], V)
+    n_dropped = (pk[:, vf] > 0.0).sum() - (pkv[:, vf] > 0.0).sum()
+    tl, n_overflow = tile_lists(pkv, beams, W, cfg, C, SurfelCols)
+    if probe is not None:
+        probe["lists"] = tl._replace(inst=tl.inst.detach())
+    out16 = surfel_composite_tiles_plain(tl.inst, tl.counts, tl.pix, C, cfg)
+    final_T = untile(out16[:, C + 1], H, W, cfg)
+    return SurfelOut(
+        color=untile(out16[:, :C], H, W, cfg) + final_T[None] * bg[:, None, None],
+        depth=untile(out16[:, C], H, W, cfg),
+        occ=1.0 - final_T,
+        final_T=final_T,
+        normal=untile(out16[:, C + 2:C + 5], H, W, cfg),
+        median_depth=untile(out16[:, C + 5], H, W, cfg),
+        distortion=untile(out16[:, C + 6], H, W, cfg),
+        visible=pk[:, vf] > 0.0,
+        n_dropped=n_dropped,
+        n_overflow=n_overflow,
+    )

@@ -31,6 +31,7 @@ from typing import TYPE_CHECKING, NamedTuple, Optional
 import torch
 
 from ..config import ModelConfig, OptConfig
+from ..utils.profiling import telemetry
 
 if TYPE_CHECKING:                      # train.trainer imports models.field
     from ..train.trainer import TrainState
@@ -193,48 +194,50 @@ def densify_step(state: TrainState, mcfg: ModelConfig, ocfg: OptConfig,
     st = state
     total_grown = torch.zeros((), dtype=torch.int64, device=dev)
     total_dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    for level in range(mcfg.update_depth):
-        st, n_grown, n_drop = _grow_level(st, level, grads, offset_mask, draws[level],
-                                          mcfg, ocfg, voxel_size)
-        total_grown = total_grown + n_grown
-        total_dropped = total_dropped + n_drop
+    with telemetry.span("grow"):
+        for level in range(mcfg.update_depth):
+            st, n_grown, n_drop = _grow_level(st, level, grads, offset_mask, draws[level],
+                                              mcfg, ocfg, voxel_size)
+            total_grown = total_grown + n_grown
+            total_dropped = total_dropped + n_drop
 
-    # --- statistics reset for offsets that passed the success threshold ---
-    offset_grad_accum = torch.where(offset_mask, 0.0, st.offset_grad_accum)
-    offset_denom = torch.where(offset_mask, 0.0, st.offset_denom)
+    with telemetry.span("prune"):
+        # --- statistics reset for offsets that passed the success threshold ---
+        offset_grad_accum = torch.where(offset_mask, 0.0, st.offset_grad_accum)
+        offset_denom = torch.where(offset_mask, 0.0, st.offset_denom)
 
-    # --- prune ---
-    visited = st.anchor_demon > check_interval * ocfg.success_threshold
-    prune = st.valid & visited & (st.opacity_accum < ocfg.min_opacity * st.anchor_demon)
-    new_valid = st.valid & ~prune
+        # --- prune ---
+        visited = st.anchor_demon > check_interval * ocfg.success_threshold
+        prune = st.valid & visited & (st.opacity_accum < ocfg.min_opacity * st.anchor_demon)
+        new_valid = st.valid & ~prune
 
-    # reset statistics of well-visited survivors; clear pruned rows entirely
-    opacity_accum = torch.where(visited | prune, 0.0, st.opacity_accum)
-    anchor_demon = torch.where(visited | prune, 0.0, st.anchor_demon)
-    prune_off = prune.repeat_interleave(k)
-    offset_grad_accum = torch.where(prune_off, 0.0, offset_grad_accum)
-    offset_denom = torch.where(prune_off, 0.0, offset_denom)
+        # reset statistics of well-visited survivors; clear pruned rows entirely
+        opacity_accum = torch.where(visited | prune, 0.0, st.opacity_accum)
+        anchor_demon = torch.where(visited | prune, 0.0, st.anchor_demon)
+        prune_off = prune.repeat_interleave(k)
+        offset_grad_accum = torch.where(prune_off, 0.0, offset_grad_accum)
+        offset_denom = torch.where(prune_off, 0.0, offset_denom)
 
-    # zero params and moments of pruned rows (keeps the padded-row invariants)
-    p = dict(st.params)
-    mu, nu = dict(st.opt.mu), dict(st.opt.nu)
-    for name in _GROWN:
-        m = prune.reshape((-1,) + (1,) * (p[name].dim() - 1))
-        p[name] = torch.where(m, 0.0, p[name])
-        mu[name] = torch.where(m, 0.0, mu[name])
-        nu[name] = torch.where(m, 0.0, nu[name])
-    # the log-scale clamp on prune
-    p["scaling"] = torch.cat([p["scaling"][:, :3], p["scaling"][:, 3:].clamp_max(0.05)], 1)
+        # zero params and moments of pruned rows (keeps the padded-row invariants)
+        p = dict(st.params)
+        mu, nu = dict(st.opt.mu), dict(st.opt.nu)
+        for name in _GROWN:
+            m = prune.reshape((-1,) + (1,) * (p[name].dim() - 1))
+            p[name] = torch.where(m, 0.0, p[name])
+            mu[name] = torch.where(m, 0.0, mu[name])
+            nu[name] = torch.where(m, 0.0, nu[name])
+        # the log-scale clamp on prune
+        p["scaling"] = torch.cat([p["scaling"][:, :3], p["scaling"][:, 3:].clamp_max(0.05)], 1)
 
-    new_state = st._replace(
-        params=p,
-        opt=st.opt._replace(mu=mu, nu=nu),
-        valid=new_valid,
-        opacity_accum=opacity_accum,
-        anchor_demon=anchor_demon,
-        offset_grad_accum=offset_grad_accum,
-        offset_denom=offset_denom,
-    )
+        new_state = st._replace(
+            params=p,
+            opt=st.opt._replace(mu=mu, nu=nu),
+            valid=new_valid,
+            opacity_accum=opacity_accum,
+            anchor_demon=anchor_demon,
+            offset_grad_accum=offset_grad_accum,
+            offset_denom=offset_denom,
+        )
     stats = DensifyStats(n_grown=total_grown, n_pruned=prune.sum(),
                          n_capacity_dropped=total_dropped)
     return new_state, stats

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from ..config import RasterConfig
 from .composite import pixel_rays
 from .composite_kernel import CompositeTiles, CompositeWindows
+from ..utils.profiling import telemetry
 from .projection import PackedCols, Splats, pack_splats
 
 _I32 = torch.int32
@@ -328,9 +329,11 @@ def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
     if cfg.fused_gather:
         buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C,
                                                              tile_lo=tile_lo, n_tiles=n_tiles)
+        (buf,) = telemetry.boundary("raster", "composite_bwd", buf)
         out8 = CompositeWindows.apply(buf, starts, counts, pix, C, cfg)
     else:
         inst, counts, pix, n_overflow = tile_inputs(pkv, beams, W, cfg, C, tile_lo, n_tiles)
+        (inst,) = telemetry.boundary("raster", "composite_bwd", inst)
         out8 = CompositeTiles.apply(inst, counts, pix, C, cfg)
     return out8[:, :C], out8[:, C], out8[:, C + 1], n_overflow
 
@@ -338,15 +341,18 @@ def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
 def cull_sorted_rows(splats: Splats, cfg: RasterConfig):
     """Cull + compact + depth presort in ONE stable sort: the first
     min(max_visible, P) packed rows in depth order ([V, F]) and the count of
-    valid gaussians beyond max_visible."""
+    valid gaussians beyond max_visible. The packed rows are where the front
+    ends (its stamp carries the valid rows and the rows it processed)."""
     P = splats.valid.shape[0]
     C = splats.feat.shape[-1]
     V = min(cfg.max_visible, P)
     pk = pack_splats(splats)                                    # [P, F]
+    n_valid = splats.valid.sum()
+    (pk,) = telemetry.boundary("front", "raster_bwd", pk, values=(n_valid,), rows=P)
     sel = torch.sort(splats.depth, stable=True).indices
     pkv = permutation_rows(pk, sel, V)                          # [V, F]
     vvalid = pkv[:, PackedCols.validf(C)] > 0.0
-    n_dropped = splats.valid.sum() - vvalid.sum()
+    n_dropped = n_valid - vvalid.sum()
     return pkv, n_dropped
 
 

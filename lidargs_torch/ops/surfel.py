@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RasterConfig
+from ..utils.profiling import telemetry
 from .composite import pixel_rays
 from .projection import _project_rows, quat_to_rotmat, unit_x
 from .rasterize import (_pix_blocks, _tile_pixels, bin_instances, permutation_rows,
@@ -360,12 +361,16 @@ def cull_sorted_surfels(pk: torch.Tensor, cfg: RasterConfig, C: int):
     """Cull + compact + depth presort in ONE stable sort: the first
     min(max_visible, P) packed rows in depth order ([V, F]) and the count of
     valid surfels beyond max_visible. Invalid rows carry the same 4*far
-    sentinel depth, so stability keeps the JAX package's row order."""
+    sentinel depth, so stability keeps the JAX package's row order. The
+    packed rows are where the front ends (its stamp carries the valid rows
+    and the rows it processed)."""
     V = min(cfg.max_visible, pk.shape[0])
+    vf = SurfelCols.validf(C)
+    n_valid = (pk[:, vf] > 0.0).sum()
+    (pk,) = telemetry.boundary("front", "raster_bwd", pk, values=(n_valid,), rows=pk.shape[0])
     sel = torch.sort(pk[:, SurfelCols.DEPTH], stable=True).indices
     pkv = permutation_rows(pk, sel, V)
-    vf = SurfelCols.validf(C)
-    n_dropped = (pk[:, vf] > 0.0).sum() - (pkv[:, vf] > 0.0).sum()
+    n_dropped = n_valid - (pkv[:, vf] > 0.0).sum()
     return pkv, n_dropped
 
 
@@ -422,9 +427,11 @@ def render_surfels(
         if cfg.fused_gather:
             buf, starts, counts, pix, n_overflow = window_inputs(pkv, beams, W, cfg, C,
                                                                  SurfelCols)
+            (buf,) = telemetry.boundary("raster", "composite_bwd", buf)
             out16 = SurfelCompositeWindows.apply(buf, starts, counts, pix, C, cfg)
         else:
             inst, counts, pix, n_overflow = surfel_tile_inputs(pkv, beams, W, cfg, C)
+            (inst,) = telemetry.boundary("raster", "composite_bwd", inst)
             out16 = SurfelCompositeTiles.apply(inst, counts, pix, C, cfg)
         color, dep, T = out16[:, :C], out16[:, C], out16[:, C + 1]
         nrm, med, dist = out16[:, C + 2:C + 5], out16[:, C + 5], out16[:, C + 6]

@@ -207,6 +207,10 @@ def build_config(argv=None):
                         "the package is unavailable")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="capture a torch.profiler trace of N steps into <model_path>/trace")
+    p.add_argument("--telemetry", action="store_true",
+                   help="record the step's stage stamps, counters and host spans "
+                        "(utils/profiling.py telemetry): the log line prints them, and the "
+                        "timeline goes to <model_path>/trace/telemetry.json")
     args, _ = p.parse_known_args(argv)
     if args.config:
         with open(args.config) as f:
@@ -348,8 +352,9 @@ def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None,
 
 def measure_fps(scene, state, trainer, warmup: int = 5) -> float:
     """Per-frame wall clock of the render over every train and test frame,
-    each ending in a device synchronize; the mean of 1/t after `warmup`
-    frames (`train/evaluate.py` `measure_fps`, which logs it)."""
+    each ending in a device synchronize; the frames after `warmup` over the
+    loop's time for them (`train/evaluate.py` `measure_fps`, which logs
+    it)."""
     from .evaluate import measure_fps as fps_of
 
     with torch.no_grad():
@@ -431,13 +436,16 @@ def main(argv=None):
         first_iter = args.start_checkpoint
         logger.info(f"resumed from iteration {first_iter}")
 
-    from ..utils.profiling import StepTimer, TensorBoardLogger, WandbLogger, trace
+    from ..utils.profiling import TensorBoardLogger, WandbLogger, telemetry, trace
 
     tb = TensorBoardLogger(os.path.join(cfg.model_path, "tb")
                            if args.tensorboard and is_coord else None)
     wb = WandbLogger(args.wandb if is_coord else None,
                      run_name=os.path.basename(cfg.model_path), config=vars(args))
-    timer = StepTimer().start()
+    was_on = telemetry.on
+    if args.telemetry:
+        telemetry.enable()
+    t_log = time.perf_counter()
     profile_ctx = None
     # the trace leaves out the first step, and the first step of the
     # statistics mode that starts inside its window: a graphed step captures
@@ -481,12 +489,24 @@ def main(argv=None):
 
                 snapshot_if_nonfinite(loss, cfg.model_path, it, state.params, state.valid,
                                       frame, logger)
-            dt_ms = timer.tick()
+            t_now = time.perf_counter()
+            dt_ms, t_log = (t_now - t_log) * 1e3, t_now
             ema = loss if ema is None else 0.4 * loss + 0.6 * ema
+            # the recorder's ring holds the counters of the steps since the
+            # last line (one read); without it, each is read on its own
+            tel = telemetry.summary("train", last=cfg.log_every) if telemetry.on else None
+            if tel is not None:
+                c = tel["counters"]
+                anchors = round(c["n_anchors"])
+                stages = " ".join(f"{k}={v:.2f}" for k, v in tel["stage_ms"].items())
+                counts = (f"visible={c['n_visible']:.0f} overflow={c['n_overflow']:.0f} "
+                          f"[device ms: {stages} host_gap={tel['host_gap_ms'] or 0.0:.2f}]")
+            else:
+                anchors = int(metrics.n_anchors)
+                counts = (f"visible={int(metrics.n_visible)} "
+                          f"overflow={int(metrics.n_overflow)}")
             logger.info(
-                f"iter {it}: loss={ema:.5f} anchors={int(metrics.n_anchors)} "
-                f"visible={int(metrics.n_visible)} "
-                f"overflow={int(metrics.n_overflow)} "
+                f"iter {it}: loss={ema:.5f} anchors={anchors} {counts} "
                 f"({(time.time() - t_start) / (it - first_iter) * 1e3:.0f} ms/it avg)"
             )
             if tb.active:
@@ -497,9 +517,9 @@ def main(argv=None):
                     "l1_loss": lt.l1_intensity, "ssim": lt.ssim_intensity,
                 }, it, prefix="train_loss/")
                 tb.scalar("iter_time", dt_ms / cfg.log_every, it)
-                tb.scalar("anchors", int(metrics.n_anchors), it)
+                tb.scalar("anchors", anchors, it)
             if wb.active:
-                wb.log({"total_loss": loss, "anchors": int(metrics.n_anchors)},
+                wb.log({"total_loss": loss, "anchors": anchors},
                        step=it, prefix="train/")
         # should_densify needs the cadence first: read the anchor count (a
         # device sync) only on a densify iteration
@@ -542,6 +562,12 @@ def main(argv=None):
 
     if profile_ctx is not None:
         profile_ctx.__exit__(None, None, None)
+    if telemetry.on and not was_on:
+        if args.telemetry and is_coord:
+            path = os.path.join(cfg.model_path, "trace", "telemetry.json")
+            telemetry.write_trace(path)
+            logger.info(f"telemetry timeline written to {path}")
+        telemetry.disable()
     if rt is not None:
         rt.sync("end-of-training")
     if is_coord:

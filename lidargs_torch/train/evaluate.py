@@ -20,7 +20,6 @@ import os
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Union
 
-import numpy as np
 import torch
 
 from ..config import ModelConfig, RasterConfig
@@ -45,7 +44,7 @@ def _sync(dev: torch.device) -> None:
 
 
 class FpsResult(NamedTuple):
-    fps: float                 # mean of 1/t over the frames after warmup
+    fps: float                 # frames after warmup over the time the loop took for them
     seconds: List[float]       # per-frame wall clock, warmup frames included
     outputs: List[Union[RenderOut, SurfelOut]]   # each frame's render, in order
 
@@ -54,9 +53,9 @@ def measure_fps(params: dict, valid: torch.Tensor, frames: List[LidarFrame],
                 mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
                 warmup: int = 5, device="cuda", variant: str = "beam") -> FpsResult:
     """Per-frame wall clock of the render, each frame ending in a device
-    synchronize; the rate is the mean of 1/t over the frames after the
-    first `warmup`, whose times hold the graph's capture on the card, as
-    JAX's hold its compile. `variant` picks the render path ("beam" or
+    synchronize; the rate is the frames after the first `warmup` over the
+    time the loop took for them (the warmup frames hold the graph's capture
+    on the card, as JAX's hold its compile). `variant` picks the render path ("beam" or
     "surfel"). Each frame's outputs are its own (cloned from the graph's)."""
     if len(frames) <= warmup:
         raise ValueError(f"{len(frames)} frames leave none after {warmup} warmup frames")
@@ -65,13 +64,15 @@ def measure_fps(params: dict, valid: torch.Tensor, frames: List[LidarFrame],
     render = RenderGraphs(variant, mcfg, rcfg, bg)
     frames = [fr.to(dev) for fr in frames]
     ts, outs = [], []
-    for fr in frames:
+    for i, fr in enumerate(frames):
         t0 = time.perf_counter()
+        if i == warmup:
+            t_loop = t0
         out = render(params, valid, fr)
         _sync(dev)
         ts.append(time.perf_counter() - t0)
         outs.append(out)
-    fps = float(np.mean([1.0 / t for t in ts[warmup:]]))
+    fps = (len(frames) - warmup) / (time.perf_counter() - t_loop)
     log.info("[fps] %.2f frames/s over %d frames", fps, len(ts) - warmup)
     return FpsResult(fps=fps, seconds=ts, outputs=outs)
 

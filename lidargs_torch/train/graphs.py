@@ -33,6 +33,10 @@ not counted.
 `RenderGraphs` is the forward render as such programs: one per (params,
 valid) identity and pixel-mask key, with static frame buffers that each
 call copies the frame into.
+
+The recorder's stamps (`utils/profiling.py` `telemetry`) inside a program
+are captured with it when the capture runs inside a Trainer's scope; the
+warm-up runs stamp nothing.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..models.field import render_fn
 from ..ops import composite_kernel, surfel_kernel
+from ..utils.profiling import telemetry
 from .optim import tree_leaves
 
 WARMUP = 2                     # eager warm-up runs before a capture
@@ -98,9 +103,13 @@ class StaticProgram:
             ambient = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
             side.wait_stream(ambient)
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP):
-                    self.compute()
+            telemetry.warming = True
+            try:
+                with torch.cuda.stream(side):
+                    for _ in range(WARMUP):
+                        self.compute()
+            finally:
+                telemetry.warming = False
             ambient.wait_stream(side)
             start = read_counters()
             graph = torch.cuda.CUDAGraph()
@@ -163,7 +172,8 @@ class RenderGraphs:
 
     def __call__(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
         if not use_graphs(self.graphed, valid.device):
-            return self.render(params, valid, frame, self.mcfg, self.rcfg, self.bg)[0]
+            return end_frame(stamped_render(self.render, params, valid, frame, self.mcfg,
+                                            self.rcfg, self.bg))
         key = frame.pixel_mask is None
         inputs = tree_leaves(params) + [valid]
         entry = self.programs.get(key)
@@ -173,8 +183,12 @@ class RenderGraphs:
             self.programs.pop(key, None)
             entry = self._program(inputs, params, valid, frame)
             self.programs[key] = entry
-        copy_frame(entry[2], frame)
-        return clone_outputs(entry[3].run())
+        with telemetry.span("frame_copy"):
+            copy_frame(entry[2], frame)
+        with telemetry.span("replay"):
+            out = entry[3].run()
+        with telemetry.span("clone_outputs"):
+            return clone_outputs(out)
 
     def _program(self, inputs, params, valid, frame):
         # the closure holds what it reads, not self: no reference cycle
@@ -183,9 +197,22 @@ class RenderGraphs:
 
         @torch.no_grad()
         def compute():
-            return render(params, valid, static, mcfg, rcfg, bg)[0]
+            return stamped_render(render, params, valid, static, mcfg, rcfg, bg)
 
         if self.pool is None and valid.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
-        prog = StaticProgram(compute, lambda out: out, valid.device, self.pool)
+        prog = StaticProgram(compute, end_frame, valid.device, self.pool)
         return inputs, frame_layout(frame), static, prog
+
+
+def stamped_render(render, params, valid, frame, mcfg, rcfg, bg):
+    """`render`'s output after the frame's begin stamp (`utils/profiling.py`
+    `telemetry`: inside `Trainer.render` only)."""
+    telemetry.stamp("begin", valid)
+    return render(params, valid, frame, mcfg, rcfg, bg)[0]
+
+
+def end_frame(out):
+    """The frame's end stamp, with its overflow and dropped counts."""
+    telemetry.stamp("end", out.depth, (out.n_overflow, out.n_dropped), first="n_overflow")
+    return out

@@ -37,6 +37,7 @@ import torch
 from ..config import ModelConfig, OptConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..models.field import AnchorField, render_fn
+from ..utils.profiling import telemetry
 from .graphs import (RenderGraphs, StaticProgram, copy_frame, frame_layout, frame_like,
                      layout, use_graphs)
 from .losses import LossTerms, lidar_losses, normal_consistency_loss
@@ -93,6 +94,9 @@ def frame_loss(params, proxy, valid, step, frame: LidarFrame, bg,
     means). The surfel variant adds the distortion and normal-consistency
     terms from `ocfg.dist_from` and `ocfg.normal_from` on."""
     out, ng, anchor_vis = render_fn(variant)(params, valid, frame, mcfg, rcfg, bg, proxy)
+    read = ("color", "depth") + (("normal", "distortion") if variant == "surfel" else ())
+    out = out._replace(**dict(zip(read, telemetry.boundary(
+        "composite", "loss_bwd", *(getattr(out, n) for n in read)))))
     lt = lidar_losses(
         out.color, out.depth, frame.gt_image,
         ng.scaling[..., :2] if variant == "surfel" else ng.scaling, ng.mask,
@@ -122,6 +126,7 @@ def frame_loss(params, proxy, valid, step, frame: LidarFrame, bg,
         op_mass = torch.where(ng.sel_mask, ng.neural_opacity,
                               torch.zeros_like(ng.neural_opacity)).sum() / n_sel
         lt = lt._replace(total=lt.total + ocfg.overflow_lambda * pressure * op_mass)
+    telemetry.stamp("loss", lt.total)
     return lt.total, (out, ng, anchor_vis, lt)
 
 
@@ -139,6 +144,7 @@ def loss_and_grads(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
         total, aux = frame_loss(params, proxy, state.valid, state.step, frame,
                                 bg, mcfg, rcfg, ocfg, variant)
         gs = torch.autograd.grad(total, leaves + [proxy], allow_unused=True)
+    telemetry.stamp("grad", proxy)
     gs = [torch.zeros_like(x) if gx is None else gx for gx, x in zip(gs, leaves + [proxy])]
     return aux, tree_unflatten(state.params, gs[:-1]), gs[-1]
 
@@ -222,15 +228,43 @@ def commit_into(state: TrainState):
     return commit
 
 
+def end_step(state: TrainState, metrics: StepMetrics) -> StepMetrics:
+    """The step's end stamp (`utils/profiling.py` `telemetry`), with its
+    overflow, dropped and anchor counts."""
+    telemetry.stamp("end", state.valid, (metrics.n_overflow, metrics.n_dropped,
+                                         metrics.n_anchors), first="n_overflow")
+    return metrics
+
+
+def stamped_step(step, state: TrainState, frame: LidarFrame, update_stats: bool):
+    """`step` run eagerly inside the stamps' scope, between its begin and
+    end stamps."""
+    with telemetry.scope(state.valid.device):
+        telemetry.stamp("begin", state.valid)
+        new, metrics = step(state, frame, update_stats=update_stats)
+        return new, end_step(state, metrics)
+
+
 def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool, pool):
     """`step` (`train_step` with the trainer's fixed arguments) over the
-    static state and frame as one StaticProgram: its `run`."""
+    static state and frame as one StaticProgram, with the step's begin and
+    end stamps (the end after the commit): its `run`."""
     # the closures hold the static buffers, not the trainer: no reference
     # cycle keeps a dropped trainer's graphs and pool alive
+    commit = commit_into(state)
+    dev = state.valid.device
+
     def compute():
+        telemetry.stamp("begin", state.valid)
         return step(state, frame, update_stats=update_stats)
 
-    return StaticProgram(compute, commit_into(state), state.valid.device, pool).run
+    with telemetry.scope(dev):
+        prog = StaticProgram(compute, lambda out: end_step(state, commit(out)), dev, pool)
+
+    def run():
+        with telemetry.scope(dev):
+            return prog.run()
+    return run
 
 
 class StepGraphs:
@@ -260,25 +294,30 @@ class StepGraphs:
     def run(self, state: TrainState, frame: LidarFrame, update_stats: bool):
         leaves = state_leaves(state)
         lay = layout(leaves)
-        if lay != self.layout:
-            self.programs.clear()
-            self.frames.clear()
-            self.state, self.layout = clone_state(state), lay
-        else:
-            for dst, src in zip(state_leaves(self.state), leaves):
-                if dst is not src:
-                    dst.copy_(src)
+        with telemetry.span("copy_in"):
+            if lay != self.layout:
+                self.programs.clear()
+                self.frames.clear()
+                self.state, self.layout = clone_state(state), lay
+            else:
+                for dst, src in zip(state_leaves(self.state), leaves):
+                    if dst is not src:
+                        dst.copy_(src)
         flay = frame_layout(frame)
         static_frame = self.frames.get(flay)
         if static_frame is None:
             static_frame = self.frames[flay] = frame_like(frame)
         else:
-            copy_frame(static_frame, frame)
+            with telemetry.span("frame_copy"):
+                copy_frame(static_frame, frame)
         run = self.programs.get((update_stats, flay))
         if run is None:
             run = self.programs[(update_stats, flay)] = self.build(
                 self.state, static_frame, update_stats, self.pool)
-        return self.state, clone_metrics(run())
+        with telemetry.span("replay"):
+            metrics = run()
+        with telemetry.span("clone_metrics"):
+            return self.state, clone_metrics(metrics)
 
 
 @dataclass
@@ -325,14 +364,18 @@ class Trainer:
         if self._renders is None:
             self._renders = RenderGraphs(self.variant, self.mcfg, self.rcfg, self.bg,
                                          self.graphed, self.graph_pool(valid.device))
-        return self._renders(params, valid, frame)
+        telemetry.notice()
+        with telemetry.span("render"), telemetry.scope(valid.device):
+            return self._renders(params, valid, frame)
 
     def step(self, state: TrainState, frame: LidarFrame, iteration: int):
         """One step: (TrainState, StepMetrics), the statistics collected
         between `start_stat` and `update_until`. Graphed, the state returned
         is the static buffers (see the class's note on donation)."""
-        return self.run_step(state, frame,
-                             self.ocfg.start_stat < iteration < self.ocfg.update_until)
+        telemetry.notice()
+        with telemetry.span("step"):
+            return self.run_step(state, frame,
+                                 self.ocfg.start_stat < iteration < self.ocfg.update_until)
 
     def run_step(self, state: TrainState, frame: LidarFrame, update_stats: bool):
         """`step` with the statistics mode given (JAX's `_step` and
@@ -347,10 +390,11 @@ class Trainer:
     def step_fns(self):
         """(the eager step, fn(state, frame, update_stats=...); the function
         that makes its static programs, which `StepGraphs` takes), with this
-        trainer's fixed arguments: `train_step` and `step_program`."""
+        trainer's fixed arguments: `stamped_step` and `step_program` of
+        `train_step`."""
         step = functools.partial(train_step, bg=self.bg, mcfg=self.mcfg, rcfg=self.rcfg,
                                  ocfg=self.ocfg, variant=self.variant)
-        return step, functools.partial(step_program, step)
+        return functools.partial(stamped_step, step), functools.partial(step_program, step)
 
     def densify(self, state: TrainState, generator: Optional[torch.Generator],
                 voxel_size: float, draws: Optional[torch.Tensor] = None):
@@ -359,9 +403,13 @@ class Trainer:
         given as `draws` [update_depth, C*k]."""
         from ..models.densify import densify_step
 
-        return densify_step(state, self.mcfg, self.ocfg, float(voxel_size),
-                            check_interval=self.ocfg.update_interval,
-                            generator=generator, draws=draws)
+        telemetry.mark("densify_begin", state.valid)
+        with telemetry.span("densify"):
+            new, stats = densify_step(state, self.mcfg, self.ocfg, float(voxel_size),
+                                      check_interval=self.ocfg.update_interval,
+                                      generator=generator, draws=draws)
+        telemetry.mark("densify_end", new.valid, (stats.n_grown, stats.n_pruned))
+        return new, stats
 
     def should_densify(self, state_n_anchors: int, iteration: int) -> bool:
         o = self.ocfg

@@ -1,0 +1,19 @@
+"""host_gap_ms.train: mean device ms from one step's end stamp to the next step's begin stamp,
+densify calls left out: the device waiting on the host, and the copies
+between graphs.
+
+Read from the program's recorder (`lidargs_torch/utils/profiling.py`
+`telemetry`) over the steps or frames that no profiler watched; None for
+the other kind of cell and for a program without the recorder or with no
+record.
+"""
+
+
+def read(rec):
+    if rec.kind != "train":
+        return None
+    try:
+        from lidargs_torch.utils.profiling import telemetry
+    except ImportError:            # a program without the recorder
+        return None
+    return telemetry.metric("host_gap_ms", "train")

@@ -1,0 +1,18 @@
+"""tile_overflow.train: mean instances cut at tile_capacity a training step (the end stamp's
+n_overflow).
+
+Read from the program's recorder (`lidargs_torch/utils/profiling.py`
+`telemetry`) over the steps or frames that no profiler watched; None for
+the other kind of cell and for a program without the recorder or with no
+record.
+"""
+
+
+def read(rec):
+    if rec.kind != "train":
+        return None
+    try:
+        from lidargs_torch.utils.profiling import telemetry
+    except ImportError:            # a program without the recorder
+        return None
+    return telemetry.metric("tile_overflow", "train")

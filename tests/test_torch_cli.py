@@ -196,8 +196,18 @@ def test_port_cli_trains_resumes_and_warms_up_as_jax(jax_run, monkeypatch):
     uids.clear()
     cli.main(["-s", data, "-m", str(out), *BASE, "--iterations", "8", "--start_checkpoint", "4",
               "--test_iterations", "8", "--save_iterations", "--dump_renders", "--tensorboard",
-              "--device", "cpu"])
+              "--telemetry", "--device", "cpu"])
     assert len(uids) == 4
+    from lidargs_torch.utils.profiling import telemetry
+
+    # --telemetry: the log line reads the recorder's ring, and the timeline
+    # (the 4 steps' device stages, the eval's frames) is written beside the
+    # profiler's trace; the recorder is off again
+    log = (out / "outputs.log").read_text()
+    assert "iter 8: " in log and "[device ms: front=" in log and "host_gap=" in log
+    events = json.loads((out / "trace" / "telemetry.json").read_text())["traceEvents"]
+    assert {e["args"]["step"] for e in events if e["name"] == "adam"} == {1, 2, 3, 4}
+    assert not telemetry.on
     assert any(f.startswith("events.out.tfevents") for f in os.listdir(out / "tb"))
     renders = os.listdir(out / "renders")
     assert len(renders) == 51 and "dir.npy" in renders          # 46 train + 4 test + dirs
@@ -236,8 +246,9 @@ def test_build_config_fills_jax_tree(extra):
     cfg, args = cli.build_config(argv)
     jcfg, jargs = jcli.build_config(argv)
     assert _cfg_dict(cfg) == _cfg_dict(jcfg)
-    assert set(vars(jargs)) == set(vars(args)) - {"device"}
-    assert args.device == "cuda"
+    # the port's own flags: the device, and the recorder (`--telemetry`)
+    assert set(vars(jargs)) == set(vars(args)) - {"device", "telemetry"}
+    assert args.device == "cuda" and args.telemetry is False
 
 
 def test_config_merge(tmp_path):
@@ -465,10 +476,27 @@ def test_profiling_and_visualize_helpers(tmp_path):
     from lidargs_torch.utils import profiling, visualize
 
     timer = profiling.StepTimer().start()
-    for _ in range(4):
-        timer.tick(torch.zeros(1))
-    s = timer.stats(skip=1)
-    assert s["mean_ms"] >= 0 and s["steps_per_s"] > 0 and len(timer.times_ms) == 4
+    assert all(timer.tick(torch.zeros(1)) >= 0 for _ in range(4))
+    # the recorder's host spans: nested, kept in memory while on, nothing off
+    tel = profiling.telemetry
+    assert not tel.on
+    kept = len(tel.spans)
+    with tel.span("step"):
+        pass
+    assert len(tel.spans) == kept
+    tel.enable()
+    try:
+        for _ in range(2):
+            with tel.span("step"), tel.span("replay"):
+                pass
+        assert [(sp[0], sp[3], sp[4]) for sp in tel.spans] == [
+            ("step", -1, 1), ("replay", 0, 1), ("step", -1, 2), ("replay", 2, 2)]
+        assert all(sp[1] <= sp[2] for sp in tel.spans)
+        tel.write_trace(str(tmp_path / "tel" / "telemetry.json"))
+    finally:
+        tel.disable()
+    events = json.loads((tmp_path / "tel" / "telemetry.json").read_text())["traceEvents"]
+    assert [e["name"] for e in events if e["ph"] == "X"] == ["step", "replay"] * 2
     assert not profiling.TensorBoardLogger(None).active
     assert not profiling.WandbLogger(None).active
     with profiling.trace(str(tmp_path / "trace")):

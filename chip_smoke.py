@@ -212,9 +212,10 @@ then:
      prefixes, the five grad prefixes and the five train rows, the surfel
      variant at h1/K384/cap32 through the train rows, each row one CUDA
      graph timed in turns (STAGE_TIMED rounds) and profiled; requires the
-     full-frame row's output equal bit for bit to `RenderGraphs`' render,
-     the full-step row's state equal bit for bit to a graphed
-     `Trainer.step` from another clone of the same state, no row
+     full-frame row's output equal bit for bit to `RenderGraphs`' render
+     on the whole capacity (the rows' extent), the full-step row's state
+     equal bit for bit to a graphed `Trainer.step` on the whole capacity
+     from another clone of the same state, no row
      synchronizing with the card in a replay and a launch of each kernel
      that a row reaches (`stage_split.reached`); prints the prefix deltas
      against `utils/roofline.py`'s speed of light (this run's visible
@@ -2573,6 +2574,7 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
     from lidargs_torch.config import OptConfig
     from lidargs_torch.models.field import AnchorField
     from lidargs_torch.train import Trainer, init_train_state
+    from lidargs_torch.train.graphs import RenderGraphs
     from lidargs_torch.utils import profiling
 
     n = GRAPH_STEPS[name]
@@ -2603,10 +2605,12 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
            **hold_to_eager(f"phase 34: graphed {name}", g, e1,
                            lambda: graph_steps(make(False), state0, frames, n, dev)[0])}
 
-    # the render: graphed against eager, on the trained state
+    # the render: graphed against eager, on the trained state and the
+    # graphed trainer's live extent (its render of its own state runs there)
     with torch.no_grad():
         r_g = graphed.render(g.params, g.valid, frames[1])
-        r_e = eager.render(g.params, g.valid, frames[1])
+        r_e = RenderGraphs(variant, mcfg, rcfg, bg, graphed=False)(g.params, g.valid, frames[1],
+                                                                   extent=graphed.extent)
     out["render_bit_equal"] = all(torch.equal(a, b) for a, b in zip(r_g, r_e)
                                   if a is not None)
     if not out["render_bit_equal"]:
@@ -2668,7 +2672,9 @@ def graph_phases(dev, params, valid, mcfg, beams) -> dict:
                  bg=torch.zeros(2, device=dev))
     tr.step(init_train_state(AnchorField(params=cparams, valid=cvalid, voxel_size=VOXEL),
                              ccfg), frames[0], 1)
+    # the step's front runs on the live extent, not the whole capacity
     out["cli_capacity_pool"] = {"capacity": GRAPH_CLI_CAPACITY, "anchors": N_ANCHORS,
+                                "extent": tr.extent,
                                 "pool_bytes": pool_bytes(tr.graph_pool(dev))}
     return out
 
@@ -2678,11 +2684,13 @@ def graph_phases(dev, params, valid, mcfg, beams) -> dict:
 def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> dict:
     """Phase 35 for one variant: the rows of `modes` (`stage_split.split_rows`)
     captured, timed and profiled (`stage_split.measure`), then held to the
-    production entry points: the full frame to `RenderGraphs`' render and
-    the full step with statistics to a graphed `Trainer.step`, each bit for
-    bit from its own clone of one state; no row may synchronize in a replay
-    and each row must launch the kernels it reaches, by its launch counters
-    and, on the card, by name in the trace of its replays."""
+    production entry points on the rows' whole capacity: the full frame to
+    `RenderGraphs`' render and the full step with statistics to a graphed
+    `Trainer.step` without a live extent, each bit for bit from its own
+    clone of one state; no row
+    may synchronize in a replay and each row must launch the kernels it
+    reaches, by its launch counters and, on the card, by name in the trace
+    of its replays."""
     import torch
 
     from lidargs_torch.config import OptConfig
@@ -2719,7 +2727,9 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
 
     with torch.no_grad():
         frame_row = clone_outputs(programs["full_frame"].run())
-        graphed = RenderGraphs(variant, mcfg, rcfg, bg, graphed=True)(params, valid, frame)
+        # the rows run on the whole capacity, a Trainer on its live extent
+        graphed = RenderGraphs(variant, mcfg, rcfg, bg, graphed=True)(params, valid, frame,
+                                                                      extent=valid.shape[0])
     if not all(torch.equal(a, b) for a, b in zip(frame_row, graphed) if a is not None):
         fail(f"phase 35: the {variant} full-frame row differs from RenderGraphs' render")
     out = {"variant": variant, "raster": {k: getattr(rcfg, k) for k in (
@@ -2727,8 +2737,10 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
            "frame_row_bit_equal": True, "n_visible": int(frame_row.visible.sum())}
     if "train" in modes:
         row_state = programs["train full step (stats)"].run()[0]
+        # a graphed step on the whole capacity, as the rows run
         trainer = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, variant=variant,
                           graphed=True)
+        trainer._extent = None
         step_state = trainer.step(clone_state(state0), frame, 1)[0]
         gap = state_gap(row_state, step_state)
         if not gap["bit_equal"]:

@@ -12,6 +12,10 @@ decode, the first two decoded covariance scales as the surfel's scales.
 
 `init_field_from_points` builds the field from a point cloud: the voxel
 dedup of `voxelize_points` and the initial scales of `ops/knn.py`'s 3-NN.
+
+`anchor_rows` cuts the table to its rows [0, B) for a render: every live
+anchor lies below B (`train/graphs.py` `LiveExtent`), and the rows above
+are padding that the render masks.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
 from ..ops.surfel import SurfelOut, preprocess_surfels, render_surfels
 from ..utils.device import resolve_device
 from .mlp import apply_mlp, init_mlp
+
+
+ANCHOR_ROWS = ("anchor", "offset", "feat", "scaling", "rotation", "opacity")
 
 
 class AnchorField(NamedTuple):
@@ -136,6 +143,16 @@ def init_field_from_points(cfg: ModelConfig, points, voxel_size: Optional[float]
     params["opacity"][:n] = 0.0             # inverse_sigmoid(0.5)
     valid = torch.arange(cfg.anchor_capacity, device=dev) < n
     return AnchorField(params=params, valid=valid, voxel_size=vs)
+
+
+def anchor_rows(params: dict, valid: torch.Tensor, B: int):
+    """(params, valid) with the anchor rows (ANCHOR_ROWS, and valid) cut to
+    the views [0, B), the heads as they are; at B >= the capacity, the two
+    unchanged. A gradient through the views reaches the whole leaves, zero
+    above B."""
+    if B >= valid.shape[0]:
+        return params, valid
+    return {**params, **{n: params[n][:B] for n in ANCHOR_ROWS}}, valid[:B]
 
 
 class NeuralGaussians(NamedTuple):
@@ -330,7 +347,7 @@ def decode_visible(params: dict, valid: torch.Tensor, anchor_visible: torch.Tens
         n_vis = vis.sum()
         n_anchor_drop = (n_vis - Ca).clamp_min(0)
         sub = dict(params)
-        for name in ("anchor", "offset", "feat", "scaling", "rotation", "opacity"):
+        for name in ANCHOR_ROWS:
             sub[name] = permutation_rows(params[name], order, Ca)
         sub_on = torch.arange(Ca, device=vis.device) < n_vis.clamp_max(Ca)
         params, valid, anchor_visible = sub, sub_on, sub_on

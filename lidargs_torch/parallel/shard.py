@@ -31,6 +31,7 @@ At world size 1 with B local frames this is the CLI's `--data_parallel 1
 from __future__ import annotations
 
 from dataclasses import dataclass
+from dataclasses import field as dc_field
 from functools import partial
 from typing import Optional
 
@@ -38,7 +39,7 @@ import torch
 
 from ..config import ModelConfig, OptConfig, RasterConfig
 from ..lidar.frames import LidarFrame, index_frame
-from ..train.graphs import StaticProgram
+from ..train.graphs import LiveExtent, StaticProgram
 from ..train.losses import LossTerms
 from ..train.optim import tree_leaves, tree_unflatten
 from ..train.trainer import (StepMetrics, Trainer, TrainState, apply_step, commit_into,
@@ -198,6 +199,10 @@ class DPTrainer(Trainer):
     `dp_train_step` eagerly (the witness)."""
 
     mesh: Optional[Mesh] = None
+    # the step runs on the whole capacity: an extent would have to be
+    # agreed across the ranks
+    _extent: Optional[LiveExtent] = dc_field(default=None, init=False, repr=False,
+                                             compare=False)
 
     def step_fns(self):
         kw = dict(bg=self.bg, mcfg=self.mcfg, rcfg=self.rcfg, ocfg=self.ocfg,

@@ -505,8 +505,11 @@ def main(argv=None):
                 anchors = int(metrics.n_anchors)
                 counts = (f"visible={int(metrics.n_visible)} "
                           f"overflow={int(metrics.n_overflow)}")
+            # the front's anchor rows and the programs captured so far (a
+            # recapture inside the loop is part of its time)
             logger.info(
                 f"iter {it}: loss={ema:.5f} anchors={anchors} {counts} "
+                f"extent={trainer.extent} captures={telemetry.captures} "
                 f"({(time.time() - t_start) / (it - first_iter) * 1e3:.0f} ms/it avg)"
             )
             if tb.active:

@@ -31,12 +31,23 @@ warm-up's launches are the capture's cost, as a compile is JAX's, and are
 not counted.
 
 `RenderGraphs` is the forward render as such programs: one per (params,
-valid) identity and pixel-mask key, with static frame buffers that each
-call copies the frame into.
+valid) identity, pixel-mask key and live extent, with static frame buffers
+that each call copies the frame into.
+
+The live extent (`LiveExtent`): the anchor table is padded to its capacity
+C and densify grows into its first free rows, so every live row lies below
+the high-water mark `1 + max{i : valid[i]}`. A program's front runs on the
+rows [0, B) (`models/field.py` `anchor_rows`), where B rounds the mark up to
+a sixteenth of C (`extent_rule`): the rows above are padding, masked
+everywhere, and cost the decode, projection and pack as much as a live row.
+The mark is read on the host (one synchronize) only when the program is
+given a `valid` it has not read, or one written in place since.
 
 The recorder's stamps (`utils/profiling.py` `telemetry`) inside a program
 are captured with it when the capture runs inside a Trainer's scope; the
-warm-up runs stamp nothing.
+warm-up runs stamp nothing. Each program made is counted
+(`telemetry.captures`) under a host span `capture`, and the extent of the
+last program built is `telemetry.extent`.
 """
 from __future__ import annotations
 
@@ -46,7 +57,7 @@ import torch
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import render_fn
+from ..models.field import anchor_rows, render_fn
 from ..ops import composite_kernel, surfel_kernel
 from ..utils.profiling import telemetry
 from .optim import tree_leaves
@@ -55,6 +66,7 @@ WARMUP = 2                     # eager warm-up runs before a capture
 COUNTERS = ("launches", "bwd_launches", "windows_launches", "windows_bwd_launches")
 _COUNTED = (composite_kernel, surfel_kernel)
 FRAME_FIELDS = ("w2s_rot", "w2s_trans", "center", "beams", "gt_image", "uid", "pixel_mask")
+QUANTA = 16                    # the live extent moves in steps of a sixteenth of the capacity
 
 
 def read_counters() -> tuple:
@@ -82,6 +94,20 @@ def clone_outputs(out):
     return type(out)(*(None if x is None else x.clone() for x in out))
 
 
+_WARMUP_STREAMS: dict = {}
+
+
+def warmup_stream(device: torch.device):
+    """The one side stream of `device` that every capture's warm-up runs
+    on: the caching allocator keeps a freed block for the stream it was
+    used on, so a new stream per capture would leave each warm-up's blocks
+    reserved and never used again."""
+    key = (device, torch.cuda.Stream)
+    if key not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[key] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[key]
+
+
 class StaticProgram:
     """`commit(compute())` over static buffers: one CUDA graph on `device`,
     captured in `pool` after WARMUP eager runs of `compute` on a side
@@ -94,14 +120,16 @@ class StaticProgram:
         self.graph = None
         self.outputs = None
         self.delta = (0,) * len(read_counters())
-        if device.type == "cuda":
-            self._capture(device, pool)
+        with telemetry.span("capture"):
+            if device.type == "cuda":
+                self._capture(device, pool)
+        telemetry.captures += 1
 
     def _capture(self, device: torch.device, pool) -> None:
         before = read_counters()
         try:
             ambient = torch.cuda.current_stream(device)
-            side = torch.cuda.Stream(device)
+            side = warmup_stream(device)
             side.wait_stream(ambient)
             telemetry.warming = True
             try:
@@ -126,6 +154,52 @@ class StaticProgram:
         self.graph.replay()
         write_counters(a + d for a, d in zip(read_counters(), self.delta))
         return self.outputs
+
+
+def live_mark(valid: torch.Tensor) -> int:
+    """1 + the last live row of `valid` (0 when none are): a host read."""
+    rows = torch.nonzero(valid)
+    return int(rows[-1, 0]) + 1 if rows.shape[0] else 0
+
+
+def extent_rule(mark: int, C: int, B: int = 0) -> int:
+    """The rows [0, B') a front runs on, for the mark `mark` of a table of
+    capacity C whose current extent is B (0: none yet). B' is B while the
+    mark stays within it (an extent never shrinks); else the mark rounded
+    up to q = C / QUANTA rows (at least q), with one q more of headroom
+    when it grows past a current B, so that a growing field recaptures
+    rarely; never above C, and C once the mark is within q of it."""
+    if B and mark <= B:
+        return B
+    q = max(C // QUANTA, 1)
+    return min(C, q * max(1, -(-mark // q)) + (q if B else 0))
+
+
+class LiveExtent:
+    """The live extent of one anchor table (`extent_rule`), read from its
+    `valid` on the host only when `valid` is another tensor, or the same
+    one written in place (its version moved), than the one last read or
+    held. A table of another capacity starts afresh."""
+
+    def __init__(self):
+        self.B, self.C = 0, None
+        self.valid, self.version = None, None
+
+    def __call__(self, valid: torch.Tensor) -> int:
+        if not self.knows(valid):
+            if valid.shape[0] != self.C:
+                self.B, self.C = 0, valid.shape[0]
+            self.B = extent_rule(live_mark(valid), self.C, self.B)
+            self.hold(valid)
+        return self.B
+
+    def knows(self, valid: torch.Tensor) -> bool:
+        """Whether `valid` is the tensor last read or held, as it was."""
+        return valid is self.valid and valid._version == self.version
+
+    def hold(self, valid: torch.Tensor) -> None:
+        """`valid` now holds what was last read (a copy of it): no read."""
+        self.valid, self.version = valid, valid._version
 
 
 def frame_like(frame: LidarFrame) -> LidarFrame:
@@ -154,35 +228,41 @@ def frame_layout(frame: LidarFrame) -> tuple:
 
 
 class RenderGraphs:
-    """The forward render of a variant (`models/field.py` `render_fn`) as
-    static programs: one per (params, valid) identity and pixel-mask key,
-    whose static frame buffers each call copies the frame into. A call
-    returns clones of the graph's outputs. The graph reads params and valid
-    where they lie, so a state updated in place (a graphed `Trainer.step`'s)
-    renders its new values without a new capture; a program for other
-    tensors replaces it. `graphed` as `use_graphs` reads it: False (or
-    None on the CPU) renders eagerly."""
+    """The forward render of a variant (`models/field.py` `render_fn`) on
+    the anchor rows [0, B) as static programs: one per (params, valid)
+    identity, pixel-mask key and B, whose static frame buffers each call
+    copies the frame into. A call returns clones of the graph's outputs.
+    The graph reads params and valid where they lie, so a state updated in
+    place (a graphed `Trainer.step`'s) renders its new values without a new
+    capture; a program for other tensors or another B replaces it. B is the
+    `extent` given (`Trainer.render` gives its step's, whose own static
+    `valid` a densify rewrites in place), else the live extent of `valid`
+    (`LiveExtent`). `graphed` as `use_graphs` reads it: False (or None on
+    the CPU) renders eagerly, on the same rows."""
 
     def __init__(self, variant: str, mcfg: ModelConfig, rcfg: RasterConfig,
                  bg: torch.Tensor, graphed: Optional[bool] = None, pool=None):
         self.render = render_fn(variant)
         self.mcfg, self.rcfg, self.bg = mcfg, rcfg, bg
         self.graphed, self.pool = graphed, pool
+        self.extent = LiveExtent()
         self.programs: dict = {}
 
-    def __call__(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
+    def __call__(self, params: dict, valid: torch.Tensor, frame: LidarFrame,
+                 extent: Optional[int] = None):
+        B = self.extent(valid) if extent is None else extent
         if not use_graphs(self.graphed, valid.device):
-            return end_frame(stamped_render(self.render, params, valid, frame, self.mcfg,
-                                            self.rcfg, self.bg))
+            return end_frame(stamped_render(self.render, *anchor_rows(params, valid, B), frame,
+                                            self.mcfg, self.rcfg, self.bg))
         key = frame.pixel_mask is None
         inputs = tree_leaves(params) + [valid]
         entry = self.programs.get(key)
         if (entry is None or len(entry[0]) != len(inputs)
                 or any(a is not b for a, b in zip(entry[0], inputs))
-                or entry[1] != frame_layout(frame)):
-            self.programs.pop(key, None)
-            entry = self._program(inputs, params, valid, frame)
-            self.programs[key] = entry
+                or entry[1] != frame_layout(frame) or entry[4] != B):
+            # the program replaced is dropped after the new capture: a pool
+            # that no graph holds takes no capture
+            entry = self.programs[key] = self._program(inputs, params, valid, frame, B)
         with telemetry.span("frame_copy"):
             copy_frame(entry[2], frame)
         with telemetry.span("replay"):
@@ -190,19 +270,21 @@ class RenderGraphs:
         with telemetry.span("clone_outputs"):
             return clone_outputs(out)
 
-    def _program(self, inputs, params, valid, frame):
+    def _program(self, inputs, params, valid, frame, B: int):
         # the closure holds what it reads, not self: no reference cycle
         static = frame_like(frame)
         render, mcfg, rcfg, bg = self.render, self.mcfg, self.rcfg, self.bg
+        rows = anchor_rows(params, valid, B)
 
         @torch.no_grad()
         def compute():
-            return stamped_render(render, params, valid, static, mcfg, rcfg, bg)
+            return stamped_render(render, *rows, static, mcfg, rcfg, bg)
 
         if self.pool is None and valid.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
+        telemetry.extent = B
         prog = StaticProgram(compute, end_frame, valid.device, self.pool)
-        return inputs, frame_layout(frame), static, prog
+        return inputs, frame_layout(frame), static, prog, B
 
 
 def stamped_render(render, params, valid, frame, mcfg, rcfg, bg):

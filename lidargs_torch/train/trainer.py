@@ -17,9 +17,16 @@ donate_argnums=(0,))`), and `Trainer.render` replays the render as one
 `DPTrainer` (`parallel/shard.py`) shares the dispatch and `StepGraphs`
 with programs of its own (`step_fns`).
 
-The densification signal: a zeros proxy [C, k, 3] is added to the
+The densification signal: a zeros proxy [B, k, 3] is added to the
 unit-sphere means after the projection (beam) or to the decoded world means
 (surfel), and the norm of its gradient is accumulated per decoded gaussian.
+
+The live extent: a `Trainer` runs the front of its steps and renders on
+the anchor rows [0, B) (`extent`; `train/graphs.py` `LiveExtent`), below
+which every live anchor lies; its gradients and statistics stay shaped
+like the table, zero above B, and Adam runs over the whole table. A step
+called without an extent (the data-parallel step, the stage split's rows)
+runs on the whole capacity.
 
 Parameters that the loss does not reach (a head the configuration does not
 use) get a zero gradient, as in the JAX package's gradient pytree, so their
@@ -33,13 +40,14 @@ from dataclasses import field as dc_field
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ModelConfig, OptConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import AnchorField, render_fn
+from ..models.field import AnchorField, anchor_rows, render_fn
 from ..utils.profiling import telemetry
-from .graphs import (RenderGraphs, StaticProgram, copy_frame, frame_layout, frame_like,
-                     layout, use_graphs)
+from .graphs import (LiveExtent, RenderGraphs, StaticProgram, copy_frame, frame_layout,
+                     frame_like, layout, use_graphs)
 from .losses import LossTerms, lidar_losses, normal_consistency_loss
 from .optim import AdamState, adam_update, init_adam, lr_schedules, tree_leaves, tree_unflatten
 
@@ -131,17 +139,21 @@ def frame_loss(params, proxy, valid, step, frame: LidarFrame, bg,
 
 
 def loss_and_grads(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
-                   rcfg: RasterConfig, ocfg: OptConfig, variant: str = "beam"):
+                   rcfg: RasterConfig, ocfg: OptConfig, variant: str = "beam",
+                   extent: Optional[int] = None):
     """The loss of one frame and its gradients: (aux of `frame_loss`, grads
-    shaped like `state.params`, proxy gradient [C, k, 3]). A parameter the
-    loss does not reach gets zeros."""
-    C = state.params["anchor"].shape[0]
+    shaped like `state.params`, proxy gradient [B, k, 3]). The render runs
+    on the anchor rows [0, B), B = `extent` (default: the capacity), which
+    must hold every live anchor; the gradients are zero above B. A
+    parameter the loss does not reach gets zeros."""
+    B = state.params["anchor"].shape[0] if extent is None else extent
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
     params = tree_unflatten(state.params, leaves)
-    proxy = torch.zeros((C, mcfg.n_offsets, 3), dtype=torch.float32,
+    proxy = torch.zeros((B, mcfg.n_offsets, 3), dtype=torch.float32,
                         device=state.valid.device, requires_grad=True)
     with torch.enable_grad():
-        total, aux = frame_loss(params, proxy, state.valid, state.step, frame,
+        rows, valid = anchor_rows(params, state.valid, B)
+        total, aux = frame_loss(rows, proxy, valid, state.step, frame,
                                 bg, mcfg, rcfg, ocfg, variant)
         gs = torch.autograd.grad(total, leaves + [proxy], allow_unused=True)
     telemetry.stamp("grad", proxy)
@@ -150,13 +162,13 @@ def loss_and_grads(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
 
 
 def frame_stats(state: TrainState, out, ng, anchor_vis, proxy_grad) -> list:
-    """One frame's densification statistics, in TrainState's order:
-    [opacity [C], visits [C], proxy-gradient norms [C*k], their count
-    [C*k]]."""
-    vis_anchor = anchor_vis & state.valid                            # [C]
-    op = ng.neural_opacity.detach().clamp_min(0.0)                  # [C,k]
+    """One frame's densification statistics over the rows [0, B) it
+    rendered, in TrainState's order: [opacity [B], visits [B],
+    proxy-gradient norms [B*k], their count [B*k]]."""
+    vis_anchor = anchor_vis & state.valid[:anchor_vis.shape[0]]      # [B]
+    op = ng.neural_opacity.detach().clamp_min(0.0)                  # [B,k]
     zero = torch.zeros((), dtype=torch.float32, device=op.device)
-    stat_mask = ng.sel_mask.reshape(-1) & out.visible.reshape(-1)   # [C*k]
+    stat_mask = ng.sel_mask.reshape(-1) & out.visible.reshape(-1)   # [B*k]
     gnorm = torch.linalg.vector_norm(proxy_grad, dim=-1).reshape(-1)
     return [torch.where(vis_anchor, op.sum(1), zero), vis_anchor.to(torch.float32),
             torch.where(stat_mask, gnorm, zero), stat_mask.to(torch.float32)]
@@ -165,26 +177,28 @@ def frame_stats(state: TrainState, out, ng, anchor_vis, proxy_grad) -> list:
 @torch.no_grad()
 def apply_step(state: TrainState, grads: dict, stats: Optional[list],
                ocfg: OptConfig) -> TrainState:
-    """Adam on `grads` and the statistics `stats` (`frame_stats`' order;
-    None leaves them as they are) added: the next TrainState. The input
-    state is left as it is."""
+    """Adam on `grads` and the statistics `stats` (`frame_stats`' order,
+    over the first rows of the table; None leaves them as they are) added:
+    the next TrainState. The input state is left as it is."""
     new_params, new_opt = adam_update(state.params, grads, state.opt,
                                       lr_schedules(ocfg), state.step, ocfg)
     accums = (state.opacity_accum, state.anchor_demon, state.offset_grad_accum,
               state.offset_denom)
     if stats is not None:
-        accums = tuple(a + d for a, d in zip(accums, stats))
+        accums = tuple(a + (d if d.shape == a.shape else F.pad(d, (0, a.shape[0] - d.shape[0])))
+                       for a, d in zip(accums, stats))
     return TrainState(new_params, new_opt, state.valid, state.step + 1, *accums)
 
 
 @torch.no_grad()
 def train_step(state: TrainState, frame: LidarFrame, bg, mcfg: ModelConfig,
                rcfg: RasterConfig, ocfg: OptConfig, update_stats: bool = True,
-               variant: str = "beam"):
-    """One optimization step: (new TrainState, StepMetrics). The input
-    state is left as it is."""
+               variant: str = "beam", extent: Optional[int] = None):
+    """One optimization step: (new TrainState, StepMetrics), its render on
+    the anchor rows [0, `extent`) (`loss_and_grads`). The input state is
+    left as it is."""
     (out, ng, anchor_vis, lt), grads, proxy_grad = loss_and_grads(
-        state, frame, bg, mcfg, rcfg, ocfg, variant)
+        state, frame, bg, mcfg, rcfg, ocfg, variant, extent)
     stats = frame_stats(state, out, ng, anchor_vis, proxy_grad) if update_stats else None
     metrics = StepMetrics(
         loss=LossTerms(*(x.detach() for x in lt)),
@@ -236,19 +250,22 @@ def end_step(state: TrainState, metrics: StepMetrics) -> StepMetrics:
     return metrics
 
 
-def stamped_step(step, state: TrainState, frame: LidarFrame, update_stats: bool):
-    """`step` run eagerly inside the stamps' scope, between its begin and
-    end stamps."""
+def stamped_step(step, state: TrainState, frame: LidarFrame, update_stats: bool,
+                 extent: Optional[int] = None):
+    """`step` on the anchor rows [0, `extent`) run eagerly inside the
+    stamps' scope, between its begin and end stamps."""
     with telemetry.scope(state.valid.device):
         telemetry.stamp("begin", state.valid)
-        new, metrics = step(state, frame, update_stats=update_stats)
+        new, metrics = step(state, frame, update_stats=update_stats, extent=extent)
         return new, end_step(state, metrics)
 
 
-def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool, pool):
-    """`step` (`train_step` with the trainer's fixed arguments) over the
-    static state and frame as one StaticProgram, with the step's begin and
-    end stamps (the end after the commit): its `run`."""
+def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool, pool,
+                 extent: Optional[int] = None):
+    """`step` (`train_step` with the trainer's fixed arguments) on the
+    anchor rows [0, `extent`) over the static state and frame as one
+    StaticProgram, with the step's begin and end stamps (the end after the
+    commit): its `run`."""
     # the closures hold the static buffers, not the trainer: no reference
     # cycle keeps a dropped trainer's graphs and pool alive
     commit = commit_into(state)
@@ -256,7 +273,7 @@ def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool,
 
     def compute():
         telemetry.stamp("begin", state.valid)
-        return step(state, frame, update_stats=update_stats)
+        return step(state, frame, update_stats=update_stats, extent=extent)
 
     with telemetry.scope(dev):
         prog = StaticProgram(compute, lambda out: end_step(state, commit(out)), dev, pool)
@@ -269,11 +286,14 @@ def step_program(step, state: TrainState, frame: LidarFrame, update_stats: bool,
 
 class StepGraphs:
     """A training step as static programs (`train/graphs.py`): one set per
-    (update_stats, frame layout) key, the frame layout saying whether it has
-    a pixel mask and how many frames a batch stacks. `build(state, frame,
-    update_stats, pool)` makes a key's programs over the static state and
-    frame buffers and returns a function that runs them (replays) and
-    returns the step's metrics: `step_program` for `train_step`, or the
+    (update_stats, frame layout, extent) key, the frame layout saying
+    whether it has a pixel mask and how many frames a batch stacks, the
+    extent B the anchor rows [0, B) that the step's front runs on (the live
+    extent that `extent`, a `LiveExtent`, reads from the state's `valid`;
+    None without one: the whole capacity). `build(state, frame,
+    update_stats, pool[, extent=B])` makes a key's programs over the static
+    state and frame buffers and returns a function that runs them (replays)
+    and returns the step's metrics: `step_program` for `train_step`, or the
     data-parallel step's two programs around its collectives
     (`parallel/shard.py` `dp_programs`). All keys share one set of static
     state buffers: the programs write the new TrainState into them
@@ -281,11 +301,15 @@ class StepGraphs:
     state that is not those buffers (the first call's, a densify's, a
     maintain's, a resumed or loaded one) is copied in, leaf by leaf, before
     the replay; a state of another layout (capacity) drops every program and
-    is captured anew. The frame is copied into static frame buffers before
-    each replay."""
+    is captured anew, and a new extent (the live rows grew past the old
+    one) drops the programs of the old, each after the new capture (a CUDA
+    graph pool that no graph holds takes no capture). The extent is read
+    from a `valid` that is not the static one, never at a replay of the
+    static state. The frame is copied into static frame buffers before each
+    replay."""
 
-    def __init__(self, build, pool):
-        self.build, self.pool = build, pool
+    def __init__(self, build, pool, extent: Optional[LiveExtent] = None):
+        self.build, self.pool, self.extent = build, pool, extent
         self.state: Optional[TrainState] = None
         self.layout = None
         self.frames: dict = {}
@@ -294,15 +318,22 @@ class StepGraphs:
     def run(self, state: TrainState, frame: LidarFrame, update_stats: bool):
         leaves = state_leaves(state)
         lay = layout(leaves)
+        kw = {} if self.extent is None else {"extent": self.extent(state.valid)}
+        # programs replaced here are dropped only after the new capture: a
+        # graph pool that no graph holds any more takes no further capture
+        retired = []
         with telemetry.span("copy_in"):
             if lay != self.layout:
-                self.programs.clear()
+                retired.append(self.programs)
+                self.programs = {}
                 self.frames.clear()
                 self.state, self.layout = clone_state(state), lay
             else:
                 for dst, src in zip(state_leaves(self.state), leaves):
                     if dst is not src:
                         dst.copy_(src)
+        if self.extent is not None:
+            self.extent.hold(self.state.valid)
         flay = frame_layout(frame)
         static_frame = self.frames.get(flay)
         if static_frame is None:
@@ -310,10 +341,17 @@ class StepGraphs:
         else:
             with telemetry.span("frame_copy"):
                 copy_frame(static_frame, frame)
-        run = self.programs.get((update_stats, flay))
+        key = (update_stats, flay, *kw.values())
+        run = self.programs.get(key)
         if run is None:
-            run = self.programs[(update_stats, flay)] = self.build(
-                self.state, static_frame, update_stats, self.pool)
+            # the programs of an older extent are not run again
+            retired.append(self.programs)
+            self.programs = {k: v for k, v in self.programs.items() if k[2:] == key[2:]}
+            if kw:
+                telemetry.extent = kw["extent"]
+            run = self.programs[key] = self.build(self.state, static_frame, update_stats,
+                                                  self.pool, **kw)
+            retired.clear()
         with telemetry.span("replay"):
             metrics = run()
         with telemetry.span("clone_metrics"):
@@ -333,6 +371,12 @@ class Trainer:
     variant and the configs are fixed per Trainer, as JAX's `partial` fixes
     them in its jitted step. A trainer's graphs share one memory pool.
 
+    Steps and renders, eager or graphed, run their front on the anchor rows
+    [0, B) of the live extent (`train/graphs.py` `LiveExtent`, `_extent`),
+    read from a `valid` the trainer has not seen as it is: a state's first
+    step, a densify's result, a loaded one; never at a step on the state a
+    step returned. A render of the step's own state uses the step's B.
+
     Donation: a graphed `step` returns the trainer's static state buffers,
     which the next `step` overwrites in place, as JAX's donated arrays are
     reused. A caller that keeps a state that `step` returned across a later
@@ -349,6 +393,14 @@ class Trainer:
     _steps: Optional[StepGraphs] = dc_field(default=None, init=False, repr=False, compare=False)
     _renders: Optional[RenderGraphs] = dc_field(default=None, init=False, repr=False,
                                              compare=False)
+    _extent: Optional[LiveExtent] = dc_field(default_factory=LiveExtent, init=False,
+                                             repr=False, compare=False)
+
+    @property
+    def extent(self) -> Optional[int]:
+        """The anchor rows [0, B) that the steps' front runs on: B, or None
+        before a first step and for a step on the whole capacity."""
+        return self._extent.B or None if self._extent is not None else None
 
     def graph_pool(self, device: torch.device):
         """The memory pool of this trainer's graphs on `device` (None off
@@ -360,13 +412,16 @@ class Trainer:
     def render(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
         """The forward render of this trainer's variant: RenderOut (beam) or
         SurfelOut (surfel), both with color, depth and occ. Graphed, it
-        returns clones of the graph's outputs."""
+        returns clones of the graph's outputs. The step's own state renders on
+        the step's extent; another `valid` on its own (`RenderGraphs`)."""
         if self._renders is None:
             self._renders = RenderGraphs(self.variant, self.mcfg, self.rcfg, self.bg,
                                          self.graphed, self.graph_pool(valid.device))
+        ext = self._extent
         telemetry.notice()
         with telemetry.span("render"), telemetry.scope(valid.device):
-            return self._renders(params, valid, frame)
+            return self._renders(params, valid, frame,
+                                 ext.B if ext is not None and ext.knows(valid) else None)
 
     def step(self, state: TrainState, frame: LidarFrame, iteration: int):
         """One step: (TrainState, StepMetrics), the statistics collected
@@ -382,9 +437,10 @@ class Trainer:
         `_step_nostats`): eager or graphed as `graphed` says."""
         eager, build = self.step_fns()
         if not use_graphs(self.graphed, state.valid.device):
-            return eager(state, frame, update_stats=update_stats)
+            kw = {} if self._extent is None else {"extent": self._extent(state.valid)}
+            return eager(state, frame, update_stats=update_stats, **kw)
         if self._steps is None:
-            self._steps = StepGraphs(build, self.graph_pool(state.valid.device))
+            self._steps = StepGraphs(build, self.graph_pool(state.valid.device), self._extent)
         return self._steps.run(state, frame, update_stats)
 
     def step_fns(self):
@@ -409,6 +465,10 @@ class Trainer:
                                       check_interval=self.ocfg.update_interval,
                                       generator=generator, draws=draws)
         telemetry.mark("densify_end", new.valid, (stats.n_grown, stats.n_pruned))
+        if self._extent is not None:
+            # densify has waited for the card (its nonzero): the mark's read
+            # costs no stall here, and the next step finds it read
+            self._extent(new.valid)
         return new, stats
 
     def should_densify(self, state_n_anchors: int, iteration: int) -> bool:

@@ -452,7 +452,10 @@ class Telemetry:
 
     Host spans (`span`): name, start, end, parent and host step id, kept in
     memory while on, and emitted through `annotate` while a profiler runs;
-    off, a span is one attribute check. `enable()` switches on (and
+    off, a span is one attribute check. `captures` counts the static
+    programs made (`train/graphs.py`: a CUDA graph captured on a card, each
+    under a span `capture`), `extent` the anchor rows of the last step or
+    render program built (its live extent). `enable()` switches on (and
     measures each card's clock offset), `disable()` off; a `Trainer` call
     that finds a profiler running switches it on (`notice`). Nothing is read
     from a card until `summary`, which synchronizes once and leaves out the
@@ -468,6 +471,8 @@ class Telemetry:
         self._open: list = []
         self._host_step = 0
         self._scope = _Scope(self)
+        self.captures = 0          # static programs made (since switched on)
+        self.extent: Optional[int] = None   # anchor rows of the last program built
 
     # -- switching --
     def enable(self) -> None:
@@ -477,6 +482,7 @@ class Telemetry:
         self.on = True
         self.profiled = _profiling()
         self.spans, self._open, self._host_step = [], [], 0
+        self.captures = 0
         for ring in self.rings.values():
             ring.start(self.profiled)
 
@@ -568,7 +574,9 @@ class Telemetry:
         densify's mean device time; the counters' means; the front's fill
         (100 n_visible / rows); the host gaps' ms a step by the host span
         open at their middle (`gaps`, and the `longest` few); the clock
-        offsets. None when there is no such step."""
+        offsets; the programs captured since switched on, their mean host ms
+        and the current extent (`captures`, `capture_ms`, `extent`). None
+        when there is no such step."""
         steps = []
         for ring in self.rings.values():
             if ring.cuda and self.on and (
@@ -625,6 +633,9 @@ class Telemetry:
             "densify_calls": len(densify),
             "counters": {k: sum(v) / len(v) for k, v in counts.items() if k != "profiled"},
             "lost_entries": sum(ring.lost for ring in self.rings.values()),
+            "captures": self.captures, "extent": self.extent,
+            "capture_ms": mean([b - a for name, a, b, _, _ in self.spans
+                                if name == "capture" and b is not None]),
         }
         if "n_visible" in counts and "rows" in counts and sum(counts["rows"]) > 0:
             out["front_fill_pct"] = 100.0 * sum(counts["n_visible"]) / sum(counts["rows"])

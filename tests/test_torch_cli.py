@@ -205,6 +205,7 @@ def test_port_cli_trains_resumes_and_warms_up_as_jax(jax_run, monkeypatch):
     # profiler's trace; the recorder is off again
     log = (out / "outputs.log").read_text()
     assert "iter 8: " in log and "[device ms: front=" in log and "host_gap=" in log
+    assert "extent=" in log and "captures=" in log
     events = json.loads((out / "trace" / "telemetry.json").read_text())["traceEvents"]
     assert {e["args"]["step"] for e in events if e["name"] == "adam"} == {1, 2, 3, 4}
     assert not telemetry.on

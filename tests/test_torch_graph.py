@@ -9,8 +9,10 @@ static frame buffers, one program per key) with the program's function
 called in place of a replay. The tests:
   * one beam, one surfel and one masked beam step and render each, with
     `torch.tensor` (and `torch.as_tensor` of Python data, and every read of
-    a tensor's value back to Python) patched to raise inside them;
-  * the static-buffer step against `train_step` bit for bit over 4 steps,
+    a tensor's value back to Python) patched to raise inside them, but for
+    the live extent's one read of the first state's mark, counted;
+  * the static-buffer step against `train_step` on the trainer's live
+    extent bit for bit over 4 steps,
     with the statistics on for steps 1-2 and off for 3-4 and a densify
     after step 2, for beam, surfel and masked beam; the render of the
     donated state against the eager one;
@@ -21,7 +23,7 @@ called in place of a replay. The tests:
     later proxy gradients drift), their counts equal;
   * the launch counters over capture and replays, with `torch.cuda`'s
     stream and graph calls replaced by stand-ins that record them; a failed
-    capture raises;
+    capture raises; every capture warms up on one side stream;
   * the scale regularizer's product, whose backward no longer reads back
     to the host, against `torch.prod`'s value and gradient bit for bit.
 16x256 range view, feat 8, k = 2, hidden 8, 300 of 512 anchors.
@@ -116,15 +118,20 @@ def test_step_and_render_build_no_tensor_from_python_data(kind, monkeypatch):
             _refuse()
         return as_tensor(x, *a, **k)
 
+    # the live extent's one host read, of the first state's mark, outside
+    # the programs: its value is read here, and the reads counted
+    mark, reads = graphs.live_mark(state.valid), []
     with monkeypatch.context() as mp:
         mp.setattr(torch, "tensor", _refuse)
         mp.setattr(torch, "as_tensor", as_tensor_of_a_tensor)
         for name in ("item", "tolist", "__bool__", "__int__", "__float__", "__index__"):
             mp.setattr(torch.Tensor, name, _refuse)
+        mp.setattr(graphs, "live_mark", lambda valid: reads.append(valid) or mark)
         s, m = tr.step(state, frames[0], 1)
         s, m = tr.step(s, frames[1], 2)
         out = tr.render(s.params, s.valid, frames[2])
     assert np.isfinite(float(m.loss.total)) and out.color.shape == (2, H, W)
+    assert len(reads) == 1 and reads[0] is state.valid and tr.extent == 320
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -139,10 +146,12 @@ def test_static_buffer_step_equals_train_step(kind):
     got = want = state0
     for it in range(1, 5):
         collect = tr.ocfg.start_stat < it < tr.ocfg.update_until
-        want, m_w = tt.train_step(want, frames[it - 1], eager.bg, eager.mcfg, eager.rcfg,
-                                  eager.ocfg, update_stats=collect, variant=eager.variant)
         prev = got
         got, m_g = tr.step(got, frames[it - 1], it)
+        # on the anchor rows the trainer's step ran on (its live extent)
+        want, m_w = tt.train_step(want, frames[it - 1], eager.bg, eager.mcfg, eager.rcfg,
+                                  eager.ocfg, update_stats=collect, variant=eager.variant,
+                                  extent=tr.extent)
         if it > 1 and it != 3:
             assert got is prev          # donated: the same buffers, written in place
         for a, b in zip(tt.state_leaves(got), tt.state_leaves(want)):
@@ -154,8 +163,8 @@ def test_static_buffer_step_equals_train_step(kind):
             got, st_g = tr.densify(got, gen(), 0.1)
             want, st_w = eager.densify(want, gen(), 0.1)
             assert int(st_g.n_grown) == int(st_w.n_grown)
-    assert set(tr._steps.programs) == {(True, graphs.frame_layout(frames[0])),
-                                       (False, graphs.frame_layout(frames[0]))}
+    assert set(tr._steps.programs) == {(True, graphs.frame_layout(frames[0]), tr.extent),
+                                       (False, graphs.frame_layout(frames[0]), tr.extent)}
     for a, b in zip(tt.state_leaves(state0), before):
         assert torch.equal(a, b)
     r_g = tr.render(got.params, got.valid, frames[3])
@@ -167,7 +176,7 @@ def test_static_buffer_step_equals_train_step(kind):
     program = tr._renders.programs[frames[3].pixel_mask is None][3]
     got, _ = tr.step(got, frames[0], 5)
     want, _ = tt.train_step(want, frames[0], eager.bg, eager.mcfg, eager.rcfg, eager.ocfg,
-                            update_stats=False, variant=eager.variant)
+                            update_stats=False, variant=eager.variant, extent=tr.extent)
     r_g = tr.render(got.params, got.valid, frames[3])
     assert tr._renders.programs[frames[3].pixel_mask is None][3] is program
     assert torch.equal(r_g.color, eager.render(want.params, want.valid, frames[3]).color)
@@ -287,6 +296,29 @@ def test_launch_counters_count_each_replay(monkeypatch):
         assert (ck.launches, ck.bwd_launches, sk.windows_launches) == (5 + i, 5 + i, 5 + 2 * i)
         assert (ck.windows_launches, sk.launches) == (5, 5)
     assert len(calls) == graphs.WARMUP + 1      # a replay does not run the function
+
+
+def test_captures_warm_up_on_one_stream(monkeypatch):
+    """Every capture on a device warms up on the same side stream: the
+    caching allocator keeps freed blocks per stream, so a stream per
+    capture would leave each warm-up's blocks reserved for good."""
+    made, used = [], []
+
+    class Counted(_Null):
+        def __init__(self, *a, **k):
+            made.append(self)
+
+    class Entered(_Null):
+        def __init__(self, s):
+            used.append(s)
+
+    _fake_cuda(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "Stream", Counted)
+    monkeypatch.setattr(torch.cuda, "stream", Entered)
+    for _ in range(3):
+        graphs.StaticProgram(lambda: torch.ones(2), lambda out: out, torch.device("cuda"))
+    assert len(made) == 1
+    assert len(used) == 3 and all(s is made[0] for s in used)
 
 
 def test_a_failed_capture_raises_and_leaves_the_counters(monkeypatch):

@@ -52,12 +52,16 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _fresh_recorder():
-    """The recorder off and empty around each test: it is one per process."""
+    """The recorder off and empty around each test: it is one per process,
+    and keeps its records readable after `disable` (another file's test
+    in the same process may have left host spans in it)."""
     telemetry.disable()
     telemetry.rings.clear()
+    telemetry.spans.clear()
     yield
     telemetry.disable()
     telemetry.rings.clear()
+    telemetry.spans.clear()
 
 
 def _setup(variant: str, device="cpu", graphed=True):
@@ -123,7 +127,8 @@ def test_steps_and_frames_record_their_stages_and_counters(variant):
         c = ring.steps[sid].counts
         assert (c["n_visible"], c["n_overflow"], c["n_dropped"], c["n_anchors"]) == (
             int(m.n_visible), int(m.n_overflow), int(m.n_dropped), int(m.n_anchors))
-        assert c["rows"] == MODEL["anchor_capacity"] * MODEL["n_offsets"]
+        # the front's rows: the live extent's (320 of the 512 anchors), k each
+        assert tr.extent == 320 and c["rows"] == tr.extent * MODEL["n_offsets"]
     for sid, out in enumerate(outs, 4):
         c = ring.steps[sid].counts
         assert (c["n_visible"], c["n_overflow"], c["n_dropped"]) == (
@@ -153,7 +158,7 @@ def test_stamped_steps_equal_train_step(variant):
     for it in (1, 2):
         got, m_g = tr.step(got, frames[it], it)
         want, m_w = tt.train_step(want, frames[it], tr.bg, tr.mcfg, tr.rcfg, tr.ocfg,
-                                  variant=variant)
+                                  variant=variant, extent=tr.extent)
         for a, b in zip(tt.state_leaves(got), tt.state_leaves(want)):
             assert torch.equal(a, b), it
         assert torch.equal(m_g.loss.total, m_w.loss.total)

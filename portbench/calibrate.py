@@ -78,7 +78,7 @@ def readings(cell, seed: int, dev: torch.device, controls: bool,
     # depend on it
     cell = cell._replace(traffic=dict(cell.traffic, warm_iterations=0, warm_frames=0))
     inputs = make_inputs(cell, seed, dev)
-    drive, poses = make_drive(cell, seed, inputs, dev)
+    drive, poses, stages = make_drive(cell, seed, inputs, dev)
     if cell.traffic["kind"] == "render":
         drive.window(RENDER_WINDOW_S)
     got = drive.program_results()
@@ -87,7 +87,7 @@ def readings(cell, seed: int, dev: torch.device, controls: bool,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = {"seed": seed}
-    out["program"], want = reference_numbers(cell, inputs, got, poses)
+    out["program"], want = reference_numbers(cell, inputs, got, poses, stages=stages)
     if detail and cell.traffic["kind"] == "train":
         out["detail"] = leaves(cell, got, want, inputs.params)
     if not controls:
@@ -102,7 +102,7 @@ def readings(cell, seed: int, dev: torch.device, controls: bool,
                                                want, inputs.params)
     else:
         far, atol = cell.config["raster"]["far"], cell.limits["far_atol"]
-        tf32 = check.reference_render(cell, inputs, poses, tf32=True)
+        tf32 = check.reference_render(cell, inputs, poses, tf32=True, stages=stages)
         out["tf32"] = check.render_numbers(tf32["frames"], want["frames"], far, atol)
         out["altered"] = check.render_numbers(swap_rows(got["frames"]), want["frames"], far,
                                               atol)

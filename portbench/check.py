@@ -112,23 +112,33 @@ def reference_work(cell, scene, params: dict, valid: torch.Tensor, frame_ids: li
     return work
 
 
-def reference_render(cell, inputs, poses: dict, tf32: bool = False):
+def reference_render(cell, inputs, poses: dict, tf32: bool = False, stages=()):
     """The reference's frames of `poses` ({index: Pose}): {frames: {index:
-    (color, depth)}, work: [counts.Work]}."""
+    (color, depth)}, work: [counts.Work]}. `stages` ([(registry.Stage,
+    drawn)], from `run.make_drive`) are applied to each frame in turn."""
     mcfg, rcfg, _ = ref_configs(cell.config)
     H, W = cell.config["sensor"]["H"], cell.config["sensor"]["W"]
     valid = inputs.valid
     gt = torch.zeros((3, H, W), device=valid.device)
     bg = torch.zeros((mcfg.color_channel,), device=valid.device)
+    staged = tuple((s.name, _bound(*s.work(drawn, H, W))) for s, drawn in stages)
     frames, work = {}, []
     with precision(tf32), torch.no_grad():
         for i, pose in poses.items():
             probe: dict = {}
             out, _ = render(inputs.params, valid, ref_frame(pose, gt, inputs.scene.beams), mcfg,
                             rcfg, bg, cell.config["variant"], probe)
-            frames[i] = (out.color, out.depth)
-            work.append(_work(probe, gt, mcfg, rcfg, cell.config["variant"], 0))
+            color, depth = out.color, out.depth
+            for s, drawn in stages:
+                color, depth = s.reference(drawn, color, depth)
+            frames[i] = (color, depth)
+            work.append(_work(probe, gt, mcfg, rcfg, cell.config["variant"], 0)
+                        ._replace(stages=staged))
     return {"frames": frames, "work": work}
+
+
+def _bound(ops: int, nbytes: int) -> counts.Bound:
+    return counts.Bound(bytes=nbytes, ops=ops)
 
 
 def _work(probe: dict, gt, mcfg, rcfg, variant: str, live: int) -> counts.Work:

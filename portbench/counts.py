@@ -160,6 +160,7 @@ class Work(NamedTuple):
     live_params: int          # parameter elements of the live anchors and the heads
     composite_fwd: Bound
     composite_bwd: Bound
+    stages: tuple = ()        # (name, Bound) of each stage the configuration names
 
 
 def decode_ops(model: dict) -> int:
@@ -173,9 +174,11 @@ def decode_ops(model: dict) -> int:
 
 
 def step_ops(w: Work, model: dict, variant: str, train: bool) -> int:
-    """FP32 operations of a frame (render) or a training step on it."""
+    """FP32 operations of a frame (render) or a training step on it; a
+    stage's operations count as the frame's forward."""
     proj = OPS_PROJECT if variant == "beam" else OPS_SURFEL_PROJECT
-    fwd = decode_ops(model) * w.visible_anchors + proj * w.kept
+    fwd = (decode_ops(model) * w.visible_anchors + proj * w.kept
+           + sum(b.ops for _, b in w.stages))
     if not train:
         return fwd + w.composite_fwd.ops
     return ((1 + BWD_FACTOR) * (fwd + OPS_LOSS_PIXEL * w.pixels) + w.composite_fwd.ops

@@ -59,6 +59,19 @@ def port_configs(config: dict):
             dataclass_from(OptConfig, config["opt"], (LrSchedule,)))
 
 
+def stage_args(stages) -> dict:
+    """The port's `Trainer` arguments that the stages give ([(registry.Stage,
+    drawn)])."""
+    kw: dict = {}
+    for stage, drawn in stages:
+        args = stage.program(drawn)
+        if kw.keys() & args.keys():
+            raise ValueError(f"stage {stage.name!r} gives Trainer arguments "
+                             f"{sorted(kw.keys() & args.keys())} that another stage gives")
+        kw.update(args)
+    return kw
+
+
 def port_frame(pose: Pose, gt: torch.Tensor, beams: torch.Tensor, uid: int):
     from lidargs_torch.lidar.frames import LidarFrame
 
@@ -97,7 +110,7 @@ class TrainDrive:
     traced segment starts and the frames drawn in the segment, for the
     counts of the work the segment did (`counted_inputs`)."""
 
-    def __init__(self, cell, seed: int, inputs, dev: torch.device):
+    def __init__(self, cell, seed: int, inputs, dev: torch.device, stages=()):
         from lidargs_torch.models.field import AnchorField
         from lidargs_torch.train.trainer import Trainer, init_train_state
 
@@ -106,7 +119,7 @@ class TrainDrive:
         self.mcfg, self.rcfg, self.ocfg = port_configs(cell.config)
         self.trainer = Trainer(mcfg=self.mcfg, ocfg=self.ocfg, rcfg=self.rcfg,
                                bg=torch.zeros((self.mcfg.color_channel,), device=dev),
-                               variant=cell.config["variant"])
+                               variant=cell.config["variant"], **stage_args(stages))
         self.frames = [port_frame(p, gt, inputs.scene.beams, i)
                        for i, (p, gt) in enumerate(inputs.scene.train)]
         self.voxel = inputs.voxel
@@ -225,7 +238,7 @@ class RenderDrive:
     of the poses in `checked` are kept at their first render."""
 
     def __init__(self, cell, seed: int, inputs, dev: torch.device, poses: list,
-                 checked: list):
+                 checked: list, stages=()):
         from lidargs_torch.train.trainer import Trainer
 
         self.dev = dev
@@ -233,7 +246,7 @@ class RenderDrive:
         self.mcfg, self.rcfg, self.ocfg = port_configs(cell.config)
         self.trainer = Trainer(mcfg=self.mcfg, ocfg=self.ocfg, rcfg=self.rcfg,
                                bg=torch.zeros((self.mcfg.color_channel,), device=dev),
-                               variant=cell.config["variant"])
+                               variant=cell.config["variant"], **stage_args(stages))
         H, W = cell.config["sensor"]["H"], cell.config["sensor"]["W"]
         gt = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
         self.frames = [port_frame(p, gt, inputs.scene.beams, 0) for p in poses]

@@ -72,21 +72,25 @@ def make_inputs(cell, seed: int, dev: torch.device) -> Inputs:
 
 
 def make_drive(cell, seed: int, inputs: Inputs, dev: torch.device):
+    """(the drive, {index: Pose} of the checked poses or None for train,
+    [(registry.Stage, drawn)] of the cell's stages, drawn here once)."""
     t = cell.traffic
+    stages = [(s, s.draw(cell, seed, dev)) for s in cell.stages]
     if t["kind"] == "train":
-        return TrainDrive(cell, seed, inputs, dev), None
+        return TrainDrive(cell, seed, inputs, dev, stages), None, stages
     poses = novel_poses(seed, t["scene"], t, dev)
     checked = checked_poses(seed, len(poses), t["checked_frames"])
-    return RenderDrive(cell, seed, inputs, dev, poses, checked), {i: poses[i] for i in checked}
+    return (RenderDrive(cell, seed, inputs, dev, poses, checked, stages),
+            {i: poses[i] for i in checked}, stages)
 
 
 def reference_numbers(cell, inputs: Inputs, got: dict, poses: Optional[dict],
-                      tf32: bool = False, rows_kept: Optional[int] = None):
+                      tf32: bool = False, rows_kept: Optional[int] = None, stages=()):
     """(numbers, reference results) of the program's results `got`."""
     if cell.traffic["kind"] == "train":
         want = check.reference_train(cell, inputs, got["frames"], tf32, rows_kept)
         return check.train_numbers(got, want, inputs.params), want
-    want = check.reference_render(cell, inputs, poses, tf32)
+    want = check.reference_render(cell, inputs, poses, tf32, stages)
     return check.render_numbers(got["frames"], want["frames"], cell.config["raster"]["far"],
                                 cell.limits["far_atol"]), want
 
@@ -112,7 +116,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     """One run: the result's keys, and the record the readers read."""
     t = cell.traffic
     inputs = make_inputs(cell, seed, dev)
-    drive, poses = make_drive(cell, seed, inputs, dev)
+    drive, poses, stages = make_drive(cell, seed, inputs, dev)
     setup_s = time.perf_counter() - t_start
     tracer = Tracer(t["trace_start"], t["traced"], drive.spans, dev) if trace else None
     drive.window(seconds, tracer)
@@ -134,7 +138,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    numbers, want = reference_numbers(cell, inputs, got, poses)
+    numbers, want = reference_numbers(cell, inputs, got, poses, stages=stages)
     # the counts of the work a traced step or frame did: render, the
     # reference's checked frames (drawn over the whole trajectory, which
     # the traced segment renders once); train, the reference on the field
@@ -171,6 +175,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
         result["work"]["composite_ops"] = statistics.mean(
             w.composite_fwd.ops + (w.composite_bwd.ops if t["kind"] == "train" else 0)
             for w in rec.work)
+        for name, _ in rec.work[0].stages:
+            result["work"][f"stage:{name}"] = {
+                k: statistics.mean(getattr(dict(w.stages)[name], k) for w in rec.work)
+                for k in ("ops", "bytes")}
     if rec.anchors_end is not None:
         result.setdefault("work", {})["anchors_end"] = rec.anchors_end
     result["check"] = {k: {"value": v, "limit": cell.limits["limits"][k]}

@@ -16,9 +16,9 @@ TRAFFIC = {"poses": 6, "checked_frames": 2, "counted_frames": 2, "traced": 4,
            "warm_iterations": 10, "warm_frames": 6}
 
 
-def tiny_cell(name: str, **traffic):
-    """The workload `name` of BENCHMARK.json at the tiny size."""
-    cell = registry.load_cell(name)
+def tiny_cell(name: str, root=registry.ROOT, **traffic):
+    """The workload `name` of `root`'s BENCHMARK.json at the tiny size."""
+    cell = registry.load_cell(name, root)
     cfg = copy.deepcopy(cell.config)
     cfg["sensor"].update(SENSOR)
     cfg["model"].update(MODEL)

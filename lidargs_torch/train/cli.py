@@ -313,8 +313,10 @@ def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None,
     `run_eval`), writing `results.json` and `per_view.json` under the model
     path; with an active TensorBoard logger, the first four test frames'
     depth, intensity and GT images too. With `refiner_path`, each render's
-    ray drop is refined first (depth scaled by the far plane); with
-    `lpips_weights`, `intensity_lpips` joins the metrics."""
+    ray drop is refined inside the render's program (depth scaled by the far
+    plane); with `lpips_weights`, `intensity_lpips` joins the metrics. With
+    the recorder on, a line gives the frames' device ms by stage."""
+    from ..utils.profiling import telemetry
     from .evaluate import run_eval as eval_splits
 
     dev = state.valid.device
@@ -336,6 +338,14 @@ def run_eval(scene, state, trainer, cfg, logger, compute_chamfer=False, tb=None,
         refine=refine, lpips_fn=lpips_fn)
     n = len(scene.data.test_frames) + len(scene.data.train_frames)
     logger.info(f"[eval] {n} frames in {time.perf_counter() - t0:.2f} s")
+    tel = telemetry.summary("render", last=n) if telemetry.on else None
+    if tel is not None:
+        # a refined frame adds the refine stage and the pixels whose drop it flipped
+        stages = " ".join(f"{k}={v:.2f}" for k, v in tel["stage_ms"].items())
+        c = tel["counters"]
+        flipped = f" flipped={c['n_flipped']:.0f}" if "n_flipped" in c else ""
+        logger.info(f"[eval] device ms a frame: {stages} overflow={c['n_overflow']:.0f}"
+                    f"{flipped}")
     if tb is not None and tb.active:
         gray = lambda x: np.repeat(np.asarray(x)[..., None], 3, -1)
         with torch.no_grad():

@@ -10,10 +10,13 @@ for `variant="surfel"`; on the card unless the caller passes
 (`train/graphs.py` `RenderGraphs`, the counterpart of the CLI's jitted
 renders), captured at the first frame and replayed for every frame; on the
 CPU each renders eagerly. `run_eval` also takes the ray-drop refiner and the LPIPS
-distance as callables, which the CLI builds from their weights files.
+distance as callables, which the CLI builds from their weights files; the
+refiner runs inside the render's program (`RenderGraphs(refine=...)`), as
+`Trainer.render` runs it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -27,6 +30,7 @@ from ..lidar.frames import LidarFrame
 from ..ops.rasterize import RenderOut
 from ..ops.surfel import SurfelOut
 from ..utils.device import resolve_device
+from ..utils.profiling import telemetry
 from .graphs import RenderGraphs
 from .metrics import evaluate_frame, mean_metrics
 
@@ -90,12 +94,15 @@ def run_eval(params: dict, valid: torch.Tensor,
     `<model_path>/per_view.json`. Returns both in one dict.
 
     `refine(color, depth) -> color` replaces each render's [intensity,
-    raydrop] before it is scored (the ray-drop refiner); `lpips_fn(a, b)`
-    adds `intensity_lpips`, the distance of the clipped intensity render
-    from the GT intensity under the GT hit mask."""
+    raydrop] inside the render's program, before it is scored (the ray-drop
+    refiner); `lpips_fn(a, b)` adds `intensity_lpips`, the distance of the
+    clipped intensity render from the GT intensity under the GT hit mask.
+    While the recorder (`utils/profiling.py` `telemetry`) is on, the frames'
+    programs carry its stamps, as `Trainer.render`'s do."""
     dev = resolve_device(device)
     params, valid, bg = _params_to(params, dev), valid.to(dev), bg.to(dev)
-    render = RenderGraphs(variant, mcfg, rcfg, bg)
+    render = RenderGraphs(variant, mcfg, rcfg, bg, refine=refine)
+    scope = telemetry.scope(dev) if telemetry.on else contextlib.nullcontext()
     results = {}
     for name, frames in splits.items():
         if not frames:
@@ -105,14 +112,14 @@ def run_eval(params: dict, valid: torch.Tensor,
         for fr in frames:
             fr = fr.to(dev)
             with torch.no_grad():
-                out = render(params, valid, fr)
-                color = out.color if refine is None else refine(out.color, out.depth)
-                pv = evaluate_frame(color, out.depth, fr.gt_image, fr.beams,
+                with scope:
+                    out = render(params, valid, fr)
+                pv = evaluate_frame(out.color, out.depth, fr.gt_image, fr.beams,
                                     depth_min=depth_min, depth_max=depth_max,
                                     compute_chamfer=compute_chamfer)
                 if lpips_fn is not None:
                     pv["intensity_lpips"] = float(lpips_fn(
-                        color[0].clamp(0.0, 1.0), fr.gt_image[1] * fr.gt_image[0]))
+                        out.color[0].clamp(0.0, 1.0), fr.gt_image[1] * fr.gt_image[0]))
             pv["visible_count"] = float(out.visible.sum())
             per.append(pv)
         m = mean_metrics(per)

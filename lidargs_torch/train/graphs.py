@@ -32,7 +32,13 @@ not counted.
 
 `RenderGraphs` is the forward render as such programs: one per (params,
 valid) identity, pixel-mask key and live extent, with static frame buffers
-that each call copies the frame into.
+that each call copies the frame into. Given a ray-drop refiner
+(`refine(color, depth) -> color`, e.g. LiDAR4D's UNet through
+`models/raydrop.py` `refine_color`), the program applies it after the
+field's render (`refine_frame`), so a refined frame is one replay too. A
+capture runs with cuDNN's benchmark mode off (`cudnn_heuristics`): the
+refiner's convolutions take the algorithm cuDNN's heuristics give for their
+shape, and no autotuning run is recorded into a graph.
 
 The live extent (`LiveExtent`): the anchor table is padded to its capacity
 C and densify grows into its first free rows, so every live row lies below
@@ -51,6 +57,7 @@ last program built is `telemetry.extent`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -67,6 +74,7 @@ COUNTERS = ("launches", "bwd_launches", "windows_launches", "windows_bwd_launche
 _COUNTED = (composite_kernel, surfel_kernel)
 FRAME_FIELDS = ("w2s_rot", "w2s_trans", "center", "beams", "gt_image", "uid", "pixel_mask")
 QUANTA = 16                    # the live extent moves in steps of a sixteenth of the capacity
+DROP_P = 0.5                   # a pixel whose ray-drop probability exceeds this is dropped
 
 
 def read_counters() -> tuple:
@@ -92,6 +100,24 @@ def use_graphs(graphed: Optional[bool], device: torch.device) -> bool:
 def clone_outputs(out):
     """A NamedTuple of tensors (or None) with each tensor cloned."""
     return type(out)(*(None if x is None else x.clone() for x in out))
+
+
+@contextlib.contextmanager
+def cudnn_heuristics():
+    """cuDNN's benchmark mode off while the block runs (the previous flag
+    after): each convolution takes the algorithm the heuristics give for
+    its shape, so a capture records no autotuning run. A forward needs no
+    more (`models/raydrop.py` `deterministic_convs` is for the UNet's
+    training): cuDNN names non-deterministic algorithms among the
+    backwards only, so one forward algorithm gives the same bits at every
+    replay."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark
+    cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        cudnn.benchmark = saved
 
 
 _WARMUP_STREAMS: dict = {}
@@ -133,7 +159,7 @@ class StaticProgram:
             side.wait_stream(ambient)
             telemetry.warming = True
             try:
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), cudnn_heuristics():
                     for _ in range(WARMUP):
                         self.compute()
             finally:
@@ -141,7 +167,8 @@ class StaticProgram:
             ambient.wait_stream(side)
             start = read_counters()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool):
+            with (torch.cuda.device(device), cudnn_heuristics(),
+                  torch.cuda.graph(graph, pool=pool)):
                 self.outputs = self.commit(self.compute())
             self.delta = tuple(b - a for a, b in zip(start, read_counters()))
         finally:
@@ -238,13 +265,18 @@ class RenderGraphs:
     `extent` given (`Trainer.render` gives its step's, whose own static
     `valid` a densify rewrites in place), else the live extent of `valid`
     (`LiveExtent`). `graphed` as `use_graphs` reads it: False (or None on
-    the CPU) renders eagerly, on the same rows."""
+    the CPU) renders eagerly, on the same rows. `refine(color, depth) ->
+    color`, where given, replaces each frame's [intensity, raydrop] inside
+    the program (`refine_frame`); without it the program is the field's
+    render alone."""
 
     def __init__(self, variant: str, mcfg: ModelConfig, rcfg: RasterConfig,
-                 bg: torch.Tensor, graphed: Optional[bool] = None, pool=None):
+                 bg: torch.Tensor, graphed: Optional[bool] = None, pool=None,
+                 refine: Optional[Callable] = None):
         self.render = render_fn(variant)
         self.mcfg, self.rcfg, self.bg = mcfg, rcfg, bg
         self.graphed, self.pool = graphed, pool
+        self.refine = refine
         self.extent = LiveExtent()
         self.programs: dict = {}
 
@@ -252,8 +284,10 @@ class RenderGraphs:
                  extent: Optional[int] = None):
         B = self.extent(valid) if extent is None else extent
         if not use_graphs(self.graphed, valid.device):
-            return end_frame(stamped_render(self.render, *anchor_rows(params, valid, B), frame,
-                                            self.mcfg, self.rcfg, self.bg))
+            out = stamped_render(self.render, *anchor_rows(params, valid, B), frame, self.mcfg,
+                                 self.rcfg, self.bg)
+            return (end_frame(out) if self.refine is None
+                    else end_refined(refine_frame(self.refine, out)))
         key = frame.pixel_mask is None
         inputs = tree_leaves(params) + [valid]
         entry = self.programs.get(key)
@@ -271,19 +305,23 @@ class RenderGraphs:
             return clone_outputs(out)
 
     def _program(self, inputs, params, valid, frame, B: int):
-        # the closure holds what it reads, not self: no reference cycle
+        # the closures hold what they read, not self: no reference cycle
         static = frame_like(frame)
-        render, mcfg, rcfg, bg = self.render, self.mcfg, self.rcfg, self.bg
+        render, mcfg, rcfg, bg, refine = self.render, self.mcfg, self.rcfg, self.bg, self.refine
         rows = anchor_rows(params, valid, B)
 
         @torch.no_grad()
         def compute():
             return stamped_render(render, *rows, static, mcfg, rcfg, bg)
 
+        commit = end_frame
+        if refine is not None:
+            field, commit = compute, end_refined
+            compute = lambda: refine_frame(refine, field())   # noqa: E731
         if self.pool is None and valid.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
         telemetry.extent = B
-        prog = StaticProgram(compute, end_frame, valid.device, self.pool)
+        prog = StaticProgram(compute, commit, valid.device, self.pool)
         return inputs, frame_layout(frame), static, prog, B
 
 
@@ -297,4 +335,23 @@ def stamped_render(render, params, valid, frame, mcfg, rcfg, bg):
 def end_frame(out):
     """The frame's end stamp, with its overflow and dropped counts."""
     telemetry.stamp("end", out.depth, (out.n_overflow, out.n_dropped), first="n_overflow")
+    return out
+
+
+@torch.no_grad()
+def refine_frame(refine: Callable, out):
+    """(`out` with its [intensity, raydrop] replaced by `refine(color,
+    depth)`'s, the pixels whose drop decision (p > DROP_P) the refiner
+    changed, an int64 scalar): after the refine stamp, which carries the
+    field's overflow and dropped counts (the end stamp's of a plain frame)."""
+    telemetry.stamp("refine", out.depth, (out.n_overflow, out.n_dropped), first="n_overflow")
+    color = refine(out.color, out.depth)
+    flipped = ((color[1] > DROP_P) != (out.color[1] > DROP_P)).sum()
+    return out._replace(color=color), flipped
+
+
+def end_refined(refined):
+    """A refined frame's end stamp, with its `n_flipped`; the frame."""
+    out, flipped = refined
+    telemetry.stamp("end", out.depth, (flipped,), first="n_flipped")
     return out

@@ -37,7 +37,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 from dataclasses import field as dc_field
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -370,6 +370,10 @@ class Trainer:
     function is called in place of a replay (the CPU tests' stand-in). The
     variant and the configs are fixed per Trainer, as JAX's `partial` fixes
     them in its jitted step. A trainer's graphs share one memory pool.
+    `refine(color, depth) -> color`, where given, is the ray-drop refiner
+    that each `render` applies inside its program (`train/graphs.py`
+    `RenderGraphs`; the CLI's `_refiner` builds it from a weights file);
+    the steps never apply it.
 
     Steps and renders, eager or graphed, run their front on the anchor rows
     [0, B) of the live extent (`train/graphs.py` `LiveExtent`, `_extent`),
@@ -389,6 +393,7 @@ class Trainer:
     bg: torch.Tensor
     variant: str = "beam"                   # "beam" | "surfel"
     graphed: Optional[bool] = None
+    refine: Optional[Callable] = None
     _pool: object = dc_field(default=None, init=False, repr=False, compare=False)
     _steps: Optional[StepGraphs] = dc_field(default=None, init=False, repr=False, compare=False)
     _renders: Optional[RenderGraphs] = dc_field(default=None, init=False, repr=False,
@@ -411,12 +416,14 @@ class Trainer:
 
     def render(self, params: dict, valid: torch.Tensor, frame: LidarFrame):
         """The forward render of this trainer's variant: RenderOut (beam) or
-        SurfelOut (surfel), both with color, depth and occ. Graphed, it
+        SurfelOut (surfel), both with color, depth and occ, the color's ray
+        drop refined where the trainer has a refiner. Graphed, it
         returns clones of the graph's outputs. The step's own state renders on
         the step's extent; another `valid` on its own (`RenderGraphs`)."""
         if self._renders is None:
             self._renders = RenderGraphs(self.variant, self.mcfg, self.rcfg, self.bg,
-                                         self.graphed, self.graph_pool(valid.device))
+                                         self.graphed, self.graph_pool(valid.device),
+                                         self.refine)
         ext = self._extent
         telemetry.notice()
         with telemetry.span("render"), telemetry.scope(valid.device):

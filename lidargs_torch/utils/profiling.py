@@ -170,9 +170,9 @@ RING_ENTRIES = 1 << 18         # entries of a device ring (ring buffer: the olde
 # tag, then the counters (each counter group consecutive: a stamp writes its
 # values under first_id, first_id + 1, ...)
 IDS = ("begin", "front", "raster", "composite", "loss", "loss_bwd", "composite_bwd",
-       "raster_bwd", "grad", "end", "densify_begin", "densify_end", "clock",
+       "raster_bwd", "grad", "end", "refine", "densify_begin", "densify_end", "clock",
        "profiled", "n_visible", "n_overflow", "n_dropped", "n_anchors", "n_grown",
-       "n_pruned", "rows")
+       "n_pruned", "n_flipped", "rows")
 ID = {name: i for i, name in enumerate(IDS)}
 STAMPS = tuple(range(ID["clock"] + 1))
 # a step's or frame's stamps in the order the stream runs them, each paired
@@ -183,9 +183,12 @@ SEQUENCES = {
               ("raster_bwd", "raster"), ("grad", "front"), ("end", "adam")),
     "render": (("front", "front"), ("raster", "raster"), ("end", "composite")),
 }
-_KIND_OF = {tuple([ID["begin"]] + [ID[s] for s, _ in seq]): kind
-            for kind, seq in SEQUENCES.items()}
-STAGES = {kind: tuple(dict.fromkeys(st for _, st in seq)) for kind, seq in SEQUENCES.items()}
+# a frame whose ray drop the refiner replaces (`train/graphs.py` `refine_frame`),
+# summarized as a render with one stage more
+REFINED = (("front", "front"), ("raster", "raster"), ("refine", "composite"),
+           ("end", "refine"))
+_SEQUENCE_OF = {tuple([ID["begin"]] + [ID[s] for s, _ in seq]): (kind, seq)
+                for kind, seq in list(SEQUENCES.items()) + [("render", REFINED)]}
 CALIBRATE_EVERY_NS = 1_000_000_000   # a summary re-reads the clock offset after this long
 _NULL = contextlib.nullcontext()
 
@@ -354,7 +357,13 @@ class _Step:
     @property
     def kind(self) -> Optional[str]:
         """"train" or "render" when its stamps are complete and in order."""
-        return _KIND_OF.get(tuple(s for s, _ in self.stamps))
+        return self.sequence[0]
+
+    @property
+    def sequence(self) -> tuple:
+        """(kind, its SEQUENCES entry or REFINED), or (None, ()) while its
+        stamps are incomplete or out of order."""
+        return _SEQUENCE_OF.get(tuple(s for s, _ in self.stamps), (None, ()))
 
     @property
     def profiled(self) -> bool:
@@ -443,9 +452,13 @@ class Telemetry:
     A train step's stamps: begin | front | raster | composite | loss, the
     backward's loss_bwd | composite_bwd | raster_bwd | grad (through the
     identity `_Boundary`, whose backward stamps), then end after Adam, the
-    statistics and the commit. A frame's: begin | front | raster | end. The
-    front stamp carries `n_visible` and the rows the front processed; end
-    carries `n_overflow`, `n_dropped` (and a step's `n_anchors`);
+    statistics and the commit. A frame's: begin | front | raster | end; a
+    refined frame's (a ray-drop refiner in the render's program) begin |
+    front | raster | refine | end, summarized as a render whose composite
+    stage ends at refine and whose refine stage runs to end. The front
+    stamp carries `n_visible` and the rows the front processed; end carries
+    `n_overflow`, `n_dropped` (and a step's `n_anchors`), a refined frame's
+    refine carries those two and its end `n_flipped`;
     `Trainer.densify`'s eager densify_begin / densify_end carry `n_grown`
     and `n_pruned`. Each begin stamp advances the step id and tags the step
     with whether a profiler was running.
@@ -568,7 +581,8 @@ class Telemetry:
     def summary(self, kind: str, last: Optional[int] = None) -> Optional[dict]:
         """What the rings hold of `kind`'s ("train" or "render") unprofiled,
         complete steps (the `last` ones only, if given), in ms: each
-        stage's mean device time, forward plus backward (`stage_ms`); the
+        stage's mean device time, forward plus backward (`stage_ms`, with
+        `refine` where refined frames are among them); the
         mean graph span (begin to end), period (begin to the next begin) and
         host gap (end to the next step's begin, densify calls left out);
         densify's mean device time; the counters' means; the front's fill
@@ -600,14 +614,13 @@ class Telemetry:
             steps = steps[-last:]
         if not steps:
             return None
-        seq = SEQUENCES[kind]
-        stage_ns = dict.fromkeys(STAGES[kind], 0)
+        stage_ns: dict = {}
         spans_ns, periods, gaps, gap_mid, densify = [], [], [], [], []
         counts: dict = {}
         for ring, s, r in steps:
             t = [v for _, v in r.stamps]
-            for (_, stage), a, b in zip(seq, t, t[1:]):
-                stage_ns[stage] += b - a
+            for (_, stage), a, b in zip(r.sequence[1], t, t[1:]):
+                stage_ns[stage] = stage_ns.get(stage, 0) + b - a
             spans_ns.append(t[-1] - t[0])
             for k, v in r.counts.items():
                 counts.setdefault(k, []).append(v)
@@ -702,7 +715,7 @@ class Telemetry:
                 if kind is None:
                     continue
                 t = ring.to_host([v for _, v in r.stamps]) / 1e3
-                for (stamp, stage), a, b in zip(SEQUENCES[kind], t, t[1:]):
+                for (stamp, stage), a, b in zip(r.sequence[1], t, t[1:]):
                     name = stage + (" backward" if stamp.endswith("_bwd") or stamp == "grad"
                                     else "")
                     ev.append({"name": name, "ph": "X", "pid": pid,

@@ -16,6 +16,11 @@ dedup of `voxelize_points` and the initial scales of `ops/knn.py`'s 3-NN.
 `anchor_rows` cuts the table to its rows [0, B) for a render: every live
 anchor lies below B (`train/graphs.py` `LiveExtent`), and the rows above
 are padding that the render masks.
+
+`render_frame_packed` is the forward beam frame whose front is one kernel
+(`ops/front_kernel.py` `front_packed`: F1 on a card); `frame_render` gives it
+for the layouts F1 takes (`front_kernel.takes`) and `render_fn`'s path for
+every other.
 """
 from __future__ import annotations
 
@@ -27,8 +32,10 @@ import torch.utils.checkpoint
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
+from ..ops import front_kernel
 from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, unit_x, visible_filter
-from ..ops.rasterize import RenderOut, permutation_rows, render_tiled
+from ..ops.rasterize import (RenderOut, cull_packed, permutation_rows, render_packed_window,
+                             render_tiled, tiled_image)
 from ..ops.surfel import SurfelOut, preprocess_surfels, render_surfels
 from ..utils.device import resolve_device
 from .mlp import apply_mlp, init_mlp
@@ -155,6 +162,13 @@ def anchor_rows(params: dict, valid: torch.Tensor, B: int):
     return {**params, **{n: params[n][:B] for n in ANCHOR_ROWS}}, valid[:B]
 
 
+def heads_fusable(cfg: ModelConfig, params: dict) -> bool:
+    """Whether the four heads read one input (every `add_*_dist` equal and
+    no appearance rows), so that their first layers run as one product."""
+    return (cfg.add_opacity_dist == cfg.add_color_dist == cfg.add_cov_dist
+            and not (cfg.appearance_dim > 0 and "appearance" in params))
+
+
 class NeuralGaussians(NamedTuple):
     """Decoded per-view gaussians, anchor-major [C, k, ...]."""
 
@@ -201,11 +215,7 @@ def generate_neural_gaussians(
     cat = torch.cat([feat, ob_view, ob_dist], 1)
     cat_nodist = torch.cat([feat, ob_view], 1)
 
-    heads_fusable = (
-        cfg.add_opacity_dist == cfg.add_color_dist == cfg.add_cov_dist
-        and not (cfg.appearance_dim > 0 and "appearance" in params)
-    )
-    if heads_fusable:
+    if heads_fusable(cfg, params):
         # all four heads read the same input: their first layers run as one
         # product of the concatenated weights, their second layers per head
         x = cat if cfg.add_opacity_dist else cat_nodist
@@ -410,6 +420,35 @@ def render_field_surfel(params: dict, valid: torch.Tensor, frame: LidarFrame,
     pk, ng, anchor_visible = field_surfels(params, valid, frame, mcfg, rcfg, mean_proxy)
     out: SurfelOut = render_surfels(pk, frame.beams, frame.W, bg, rcfg, C=ng.feat.shape[-1])
     return out, ng, anchor_visible
+
+
+def render_frame_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                        mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
+                        sphere_proxy: Optional[torch.Tensor] = None):
+    """The forward beam frame with its front as one kernel: `front_packed`
+    (F1 on a card) -> the cull sort (`cull_packed`) -> the tiled splat ->
+    the image. Returns (RenderOut, None, None): no NeuralGaussians and no
+    gradient. On the CPU its output is `render_field`'s, bit for bit.
+    Takes the layouts of `front_kernel.takes` and no proxy."""
+    if sphere_proxy is not None:
+        raise ValueError("render_frame_packed is the forward frame: it takes no sphere proxy")
+    pk, depth, visible, n_valid = front_kernel.front_packed(params, valid, frame, mcfg, rcfg)
+    C = mcfg.color_channel
+    pkv, n_dropped = cull_packed(pk, depth, n_valid, rcfg, C)
+    color_t, depth_t, final_T_t, n_overflow = render_packed_window(pkv, frame.beams, frame.W,
+                                                                   rcfg, C)
+    out = tiled_image(color_t, depth_t, final_T_t, frame.beams.shape[0], frame.W, bg, rcfg,
+                      visible, n_dropped, n_overflow)
+    return out, None, None
+
+
+def frame_render(variant: str, params: dict, mcfg: ModelConfig, rcfg: RasterConfig):
+    """The forward frame of a variant for this layout: `render_frame_packed`
+    for the beam variant where F1 takes the layout (`front_kernel.takes`),
+    else `render_fn`'s."""
+    if variant == "beam" and front_kernel.takes(params, mcfg, rcfg):
+        return render_frame_packed
+    return render_fn(variant)
 
 
 def render_fn(variant: str):

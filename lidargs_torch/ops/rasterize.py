@@ -341,36 +341,35 @@ def render_packed_window(pkv: torch.Tensor, beams: torch.Tensor, W: int,
 def cull_sorted_rows(splats: Splats, cfg: RasterConfig):
     """Cull + compact + depth presort in ONE stable sort: the first
     min(max_visible, P) packed rows in depth order ([V, F]) and the count of
-    valid gaussians beyond max_visible. The packed rows are where the front
-    ends (its stamp carries the valid rows and the rows it processed)."""
-    P = splats.valid.shape[0]
-    C = splats.feat.shape[-1]
+    valid gaussians beyond max_visible (`pack_splats`, then `cull_packed`)."""
+    return cull_packed(pack_splats(splats), splats.depth, splats.valid.sum(), cfg,
+                       splats.feat.shape[-1])
+
+
+def cull_packed(pk: torch.Tensor, depth: torch.Tensor, n_valid: torch.Tensor,
+                cfg: RasterConfig, C: int):
+    """`cull_sorted_rows` of packed rows [P, F] of C channels, given their
+    depth [P] and count of valid rows: the first min(max_visible, P) rows in
+    depth order and the count of valid rows beyond max_visible. The packed
+    rows are where the front ends (its stamp carries the valid rows and the
+    rows it processed)."""
+    P = pk.shape[0]
     V = min(cfg.max_visible, P)
-    pk = pack_splats(splats)                                    # [P, F]
-    n_valid = splats.valid.sum()
     (pk,) = telemetry.boundary("front", "raster_bwd", pk, values=(n_valid,), rows=P)
-    sel = torch.sort(splats.depth, stable=True).indices
+    sel = torch.sort(depth, stable=True).indices
     pkv = permutation_rows(pk, sel, V)                          # [V, F]
     vvalid = pkv[:, PackedCols.validf(C)] > 0.0
     n_dropped = n_valid - vvalid.sum()
     return pkv, n_dropped
 
 
-def render_tiled(
-    splats: Splats,
-    beams: torch.Tensor,
-    W: int,
-    bg: torch.Tensor,
-    cfg: RasterConfig,
-) -> RenderOut:
-    H = beams.shape[0]
+def tiled_image(color_t, depth_t, final_T_t, H: int, W: int, bg: torch.Tensor,
+                cfg: RasterConfig, visible: torch.Tensor, n_dropped, n_overflow) -> RenderOut:
+    """The RenderOut of the full grid's per-tile strips (`render_packed_window`):
+    the tiles reassembled into the [H, W] image and the background blended
+    in by the final transmittance."""
     gy, gx = cfg.grid_shape(H, W)
-    C = splats.feat.shape[-1]
-
-    pkv, n_dropped = cull_sorted_rows(splats, cfg)
-    color_t, depth_t, final_T_t, n_overflow = render_packed_window(pkv, beams, W, cfg, C)
-
-    # --- reassemble tiles into the image ---
+    C = color_t.shape[1]
     th, tw = cfg.tile_h, cfg.tile_w
     color = color_t.reshape(gy, gx, C, th, tw).permute(2, 0, 3, 1, 4)
     color = color.reshape(C, gy * th, gx * tw)[:, :H, :W]
@@ -385,7 +384,21 @@ def render_tiled(
         depth=depth,
         occ=1.0 - final_T,
         final_T=final_T,
-        visible=splats.valid,
+        visible=visible,
         n_dropped=n_dropped,
         n_overflow=n_overflow,
     )
+
+
+def render_tiled(
+    splats: Splats,
+    beams: torch.Tensor,
+    W: int,
+    bg: torch.Tensor,
+    cfg: RasterConfig,
+) -> RenderOut:
+    C = splats.feat.shape[-1]
+    pkv, n_dropped = cull_sorted_rows(splats, cfg)
+    color_t, depth_t, final_T_t, n_overflow = render_packed_window(pkv, beams, W, cfg, C)
+    return tiled_image(color_t, depth_t, final_T_t, beams.shape[0], W, bg, cfg, splats.valid,
+                       n_dropped, n_overflow)

@@ -515,11 +515,13 @@ def main(argv=None):
                 anchors = int(metrics.n_anchors)
                 counts = (f"visible={int(metrics.n_visible)} "
                           f"overflow={int(metrics.n_overflow)}")
-            # the front's anchor rows and the programs captured so far (a
-            # recapture inside the loop is part of its time)
+            # the front's anchor rows, the programs captured so far (a
+            # recapture inside the loop is part of its time) and the renders
+            # whose front ran as one kernel
             logger.info(
                 f"iter {it}: loss={ema:.5f} anchors={anchors} {counts} "
                 f"extent={trainer.extent} captures={telemetry.captures} "
+                f"fused_fronts={telemetry.fused_fronts} "
                 f"({(time.time() - t_start) / (it - first_iter) * 1e3:.0f} ms/it avg)"
             )
             if tb.active:

@@ -24,10 +24,10 @@ until another graph of the pool replays: every caller here clones them
 right after the replay (`clone_outputs`).
 
 The kernels' launch counters (`ops/composite_kernel.py`,
-`ops/surfel_kernel.py`) move when a wrapper runs, which in a graph is at
-capture only. A program records the counters' change over its capture and
-adds it at every replay, so each run counts the launches it replays. The
-warm-up's launches are the capture's cost, as a compile is JAX's, and are
+`ops/surfel_kernel.py`, `ops/front_kernel.py`) move when a wrapper runs,
+which in a graph is at capture only. A program records the counters'
+change over its capture and adds it at every replay, so each run counts
+the launches it replays. The warm-up's launches are the capture's cost, as a compile is JAX's, and are
 not counted.
 
 `RenderGraphs` is the forward render as such programs: one per (params,
@@ -54,6 +54,12 @@ are captured with it when the capture runs inside a Trainer's scope; the
 warm-up runs stamp nothing. Each program made is counted
 (`telemetry.captures`) under a host span `capture`, and the extent of the
 last program built is `telemetry.extent`.
+
+A beam frame's front is one kernel (`models/field.py` `render_frame_packed`,
+F1 on a card) where F1 takes the layout (`frame_render`,
+`ops/front_kernel.py` `takes`). Each render program made with it on a
+card, and each eager frame rendered with it on a card, is counted
+(`telemetry.fused_fronts`); on the CPU its front is the plain version.
 """
 from __future__ import annotations
 
@@ -64,30 +70,31 @@ import torch
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import anchor_rows, render_fn
-from ..ops import composite_kernel, surfel_kernel
+from ..models.field import anchor_rows, frame_render, render_fn, render_frame_packed
+from ..ops import composite_kernel, front_kernel, surfel_kernel
 from ..utils.profiling import telemetry
 from .optim import tree_leaves
 
 WARMUP = 2                     # eager warm-up runs before a capture
 COUNTERS = ("launches", "bwd_launches", "windows_launches", "windows_bwd_launches")
-_COUNTED = (composite_kernel, surfel_kernel)
+# each module with launch counters, and its counters
+_COUNTED = ((composite_kernel, COUNTERS), (surfel_kernel, COUNTERS),
+            (front_kernel, ("launches",)))
 FRAME_FIELDS = ("w2s_rot", "w2s_trans", "center", "beams", "gt_image", "uid", "pixel_mask")
 QUANTA = 16                    # the live extent moves in steps of a sixteenth of the capacity
 DROP_P = 0.5                   # a pixel whose ray-drop probability exceeds this is dropped
 
 
 def read_counters() -> tuple:
-    """The kernel launch counters of both composite modules, in order."""
-    return tuple(getattr(m, n) for m in _COUNTED for n in COUNTERS)
+    """The kernel launch counters of both composite modules, then F1's."""
+    return tuple(getattr(m, n) for m, names in _COUNTED for n in names)
 
 
 def write_counters(values) -> None:
-    """Set the launch counters of both composite modules, in
-    `read_counters`' order."""
+    """Set the launch counters, in `read_counters`' order."""
     it = iter(values)
-    for m in _COUNTED:
-        for n in COUNTERS:
+    for m, names in _COUNTED:
+        for n in names:
             setattr(m, n, next(it))
 
 
@@ -265,7 +272,9 @@ class RenderGraphs:
     `extent` given (`Trainer.render` gives its step's, whose own static
     `valid` a densify rewrites in place), else the live extent of `valid`
     (`LiveExtent`). `graphed` as `use_graphs` reads it: False (or None on
-    the CPU) renders eagerly, on the same rows. `refine(color, depth) ->
+    the CPU) renders eagerly, on the same rows. The frame is
+    `frame_render`'s for the params' layout: the beam variant's front as
+    one kernel where it takes the layout. `refine(color, depth) ->
     color`, where given, replaces each frame's [intensity, raydrop] inside
     the program (`refine_frame`); without it the program is the field's
     render alone."""
@@ -273,7 +282,8 @@ class RenderGraphs:
     def __init__(self, variant: str, mcfg: ModelConfig, rcfg: RasterConfig,
                  bg: torch.Tensor, graphed: Optional[bool] = None, pool=None,
                  refine: Optional[Callable] = None):
-        self.render = render_fn(variant)
+        render_fn(variant)                     # refuses an unknown variant
+        self.variant = variant
         self.mcfg, self.rcfg, self.bg = mcfg, rcfg, bg
         self.graphed, self.pool = graphed, pool
         self.refine = refine
@@ -284,7 +294,8 @@ class RenderGraphs:
                  extent: Optional[int] = None):
         B = self.extent(valid) if extent is None else extent
         if not use_graphs(self.graphed, valid.device):
-            out = stamped_render(self.render, *anchor_rows(params, valid, B), frame, self.mcfg,
+            render = self.render_for(params, valid.device)
+            out = stamped_render(render, *anchor_rows(params, valid, B), frame, self.mcfg,
                                  self.rcfg, self.bg)
             return (end_frame(out) if self.refine is None
                     else end_refined(refine_frame(self.refine, out)))
@@ -304,10 +315,20 @@ class RenderGraphs:
         with telemetry.span("clone_outputs"):
             return clone_outputs(out)
 
+    def render_for(self, params: dict, device: torch.device):
+        """The frame's render for `params`' layout (`frame_render`),
+        counted in `telemetry.fused_fronts` where its front runs as one
+        kernel, F1 on a card: once a program, or once an eager frame."""
+        render = frame_render(self.variant, params, self.mcfg, self.rcfg)
+        if render is render_frame_packed and device.type == "cuda":
+            telemetry.fused_fronts += 1
+        return render
+
     def _program(self, inputs, params, valid, frame, B: int):
         # the closures hold what they read, not self: no reference cycle
         static = frame_like(frame)
-        render, mcfg, rcfg, bg, refine = self.render, self.mcfg, self.rcfg, self.bg, self.refine
+        render = self.render_for(params, valid.device)
+        mcfg, rcfg, bg, refine = self.mcfg, self.rcfg, self.bg, self.refine
         rows = anchor_rows(params, valid, B)
 
         @torch.no_grad()

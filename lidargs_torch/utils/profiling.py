@@ -468,7 +468,9 @@ class Telemetry:
     off, a span is one attribute check. `captures` counts the static
     programs made (`train/graphs.py`: a CUDA graph captured on a card, each
     under a span `capture`), `extent` the anchor rows of the last step or
-    render program built (its live extent). `enable()` switches on (and
+    render program built (its live extent), `fused_fronts` the render
+    programs made, and eager frames rendered, whose front ran as one kernel
+    (`ops/front_kernel.py` `front_packed`'s F1, on a card). `enable()` switches on (and
     measures each card's clock offset), `disable()` off; a `Trainer` call
     that finds a profiler running switches it on (`notice`). Nothing is read
     from a card until `summary`, which synchronizes once and leaves out the
@@ -486,6 +488,7 @@ class Telemetry:
         self._scope = _Scope(self)
         self.captures = 0          # static programs made (since switched on)
         self.extent: Optional[int] = None   # anchor rows of the last program built
+        self.fused_fronts = 0      # render programs and eager frames with the one-kernel front
 
     # -- switching --
     def enable(self) -> None:
@@ -495,7 +498,7 @@ class Telemetry:
         self.on = True
         self.profiled = _profiling()
         self.spans, self._open, self._host_step = [], [], 0
-        self.captures = 0
+        self.captures = self.fused_fronts = 0
         for ring in self.rings.values():
             ring.start(self.profiled)
 
@@ -588,8 +591,9 @@ class Telemetry:
         densify's mean device time; the counters' means; the front's fill
         (100 n_visible / rows); the host gaps' ms a step by the host span
         open at their middle (`gaps`, and the `longest` few); the clock
-        offsets; the programs captured since switched on, their mean host ms
-        and the current extent (`captures`, `capture_ms`, `extent`). None
+        offsets; the programs captured since switched on, their mean host ms,
+        the current extent and the renders whose front ran as one kernel
+        (`captures`, `capture_ms`, `extent`, `fused_fronts`). None
         when there is no such step."""
         steps = []
         for ring in self.rings.values():
@@ -647,6 +651,7 @@ class Telemetry:
             "counters": {k: sum(v) / len(v) for k, v in counts.items() if k != "profiled"},
             "lost_entries": sum(ring.lost for ring in self.rings.values()),
             "captures": self.captures, "extent": self.extent,
+            "fused_fronts": self.fused_fronts,
             "capture_ms": mean([b - a for name, a, b, _, _ in self.spans
                                 if name == "capture" and b is not None]),
         }

@@ -69,6 +69,7 @@ H = 64
 WARMUP = 3                    # calls before a standalone stage's timed calls
 NOT_MEASURED = "not measured"
 # graphs.read_counters' order: composite_kernel's four counters, then surfel_kernel's
+# (F1's, last, is left out: no row here runs it)
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # the name of each kernel's template among a trace's device rows (K3/K4 and
 # K7/K8 are the window instances of K1/K2 and K5/K6)

@@ -13,7 +13,7 @@ import torch
 from ..config import ModelConfig, RasterConfig
 from ..lidar.beams import uniform_beam_inclinations
 from ..models.field import init_field_params
-from ..ops.projection import Splats, preprocess_gaussians
+from ..ops.projection import PackedCols, Splats, preprocess_gaussians, unit_x
 from .device import resolve_device
 
 
@@ -123,6 +123,80 @@ def assert_close_up_to_flips(got, want, atol: float, flip_atol: float,
         f"{what}: {n_far} of {d.size} elements beyond {atol:g} (allowed {allowed}), "
         f"max {d.max():.3g}")
     assert d.max() <= flip_atol, f"{what}: max |d| {d.max():.3g} beyond {flip_atol:g}"
+
+
+# F1 (`ops/front_kernel.py`) against the torch front on the same rows: the
+# float columns within rtol / atol elementwise, the conic within rtol of its
+# diagonal's scale, and valid and rect equal on at least `agree` of the rows
+FRONT_TOL = {"rtol": 1e-5, "atol": 1e-6, "agree": 0.9999}
+
+
+def front_agreement(got: tuple, want: tuple, valid: torch.Tensor, C: int,
+                    culled=None) -> dict:
+    """How F1's (pk, depth, valid, n_valid) agree with the torch front's
+    (`front_packed_plain`) on the same anchor rows `valid` [B]: the numbers,
+    and under `faults` each criterion of FRONT_TOL they break. On the rows
+    whose valid and rect agree, the float columns |a - b| <= atol + rtol |b|
+    but the conic, which is held to rtol of max(|a|, |c|): its off-diagonal
+    b is a difference of near-equal products (v1 . v2), so an ulp of the
+    view-space basis, where cuBLAS's 3x3 products round their sums in
+    another order than the kernel's FMA chain, moves b by ~1e-6 of the
+    diagonal and by any share of b. The rows of dead anchors equal exactly
+    but for the decode's columns (features, rect); `culled` [B*k], where
+    given, marks rows of live anchors the prefilter culls, held to the same
+    columns on `agree` of them. F1's own valid and depth columns equal its
+    valid and depth outputs; its pad columns are 0."""
+    (pk, depth, vis, n_valid), (pk0, depth0, vis0, n0) = got, want
+    rtol, atol, agree = FRONT_TOL["rtol"], FRONT_TOL["atol"], FRONT_TOL["agree"]
+    vf, rect, conic = PackedCols.validf(C), PackedCols.rect(C), PackedCols.CONIC
+    feat = range(PackedCols.FEAT0, PackedCols.FEAT0 + C)
+    floats = [c for c in range(vf) if c not in range(rect.start, rect.stop)
+              and c not in range(conic.start, conic.stop)]
+    exact = [c for c in floats if c not in feat] + list(range(conic.start, conic.stop)) + [vf]
+    same_valid = vis == vis0
+    same_rect = (pk[:, rect] == pk0[:, rect]).all(1)
+    rows = same_valid & same_rect
+    a, b = pk[rows][:, floats].double(), pk0[rows][:, floats].double()
+    d = (a - b).abs()
+    live = rows & vis0
+    c0 = pk0[live][:, conic].double()
+    scale = torch.maximum(c0[:, 0].abs(), c0[:, 2].abs())[:, None]
+    conic_rel = (pk[live][:, conic].double() - c0).abs() / scale
+    k = pk.shape[0] // max(valid.shape[0], 1)
+    dead = (~valid).repeat_interleave(k)
+    unit_x_rows = unit_x(3, torch.float32, pk.device).expand(int(dead.sum()), 3)
+    out = {
+        "rows": pk.shape[0],
+        "valid_agree": float(same_valid.double().mean()),
+        "rect_agree": float(same_rect.double().mean()),
+        "n_valid": [int(n_valid), int(n0)],
+        "float_outside": int((~(d <= atol + rtol * b.abs())).sum()),
+        "float_max_abs": float(d.max()) if d.numel() else 0.0,
+        "conic_rel_max": float(conic_rel.max()) if conic_rel.numel() else 0.0,
+        "own_columns": bool(torch.equal(pk[:, vf] > 0, vis)
+                            and torch.equal(pk[:, PackedCols.DEPTH], depth)),
+        "pad_zero": bool((pk[:, vf + 1:] == 0).all()),
+        "dead_rows": int(dead.sum()),
+        "dead_rows_exact": bool(torch.equal(pk[dead][:, exact], pk0[dead][:, exact])
+                                and torch.equal(pk[dead][:, PackedCols.MEAN], unit_x_rows)),
+    }
+    if culled is not None and bool(culled.any()):
+        out["culled_agree"] = float((pk[culled][:, exact] == pk0[culled][:, exact]).all(1)
+                                    .double().mean())
+    n_differ = int((~same_valid).sum())
+    checks = {
+        "valid_agree": out["valid_agree"] >= agree,
+        "rect_agree": out["rect_agree"] >= agree,
+        "n_valid": abs(out["n_valid"][0] - out["n_valid"][1]) <= n_differ,
+        "float_outside": out["float_outside"] == 0,
+        "conic_rel_max": out["conic_rel_max"] <= rtol,
+        "own_columns": out["own_columns"],
+        "pad_zero": out["pad_zero"],
+        "dead_rows_exact": out["dead_rows_exact"],
+        "culled_agree": out.get("culled_agree", 1.0) >= agree,
+    }
+    faults = [name for name, ok in checks.items() if not ok]
+    return {**out, "faults": faults}
 
 
 def one_torch_thread():

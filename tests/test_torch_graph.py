@@ -42,6 +42,7 @@ from lidargs_torch.config import ModelConfig, OptConfig, RasterConfig
 from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
 from lidargs_torch.models.field import AnchorField
 from lidargs_torch.ops import composite_kernel as ck
+from lidargs_torch.ops import front_kernel as fk
 from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.train import graphs
 from lidargs_torch.train import trainer as tt
@@ -277,6 +278,7 @@ def test_launch_counters_count_each_replay(monkeypatch):
     for m in (ck, sk):
         for n in graphs.COUNTERS:
             monkeypatch.setattr(m, n, 5)
+    monkeypatch.setattr(fk, "launches", 5)
     calls = []
 
     def compute():
@@ -284,16 +286,18 @@ def test_launch_counters_count_each_replay(monkeypatch):
         ck.launches += 1
         ck.bwd_launches += 1
         sk.windows_launches += 2
+        fk.launches += 1
         return torch.ones(3)
 
     prog = graphs.StaticProgram(compute, lambda out: out * 2, torch.device("cuda"))
     assert len(calls) == graphs.WARMUP + 1
-    assert graphs.read_counters() == (5,) * 8
-    assert prog.delta == (1, 1, 0, 0, 0, 0, 2, 0)
+    assert graphs.read_counters() == (5,) * 9
+    assert prog.delta == (1, 1, 0, 0, 0, 0, 2, 0, 1)
     for i in range(1, 4):
         out = prog.run()
         assert torch.equal(out, torch.full((3,), 2.0)) and prog.graph.replays == i
         assert (ck.launches, ck.bwd_launches, sk.windows_launches) == (5 + i, 5 + i, 5 + 2 * i)
+        assert fk.launches == 5 + i
         assert (ck.windows_launches, sk.launches) == (5, 5)
     assert len(calls) == graphs.WARMUP + 1      # a replay does not run the function
 

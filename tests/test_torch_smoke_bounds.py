@@ -37,6 +37,7 @@ from lidargs_torch.utils import (cuda_build, kernel_ab, prefixes, profiling, roo
 from lidargs_torch.ops.surfel import SurfelCols as S
 from lidargs_torch.ops.surfel import pair_geometry
 from lidargs_torch.utils.testing import one_torch_thread
+from portbench.tests.tiny import tiny_cell
 from test_torch_composite_kernel import _kernel_inputs
 from test_torch_surfel_kernel import _surfel_inputs
 
@@ -335,7 +336,7 @@ def test_kernel_ab_judges_every_bit():
 
 def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     sizes = dict(H=16, W=256, N_ANCHORS=300, N_FRAMES=3, WARMUP=1, N_STEPS=2, TRAIN_TIMED=2,
-                 MODEL=dict(anchor_capacity=512, feat_dim=8, n_offsets=2, mlp_hidden=8),
+                 MODEL=dict(anchor_capacity=512, feat_dim=8, n_offsets=2, mlp_hidden=32),
                  RASTER=dict(tile_h=4, tile_capacity=64, max_tiles_per_gaussian=8,
                              max_visible=2048),
                  SURFEL_RASTER=dict(tile_h=1, tile_capacity=64, max_tiles_per_gaussian=32,
@@ -362,10 +363,13 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  # phase 34: 4 steps of each kind (Trainer(graphed=True) runs the
                  # graphs' bookkeeping on the CPU), a 100-anchor vehicle-style field
                  GRAPH_STEPS={"beam": 4, "surfel": 4, "masked": 4}, GRAPH_TIMED=2,
-                 GRAPH_VEHICLE=dict(anchors=100, capacity=256), GRAPH_CLI_CAPACITY=1024)
+                 GRAPH_VEHICLE=dict(anchors=100, capacity=256), GRAPH_CLI_CAPACITY=1024,
+                 # phase 36: two of the tiny cell's six poses
+                 F1_POSES=(0, 3))
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
+    monkeypatch.setattr(chip_smoke, "render_cell", lambda: tiny_cell("beam-render-street"))
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, warmup: [(fn(), 1.0)[1]])
     monkeypatch.setattr(chip_smoke, "time_cold_ms", lambda fn, iters=20: (fn(), 1.0)[1])
     monkeypatch.setattr(profiling, "profile",
@@ -396,10 +400,14 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [
         "composite_fwd", "composite_bwd", "composite_fwd_windows", "composite_bwd_windows",
         "surfel_fwd", "surfel_bwd", "surfel_fwd_windows", "surfel_bwd_windows",
-        "knn_chamfer", "knn_gram_topk", "knn3_direct"]
+        "knn_chamfer", "knn_gram_topk", "knn3_direct", "front_fwd"]
     assert [k["launches"] for k in kernels[:8]] == [3, 2] * 4
-    assert all(k["source"] == "lidargs_torch/csrc/knn.cu" for k in kernels[8:])
-    assert [k["replaces"] for k in kernels[8:]] == [
+    f1 = kernels[11]                            # one launch a frame of phase 1, held in phase 36
+    assert f1["launches"] == 3 and f1["source"] == "lidargs_torch/csrc/front_fwd.cu"
+    assert f1["rows"] == 6 * f1["anchors"] > 0 and f1["bound_ms"] > 0
+    assert f1["valid_agree"] == f1["rect_agree"] == 1.0 and f1["max_abs_err"] == 0.0
+    assert all(k["source"] == "lidargs_torch/csrc/knn.cu" for k in kernels[8:11])
+    assert [k["replaces"] for k in kernels[8:11]] == [
         "lidargs_tpu/ops/knn.py:60", "lidargs_tpu/ops/knn.py:22",
         "lidargs_tpu/native/lidargs_native.cpp:80"]
     timing = json.loads(lines[-4])["timing"]
@@ -444,14 +452,14 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert cli["beam"]["launches"]["K2"] == 4 and cli["beam"]["launches"]["K1"] > 4
     assert [k.get("launches_cli") for k in kernels] == [
         cli["beam"]["launches"]["K1"], 4, None, None, cli["surfel"]["launches"]["K5"], 2,
-        None, None, None, None, None]
+        None, None, None, None, None, None]
     assert cli["knn_oracle"]["points"] == 3000 and cli["knn_oracle"]["max_err_over_tol"] <= 1
     assert cli["chamfer_oracle"]["max_err_over_tol"] <= 1
     # N1-N3: two N1 launches a chamfer frame with both clouds (phase 20's two
     # sweeps of 12 frames, phase 22's one), one N2 launch at the init (the
     # anchors' scales at voxel 1.0), one in the oracle, one N3 launch in
     # phase 31; each held to its plain version and timed beside it
-    n1, n2, n3 = kernels[8:]
+    n1, n2, n3 = kernels[8:11]
     assert cli["beam"]["chamfer_frames"] == 24
     assert 0 < n1["launches"] == cli["beam"]["launches"]["N1"] <= 48 and n1["launches"] % 2 == 0
     assert 0 < n1["launches_eval_only"] == cli["eval_only"]["launches"]["N1"] <= 24

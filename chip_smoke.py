@@ -12,10 +12,9 @@ then:
   1. renders the full-width benchmark scene (64x2650 range view, 60,000
      anchors on a synthetic street shell, k=6 -> 393,216 gaussians, random
      heads from a seed) from N_FRAMES sensor poses through `measure_fps`,
-     with the launch counts set to 0 just before and read just after, and
-     requires one K1 and one F1 launch per frame (the frame's front is F1,
-     `models/field.py` `render_frame_packed`), finite outputs and
-     occupancy > 0;
+     counting the launches it makes, and requires one K1 and one F1 launch
+     per frame (the frame's front is F1, `models/field.py`
+     `render_frame_packed`), finite outputs and occupancy > 0;
   2. re-renders one frame through `run_eval` against a ground truth made
      from its first render (the render is deterministic, so the metrics
      must be exact);
@@ -30,9 +29,9 @@ then:
   6. lists the render's costliest device kernels from torch.profiler;
   7. trains: N_STEPS `Trainer.step`s of the same scene against random GT
      images (as the JAX package's train-step benchmark draws them) from
-     sensor poses, with the counts set to 0 just before and read just after,
-     requiring one K1 and one K2 launch per step, finite losses and
-     parameters that changed, and statistics that accumulate; then one
+     sensor poses, counting their launches, requiring one K1 and one K2
+     launch per step, finite losses and parameters that changed, and
+     statistics that accumulate; then one
      `Trainer.densify`, whose anchor count must be the count before plus
      grown minus pruned;
   8. holds K2 against its plain PyTorch version on the inputs one step gave
@@ -46,9 +45,8 @@ then:
      reductions K2 runs, `warp_rows`), and profiles a few steps;
  10. renders the same scene from the same poses through the surfel (2DGS)
      variant, `measure_fps(..., variant="surfel")` at the CLI's surfel
-     defaults (h1/K384/cap32), with the counts set to 0 just before and read
-     just after, requiring one K5 launch per frame, finite outputs on every
-     channel and occupancy > 0;
+     defaults (h1/K384/cap32), counting its launches, requiring one K5
+     launch per frame, finite outputs on every channel and occupancy > 0;
  11. holds the tiled surfel render (K5) against the golden chunk scan
      (plain PyTorch) on a small scene, and K5 against its plain version on
      frame 0's main-path inputs, on every output row;
@@ -64,12 +62,12 @@ then:
      K5's warp visits as K1's) from this run's inputs and profiles a frame
      and a step;
  15. renders the same frames through the fused-window gather of the beam
-     variant, `measure_fps` with `fused_gather=True` at h4/K768/cap8, with
-     the counts set to 0 just before and read just after, requiring one K3
-     launch per frame and no K1 launch; holds frame 0's fused render equal
-     bit for bit to the materialized one, and K3 equal bit for bit to K1 on
-     frame 0's rows (the same packed rows, binned both ways) and to its
-     plain version within K1's tolerance;
+     variant, `measure_fps` with `fused_gather=True` at h4/K768/cap8,
+     counting its launches, requiring one K3 launch per frame and no K1
+     launch; holds frame 0's fused render equal bit for bit to the
+     materialized one, and K3 equal bit for bit to K1 on frame 0's rows
+     (the same packed rows, binned both ways) and to its plain version
+     within K1's tolerance;
  16. trains N_STEPS fused `Trainer.step`s (one K3 and one K4 launch each, no
      K1 or K2), densifies once, holds K4 against its plain version and
      against K2 scattered to the windows (bit for bit, every row no tile
@@ -89,12 +87,11 @@ then:
      k=6) with `--voxel_size 0.2` (~53k anchors from the 500k-point init
      cloud): CLI_ITERS iterations, a checkpoint at half, a densify, the test
      and final evaluations with the chamfer distance and F-score, FPS, the
-     dumps and a torch.profiler trace of CLI_PROFILE_STEPS steps; with the
-     counts set to 0 just before and read just after, every
-     `Trainer.step` call must launch K1 and K2 once each, every frame an
-     evaluation scores with the chamfer N1 twice (one a direction; none
-     where a cloud is empty), and the init N2 once (the anchors' 3-NN
-     scales); `results.json` must hold finite metrics;
+     dumps and a torch.profiler trace of CLI_PROFILE_STEPS steps; counting
+     the launches, every `Trainer.step` call must launch K1 and K2 once
+     each, every frame an evaluation scores with the chamfer N1 twice (one
+     a direction; none where a cloud is empty), and the init N2 once (the
+     anchors' 3-NN scales); `results.json` must hold finite metrics;
  21. holds `mean_sq_dist_3nn` (N2) on the init cloud (KNN_POINTS points)
      and `chamfer_distance`/`fscore` (N1) on test frame 0's dumped render
      against its GT against a float64 k-d tree (scipy.spatial.cKDTree), and
@@ -114,9 +111,9 @@ then:
  23. trains the surfel variant through the CLI at its defaults
      (h1/K384/cap32), CLI_SURFEL_ITERS iterations, K5 and K6 once per step;
  24. dumps the beam snapshot's renders (`--load_iteration --dump_renders`),
-     with the counts set to 0 just before and read just after: one K1
-     launch per evaluated, timed, PNG-rendered and dumped frame, and the 50
-     `train_*`/`test_*` frames [6, 64, 2650] plus `dir.npy`;
+     counting the launches: one K1 launch per evaluated, timed,
+     PNG-rendered and dumped frame, and the 50 `train_*`/`test_*` frames
+     [6, 64, 2650] plus `dir.npy`;
  25. trains the offline ray-drop refiner on those dumps through `cli
      refine`, `--arch mlp` (128x4 on 169,600 rays a step) and `--arch unet`
      (channels 32 on 64x2656), REFINE_EPOCHS epochs (JAX's default is 100:
@@ -238,8 +235,10 @@ then:
 
 `Trainer`, `DPTrainer`, `measure_fps` and `run_eval` replay CUDA graphs on
 the card by default, so phases 1-2, 7-9, 12, 15-24, 27-28, 30-33 and
-phase 29's `measure_dp_rate` run graphed steps and renders (a graph replay
-adds its captured launches to the counts).
+phase 29's `measure_dp_rate` run graphed steps and renders. Every launch
+count is the change of the launcher's count (`utils/cuda_build.py`
+`launches`, to which a graph replay adds its captured launches) over what
+it counts.
 
 It prints a timing line, a `kernels` line (K1-K8, then the nearest-neighbour
 kernels N1-N3 of `csrc/knn.cu`, then F1), the card's name and power limit
@@ -349,6 +348,19 @@ import sys
 import time
 from pathlib import Path
 
+from lidargs_torch.utils import profiling
+from lidargs_torch.utils.profiling import event_ms
+# the bound rule, the H100's peaks and the work counts; the benchmark's
+# frozen-copy test reads the peaks here, under these names
+from lidargs_torch.utils.roofline import FP32_OPS_PER_S as PEAK_FP32_OPS_PER_S  # noqa: F401
+from lidargs_torch.utils.roofline import HBM_BYTES_PER_S as PEAK_BYTES_PER_S  # noqa: F401
+from lidargs_torch.utils.roofline import (OPS_APPLIED_BWD, OPS_DECODE_ELEMENTWISE,
+                                          OPS_IN_RECT, OPS_OUT_RECT, OPS_PROJECT,
+                                          OPS_S_BWD_APPLIED, OPS_S_FWD_APPLIED,
+                                          OPS_S_IN_RECT, OPS_S_OUT_RECT, bound, knn_bound,
+                                          tile_bytes, walked_pairs, walked_surfel_pairs)
+from lidargs_torch.utils.stage_split import KERNELS, counting
+
 ROOT = Path(__file__).resolve().parent
 
 H, W = 64, 2650
@@ -358,13 +370,6 @@ RASTER = dict(tile_h=4, tile_capacity=768, max_tiles_per_gaussian=8,
               max_visible=2 ** 18)                # the CLI's render defaults
 N_FRAMES = 8
 WARMUP = 3
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_FP32_OPS_PER_S = 67e12    # H100 SXM FP32, outside the tensor cores
-OPS_IN_RECT = 35               # per pixel-instance pair inside the parity rect
-OPS_OUT_RECT = 4               # the rect test alone
-OPS_APPLIED_BWD = 80           # K2 per applied pair: the forward recompute and the backward
-#                                chain, plus one add per gradient column (14 + C) for the
-#                                reduction; K2's other in-rect pairs cost the forward's count
 N_STEPS = 8                    # training steps of the main path
 TRAIN_TIMED = 20               # steps timed after warm-up
 VOXEL = 0.1                    # densify voxel size (m)
@@ -381,18 +386,6 @@ SURFEL_RASTER = dict(tile_h=1, tile_capacity=384, max_tiles_per_gaussian=32,
 SURFEL_TOL = {"median_atol": 1e-3, "median_far_frac": 0.01, "median_max": 80.0,
               "dist_atol": 1e-5, "dist_far_frac": 0.01, "dist_max": 2e-2}
 K6_TOL = K2_TOL
-# FP32 operations per pixel-surfel pair, counted from csrc/surfel_common.cuh
-# and the kernels' loops (each add, multiply, divide, sqrt, compare or
-# select one; expf one):
-OPS_S_OUT_RECT = 5             # the valid flag and the four rect compares
-OPS_S_IN_RECT = 85             # those, surfel_pair (five 3-dot products, two divides,
-#                                the rho2d form, the selects), surfel_alpha, the tests
-#                                and the transmittance step
-OPS_S_FWD_APPLIED = 28         # + 2 C: K5's accumulators (w, features, depth, normal,
-#                                the distortion map and term, M1, M2, the median)
-OPS_S_BWD_APPLIED = 288        # + 4 C: K6 per applied pair: the replayed pair (85), the
-#                                chain (188 + 3 C) and one add per gradient column
-#                                (15 + C) for the reduction
 # the training CLI on a dataset (phases 19-23): the procedural street at the
 # sensor's width, 46 train and 4 test frames, the CLI's defaults but the
 # voxel (0.2 m: ~53k anchors of the 131,072 capacity)
@@ -405,15 +398,6 @@ CLI_SURFEL_ITERS = 20
 CLI_LOG_EVERY = 50
 CLI_PROFILE_STEPS = 5
 KNN_POINTS = 500_000          # init-cloud points held against the k-d tree
-# FP32 operations per point pair of the nearest-neighbour kernels N1-N3
-# (csrc/knn.cu; each add, multiply, compare or select one): the Gram value
-# |p|^2 - 2 q.p is three multiplies and three adds (the -2 scales the staged
-# point once, not per pair), the direct one three subtracts, three
-# multiplies and two adds; one compare against the minimum or the k-th
-# smallest. The sorted insertion after a compare that wins is left out: it
-# runs O(k log N) times a row, not once a pair.
-OPS_GRAM_PAIR = 7
-OPS_DIRECT_PAIR = 9
 KNN_TIMED = 5                 # kernel launches timed after a warm-up (N1-N3)
 PLAIN_KNN_TIMED = 2           # plain and library calls timed (seconds each at 500k points)
 REFINE_EPOCHS = 5             # refiner epochs over the dumps (JAX's default: 100)
@@ -449,11 +433,6 @@ STAGE_TIMED = 20              # phase 35's rounds in turns (each replays every r
 F1_SEED = 2 ** 31 + 77        # phase 36: the draw of beam-render-street's field
 F1_POSES = (0, 50, 100, 150)  # its novel poses held to the torch front
 F1_TIMED = 50                 # F1's wrapper: calls timed after 5 warm-ups
-# F1's operations besides the heads' products, as `utils/roofline.py` counts
-# the decode and the projection per gaussian; the prefilter projects each
-# anchor as a gaussian
-OPS_DECODE_ELEMENTWISE = 60
-OPS_PROJECT = 160
 DYN_VOXEL = {"background": 0.2, "vehicle": 0.1}
 DYN_CAPACITY = {"background": 65_536, "vehicle": 4_096}
 DYN_MIN_ANCHORS = {"background": 10_000, "vehicle": 200}
@@ -496,146 +475,6 @@ def check_against(name: str, got, want, C: int) -> dict:
             fail(f"{name}: {k} = {err[k]:.3e} exceeds {lim:.1e} ({err})")
     print(f"# {name}: {err}", file=sys.stderr)
     return err
-
-
-def time_ms(fn, iters: int, warmup: int) -> list:
-    """Per-call device time in ms from CUDA events, after `warmup` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    ev[0].record()
-    for i in range(iters):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]
-
-
-def time_cold_ms(fn, iters: int = 20) -> float:
-    """Median device ms of `fn` from CUDA events around each call alone,
-    with the card's 50 MB L2 cache flushed before it (256 MB written
-    outside the timed span)."""
-    import numpy as np
-    import torch
-
-    flush = torch.empty(2 ** 26, dtype=torch.float32, device="cuda")
-    fn()
-    ms = []
-    for _ in range(iters):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        ms.append(a.elapsed_time(b))
-    return float(np.median(ms))
-
-
-def bound(n_bytes: int, n_ops: int) -> dict:
-    """The least time the card could take for a function that must move
-    `n_bytes` and do `n_ops` FP32 operations: the larger of the two times
-    at the card's peak rates."""
-    tb, to = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_OPS_PER_S * 1e3
-    return {"bytes": n_bytes, "bytes_ms": tb, "ops": n_ops, "ops_ms": to,
-            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
-
-
-def tile_bytes(counts, rows_walked: int, cols: int, pix, *elements: int) -> int:
-    """Bytes a composite function over tiles must move: `cols` columns (the
-    ones the function reads) of the `rows_walked` rows of the tiles' lists
-    that some pixel's walk reaches, the counts, the five rows of each pixel
-    block it reads (direction, column, row), and `elements` more f32
-    elements (the rows read of other inputs, the output written)."""
-    T, _, npix = pix.shape
-    return 4 * (rows_walked * cols + counts.numel() + T * 5 * npix + sum(elements))
-
-
-def warp_rows(pairs) -> int:
-    """(tile, warp of 32 pixels, row) triples in which some lane's pair is
-    set, of an [tiles, rows, NPIX] mask of pairs (the kernels' warps are 32
-    consecutive pixels of a tile, the last one padded). Of the applied
-    pairs: the row reductions a backward kernel runs; of the visited pairs:
-    the rows a warp walks; of the visited pairs inside the rect: those in
-    which a lane does more than the rect test."""
-    import torch
-
-    g, K, npix = pairs.shape
-    lanes = torch.nn.functional.pad(pairs.to(torch.uint8), (0, -npix % 32))
-    return int(lanes.view(g, K, -1, 32).amax(-1).sum())
-
-
-def masked_warp_rows(mask, visited) -> int:
-    """(tile, warp, row) visits of the forward kernels' masked walk: the
-    rows of an [tiles, rows, n_warps] `warp_row_mask` in each chunk of
-    FWD_CHUNK rows that the warp walks, which it does unless all its lanes
-    are done when the chunk lands, i.e. iff one of its lanes visits the
-    chunk's first row ([tiles, rows, NPIX] `visited`)."""
-    import torch
-
-    from lidargs_torch.ops.composite_kernel import FWD_CHUNK
-
-    g, K, npix = visited.shape
-    lanes = torch.nn.functional.pad(visited.to(torch.uint8), (0, -npix % 32))
-    walks = lanes.view(g, K, -1, 32).amax(-1)[:, ::FWD_CHUNK]         # [g, chunks, n_warps]
-    walks = walks.repeat_interleave(FWD_CHUNK, dim=1)[:, :K].bool()
-    return int((mask & walks).sum())
-
-
-def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
-    """Pixel-instance pairs that K1's sequential walk visits on these inputs
-    (each pixel's live rows up to and including its first transmittance
-    crossing), as (applied, other in rect, out of rect, rows, reducing warp
-    rows, warp rows visited, warp rows visited in rect, warp rows of the
-    masked walk): the pairs that pass and are blended (K2 runs its backward
-    chain and reduction on these alone), the other pairs inside the
-    instance's parity rect (the alpha arithmetic, then a failed test or the
-    crossing), the pairs outside it (the rect test alone), the rows of the
-    tiles' lists that some pixel visits (the rows the function must read),
-    the `warp_rows` of the applied pairs (K2's row reductions), of the
-    visited pairs (what a warp walks when it visits every row, as K2 does)
-    and of the visited pairs inside the rect, and the visits of K1's masked
-    walk (`masked_warp_rows`): at least the last, as it also counts the
-    masked rows of a chunk after the warp's last lane has stopped."""
-    import torch
-
-    from lidargs_torch.ops.composite_kernel import warp_row_mask
-    from lidargs_torch.ops.projection import PackedCols as PC
-
-    T, K, _ = inst.shape
-    rc = PC.rect(C).start
-    k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
-    for t0 in range(0, T, group):
-        r = inst[t0:t0 + group]
-        col = lambda i: r[:, :, i, None]                            # [g,K,1]
-        dirx, diry, dirz, px, py = (pix[t0:t0 + group, i, None, :] for i in range(5))
-        live = k < counts[t0:t0 + group, None, None]
-        in_rect = (live & (px >= col(rc)) & (px < col(rc + 1))
-                   & (py >= col(rc + 2)) & (py < col(rc + 3)))
-        dx, dy, dz = col(0) - dirx, col(1) - diry, col(2) - dirz
-        ddx = dx * col(3) + dy * col(4) + dz * col(5)
-        ddy = dx * col(6) + dy * col(7) + dz * col(8)
-        power = -0.5 * (col(9) * ddx * ddx + col(11) * ddy * ddy) - col(10) * ddx * ddy
-        alpha = (col(PC.OPACITY) * torch.exp(power)).clamp_max(cfg.alpha_clamp)
-        passed = in_rect & (power <= 0.0) & (alpha >= cfg.alpha_min)
-        t_incl = torch.cumprod(torch.where(passed, 1.0 - alpha, 1.0), dim=1)
-        cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
-        visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
-        applied = visited & passed & (cross == 0)
-        n_app += int(applied.sum())
-        n_in += int((visited & in_rect).sum())
-        n_out += int((visited & ~in_rect).sum())
-        n_rows += int(visited.any(dim=2).sum())
-        n_warp += warp_rows(applied)
-        n_wvis += warp_rows(visited)
-        n_wrect += warp_rows(visited & in_rect)
-        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc)
-        n_wmask += masked_warp_rows(mask, visited)
-    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
 def out_dir() -> Path:
@@ -729,53 +568,6 @@ def check_surfel(name: str, got, want, C: int) -> dict:
             fail(f"{name}: {k} = {err[k]:.3e} exceeds {lim:.1e} ({err})")
     print(f"# {name}: {err}", file=sys.stderr)
     return err
-
-
-def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
-    """Pixel-surfel pairs that K5's sequential walk visits on these inputs
-    (each pixel's live rows up to and including its first transmittance
-    crossing), as (applied, other past the valid and rect tests, stopped by
-    them, rows, reducing warp rows, warp rows visited, warp rows visited
-    past the valid and rect tests, warp rows of the masked walk): the pairs
-    blended (K5's accumulators and K6's chain run on these alone), the
-    other pairs that reach the pair geometry, the pairs that cost the cheap
-    tests alone, the rows of the tiles' lists that some pixel visits, the
-    `warp_rows` of the applied pairs (K6's row reductions), of the visited
-    pairs and of the visited pairs past the cheap tests, and the visits of
-    K5's masked walk (`masked_warp_rows`; its mask folds the valid flag in)."""
-    import torch
-
-    from lidargs_torch.ops.composite_kernel import warp_row_mask
-    from lidargs_torch.ops.surfel import SurfelCols as S
-    from lidargs_torch.ops.surfel import pair_geometry
-
-    T, K, _ = inst.shape
-    rc, vf = S.rect(C).start, S.validf(C)
-    k = torch.arange(K, device=inst.device)[None, :, None]
-    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
-    for t0 in range(0, T, group):
-        r = inst[t0:t0 + group]
-        col = lambda i: r[:, :, i, None]                            # [g,K,1]
-        dirx, diry, dirz, px, py = (pix[t0:t0 + group, i, None, :] for i in range(5))
-        live = k < counts[t0:t0 + group, None, None]
-        cheap = (live & (col(vf) > 0.0) & (px >= col(rc)) & (px < col(rc + 1))
-                 & (py >= col(rc + 2)) & (py < col(rc + 3)))
-        g = pair_geometry(r, dirx, diry, dirz, px, py, C, cfg)
-        passed = live & g.passed
-        t_incl = torch.cumprod(torch.where(passed, 1.0 - g.alpha, 1.0), dim=1)
-        cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
-        visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
-        applied = visited & passed & (cross == 0)
-        n_app += int(applied.sum())
-        n_in += int((visited & cheap).sum())
-        n_out += int((visited & ~cheap).sum())
-        n_rows += int(visited.any(dim=2).sum())
-        n_warp += warp_rows(applied)
-        n_wvis += warp_rows(visited)
-        n_wrect += warp_rows(visited & cheap)
-        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc, vf)
-        n_wmask += masked_warp_rows(mask, visited)
-    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
 def grad_diff(a: dict, b: dict) -> dict:
@@ -881,8 +673,8 @@ def time_vs_plain(kernel, plain, args) -> tuple:
     version (5 calls) on the same arguments, from CUDA events."""
     import numpy as np
 
-    k_ms = time_ms(lambda: kernel(*args), 50, 5)
-    p_ms = time_ms(lambda: plain(*args), 5, 1)
+    k_ms = event_ms(lambda: kernel(*args), 50, 5)
+    p_ms = event_ms(lambda: plain(*args), 5, 1)
     return float(np.median(k_ms)), float(np.median(p_ms))
 
 
@@ -897,24 +689,6 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, ms: float
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **errors, **visits, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": library_ms}
-
-
-def knn_bound(kernel: str, n_q: int, n_p: int, pairs: int, kk: int = 1) -> dict:
-    """The bound of a nearest-neighbour kernel on `n_q` query rows and `n_p`
-    point rows that compares `pairs` point pairs (the valid ones for N1):
-    each input read once, each output written once (N1: both sets [N, 3]
-    float32 and their bool masks, [n_q] out; N2: both sets, [n_q, kk] out;
-    N3: one set of n_q = n_p points, [n_q] out), against `pairs` times the
-    operations a pair."""
-    if kernel == "N1":
-        n_bytes, ops = 13 * (n_q + n_p) + 4 * n_q, OPS_GRAM_PAIR
-    elif kernel == "N2":
-        n_bytes, ops = 12 * (n_q + n_p) + 4 * n_q * kk, OPS_GRAM_PAIR
-    elif kernel == "N3":
-        n_bytes, ops = 16 * n_q, OPS_DIRECT_PAIR
-    else:
-        raise ValueError(f"unknown kernel {kernel}")
-    return {**bound(n_bytes, ops * pairs), "pairs": pairs, "ops_per_pair": ops}
 
 
 def knn_plan(dev, n_q: int, n_p: int, kk=None, direct: bool = False) -> dict:
@@ -940,10 +714,10 @@ def knn_times(kernel, plain, library=None) -> dict:
     events."""
     import numpy as np
 
-    out = {"ms": float(np.median(time_ms(kernel, KNN_TIMED, 1))),
-           "plain_ms": float(np.median(time_ms(plain, PLAIN_KNN_TIMED, 0)))}
+    out = {"ms": float(np.median(event_ms(kernel, KNN_TIMED, 1))),
+           "plain_ms": float(np.median(event_ms(plain, PLAIN_KNN_TIMED, 0)))}
     out["library_ms"] = (None if library is None
-                         else float(np.median(time_ms(library, PLAIN_KNN_TIMED, 0))))
+                         else float(np.median(event_ms(library, PLAIN_KNN_TIMED, 0))))
     return out
 
 
@@ -973,13 +747,12 @@ def run(dev) -> None:
     from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
     from lidargs_torch.models.field import field_splats, render_field
     from lidargs_torch.ops import composite_kernel as ck
-    from lidargs_torch.ops import front_kernel as fk
     from lidargs_torch.ops.projection import PackedCols as PC
     from lidargs_torch.ops.projection import preprocess_gaussians
     from lidargs_torch.ops.rasterize import cull_sorted_rows, render_tiled, tile_inputs
     from lidargs_torch.ops.reference import render_reference
     from lidargs_torch.train import measure_fps, run_eval
-    from lidargs_torch.utils import cuda_build, profiling
+    from lidargs_torch.utils import cuda_build
     from lidargs_torch.utils.testing import make_scene, sensor_poses, shell_field
 
     card_csv = card()
@@ -1007,10 +780,9 @@ def run(dev) -> None:
     bg = torch.zeros(2, device=dev)
 
     # --- 1. the main path: frames through measure_fps ---
-    with torch.no_grad():
-        ck.launches = fk.launches = 0
+    with torch.no_grad(), counting() as n:
         res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev)
-        k1_launches, f1_launches = ck.launches, fk.launches
+    k1_launches, f1_launches = n["K1"], n["F1"]
     if k1_launches != N_FRAMES or f1_launches != N_FRAMES:
         fail(f"K1 launched {k1_launches} and F1 {f1_launches} times for {N_FRAMES} frames")
     for i, out in enumerate(res.outputs):
@@ -1083,7 +855,7 @@ def run(dev) -> None:
         k1_ms, plain_ms = time_vs_plain(ck.composite_tiles, ck.composite_tiles_plain,
                                         (inst, counts, pix, C, rcfg))
         render = lambda: render_field(params, valid, frames[0], mcfg, rcfg, bg)
-        render_ms = time_ms(render, 30, 3)
+        render_ms = event_ms(render, 30, 3)
         n_app, n_other, n_out, n_rows, _, n_wvis, n_wrect, n_wmask = walked_pairs(
             inst, counts, pix, C, rcfg)
         prof = profiling.profile(render)
@@ -1204,7 +976,6 @@ def f1_phase(dev, f1_launches: int) -> dict:
     from lidargs_torch.ops import front_kernel as fk
     from lidargs_torch.ops.projection import PackedCols as PC
     from lidargs_torch.train import graphs
-    from lidargs_torch.utils import profiling
     from lidargs_torch.utils.testing import front_agreement
     from portbench import run
     from portbench.drive import port_configs, port_frame
@@ -1224,10 +995,10 @@ def f1_phase(dev, f1_launches: int) -> dict:
     agree = []
     with torch.no_grad():
         for i, frame in zip(F1_POSES, frames):
-            fk.launches = 0
-            got = fk.front_packed(params, valid, frame, mcfg, rcfg)
-            if fk.launches != 1:
-                fail(f"phase 36: {fk.launches} F1 launches in one call")
+            with counting() as n:
+                got = fk.front_packed(params, valid, frame, mcfg, rcfg)
+            if n["F1"] != 1:
+                fail(f"phase 36: {n['F1']} F1 launches in one call")
             want = fk.front_packed_plain(params, valid, frame, mcfg, rcfg)
             culled = (valid & ~field_splats(params, valid, frame, mcfg, rcfg)[2])
             numbers = front_agreement(got, want, valid, C, culled.repeat_interleave(k))
@@ -1236,11 +1007,11 @@ def f1_phase(dev, f1_launches: int) -> dict:
             agree.append({"pose": i, **{n: v for n, v in numbers.items() if n != "faults"}})
         f1 = lambda: fk.front_packed(params, valid, frames[0], mcfg, rcfg)
         plain = lambda: fk.front_packed_plain(params, valid, frames[0], mcfg, rcfg)
-        eager_ms = float(np.median(time_ms(f1, F1_TIMED, 5)))
+        eager_ms = float(np.median(event_ms(f1, F1_TIMED, 5)))
         f1_graph = graphs.StaticProgram(f1, lambda o: o, dev).run
         plain_graph = graphs.StaticProgram(plain, lambda o: o, dev).run
-        graph_ms = float(np.median(time_ms(f1_graph, F1_TIMED, 5)))
-        plain_ms = float(np.median(time_ms(plain_graph, 5, 1)))
+        graph_ms = float(np.median(event_ms(f1_graph, F1_TIMED, 5)))
+        plain_ms = float(np.median(event_ms(plain_graph, 5, 1)))
         prof = profiling.profile(f1_graph)
         plain_prof = profiling.profile(plain_graph)
     d_in = params["mlp_opacity"]["l1"]["w"].shape[0]
@@ -1331,7 +1102,6 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     from lidargs_torch.ops.projection import PackedCols
     from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
     from lidargs_torch.train.optim import tree_leaves
-    from lidargs_torch.utils import profiling
 
     C = mcfg.color_channel
     med = lambda xs: float(np.median(xs))
@@ -1343,11 +1113,11 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
 
     # --- 7. the main path: N_STEPS training steps ---
     state, losses = state0, []
-    ck.launches = ck.bwd_launches = 0
-    for it in range(1, N_STEPS + 1):
-        state, m = trainer.step(state, frames[it - 1], it)
-        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
-    k1_launches, k2_launches = ck.launches, ck.bwd_launches
+    with counting() as n:
+        for it in range(1, N_STEPS + 1):
+            state, m = trainer.step(state, frames[it - 1], it)
+            losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    k1_launches, k2_launches = n["K1"], n["K2"]
     if k1_launches != N_STEPS or k2_launches != N_STEPS:
         fail(f"{N_STEPS} steps launched K1 {k1_launches} and K2 {k2_launches} times")
     if not all(np.isfinite(list(l.values())).all() for l in losses):
@@ -1396,7 +1166,7 @@ def train_phases(dev, params, valid, mcfg, rcfg, beams):
     def one_step():
         held[0], _ = trainer.step(held[0], frame, 1)
 
-    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
+    step_ms = event_ms(one_step, TRAIN_TIMED, 3)
     k2_ms, plain_bwd_ms = time_vs_plain(ck.composite_tiles_bwd, ck.composite_tiles_bwd_plain,
                                         bwd_args)
     n_app, n_other, n_out, n_rows, n_warp, *_ = walked_pairs(inst, counts, pix, C, rcfg)
@@ -1459,7 +1229,6 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
                                           render_surfels, surfel_tile_inputs)
     from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps
     from lidargs_torch.train.optim import tree_leaves
-    from lidargs_torch.utils import profiling
     from lidargs_torch.utils.testing import make_scene
 
     C = mcfg.color_channel
@@ -1468,11 +1237,10 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     bg = torch.zeros(2, device=dev)
 
     # --- 10. the main path: frames through measure_fps(variant="surfel") ---
-    with torch.no_grad():
-        sk.launches = 0
+    with torch.no_grad(), counting() as n:
         res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev,
                           variant="surfel")
-        k5_launches = sk.launches
+    k5_launches = n["K5"]
     if k5_launches != N_FRAMES:
         fail(f"K5 launched {k5_launches} times for {N_FRAMES} surfel frames")
     for i, out in enumerate(res.outputs):
@@ -1533,11 +1301,11 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     tframes = train_frames(dev, beams)
     state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
     state, losses = state0, []
-    sk.launches = sk.bwd_launches = 0
-    for it in range(1, N_STEPS + 1):
-        state, m = trainer.step(state, tframes[it - 1], it)
-        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
-    k5_train, k6_launches = sk.launches, sk.bwd_launches
+    with counting() as n:
+        for it in range(1, N_STEPS + 1):
+            state, m = trainer.step(state, tframes[it - 1], it)
+            losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    k5_train, k6_launches = n["K5"], n["K6"]
     if k5_train != N_STEPS or k6_launches != N_STEPS:
         fail(f"{N_STEPS} surfel steps launched K5 {k5_train} and K6 {k6_launches} times")
     if not all(np.isfinite(list(l.values())).all() for l in losses):
@@ -1584,7 +1352,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
         k5_ms, p5_ms = time_vs_plain(sk.surfel_composite_tiles, sk.surfel_composite_tiles_plain,
                                      (inst, counts, pix, C, rcfg))
         render = lambda: render_field_surfel(params, valid, frames[0], mcfg, rcfg, bg)
-        render_ms = time_ms(render, 30, 3)
+        render_ms = event_ms(render, 30, 3)
         prof_r = profiling.profile(render)
         a5, o5, x5, r5, _, v5, vr5, vm5 = walked_surfel_pairs(inst, counts, pix, C, rcfg)
     held = [state]
@@ -1592,7 +1360,7 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     def one_step():
         held[0], _ = trainer.step(held[0], frame, 1)
 
-    step_ms = time_ms(one_step, TRAIN_TIMED, 3)
+    step_ms = event_ms(one_step, TRAIN_TIMED, 3)
     prof_s = profiling.profile(one_step)
     k6_ms, p6_ms = time_vs_plain(sk.surfel_composite_tiles_bwd,
                                  sk.surfel_composite_tiles_bwd_plain, bwd_args)
@@ -1667,7 +1435,6 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     from lidargs_torch.ops.projection import PackedCols
     from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps
     from lidargs_torch.train.optim import tree_leaves
-    from lidargs_torch.utils import profiling
 
     C = mcfg.color_channel
     surfel = variant == "surfel"
@@ -1689,19 +1456,14 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     med = lambda xs: float(np.median(xs))
     k_f, k_b = ("K7", "K8") if surfel else ("K3", "K4")
     k_tf, k_tb = ("K5", "K6") if surfel else ("K1", "K2")
-
-    def counts_now():
-        return (mod.launches, mod.bwd_launches, mod.windows_launches, mod.windows_bwd_launches)
-
-    def zero_counts():
-        mod.launches = mod.bwd_launches = mod.windows_launches = mod.windows_bwd_launches = 0
+    kernels = (k_tf, k_tb, k_f, k_b)
+    cold_ms = lambda fn: med(event_ms(fn, 20, 1, flush=True))
 
     # --- 15/17. the main path: frames through measure_fps, fused ---
-    with torch.no_grad():
-        zero_counts()
+    with torch.no_grad(), counting() as n:
         res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev,
                           variant=variant)
-        render_counts = counts_now()
+    render_counts = [n[k] for k in kernels]
     if render_counts[2] != N_FRAMES or render_counts[0] != 0:
         fail(f"{N_FRAMES} fused {variant} frames launched {k_f} {render_counts[2]} and "
              f"{k_tf} {render_counts[0]} times")
@@ -1758,12 +1520,12 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     tframes = train_frames(dev, beams)
     state0 = init_train_state(AnchorField(params=params, valid=valid, voxel_size=VOXEL), mcfg)
     state, losses = state0, []
-    zero_counts()
-    for it in range(1, N_STEPS + 1):
-        state, m = trainer.step(state, tframes[it - 1], it)
-        losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
-    train_counts = counts_now()
-    if train_counts != (0, 0, N_STEPS, N_STEPS):
+    with counting() as n:
+        for it in range(1, N_STEPS + 1):
+            state, m = trainer.step(state, tframes[it - 1], it)
+            losses.append({f: float(getattr(m.loss, f)) for f in m.loss._fields})
+    train_counts = [n[k] for k in kernels]
+    if train_counts != [0, 0, N_STEPS, N_STEPS]:
         fail(f"{N_STEPS} fused {variant} steps launched {k_tf}, {k_tb}, {k_f}, {k_b} "
              f"{train_counts} times")
     if not all(np.isfinite(list(l.values())).all() for l in losses):
@@ -1815,11 +1577,11 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
     with torch.no_grad():
         f_ms, pf_ms = time_vs_plain(getattr(mod, wins), getattr(mod, wins + "_plain"),
                                     (buf, starts, counts, pix, C, rcfg))
-        t_ms = med(time_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg), 50, 5))
+        t_ms = med(event_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg), 50, 5))
         # the same pair with the L2 cache flushed before each call: the tile
         # list may fit the 50 MB L2 where the windows' stretch of buf does not
-        cold = {k_f: time_cold_ms(lambda: getattr(mod, wins)(buf, starts, counts, pix, C, rcfg)),
-                k_tf: time_cold_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg))}
+        cold = {k_f: cold_ms(lambda: getattr(mod, wins)(buf, starts, counts, pix, C, rcfg)),
+                k_tf: cold_ms(lambda: getattr(mod, tiles)(inst, counts, pix, C, rcfg))}
         render_ms = profiling.time_in_turns(
             {"fused": lambda: render(rcfg), "materialized": lambda: render(mat)}, 30)
         gy, gx = rcfg.grid_shape(H, W)
@@ -1829,10 +1591,10 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
         gid = tr.bin_instances_windows(*bin_args)[0]
         ids = tr.bin_instances(*bin_args)[0].reshape(-1)
         gathers = {
-            "buf_gather_ms": med(time_ms(lambda: F.pad(pkv[gid.clamp(0, V - 1)], (0, 0, 0, K)),
-                                         20, 2)),
-            "inst_gather_ms": med(time_ms(lambda: pkv[ids.clamp(0, V - 1)], 20, 2)),
-            "dbuf_zero_ms": med(time_ms(lambda: torch.zeros_like(buf), 20, 2)),
+            "buf_gather_ms": med(event_ms(lambda: F.pad(pkv[gid.clamp(0, V - 1)], (0, 0, 0, K)),
+                                          20, 2)),
+            "inst_gather_ms": med(event_ms(lambda: pkv[ids.clamp(0, V - 1)], 20, 2)),
+            "dbuf_zero_ms": med(event_ms(lambda: torch.zeros_like(buf), 20, 2)),
             "buf_mb": buf.numel() * 4 / 1e6, "inst_mb": inst.numel() * 4 / 1e6,
         }
         prof_r = profiling.profile(lambda: render(rcfg))
@@ -1840,11 +1602,11 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
                                                         pix, C, rcfg)
     b_ms, pb_ms = time_vs_plain(getattr(mod, wins + "_bwd"), getattr(mod, wins + "_bwd_plain"),
                                 bwd_args)
-    tb_ms = med(time_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res,
-                                                              b_g, C, rcfg), 50, 5))
-    cold[k_b] = time_cold_ms(lambda: getattr(mod, wins + "_bwd")(*bwd_args))
-    cold[k_tb] = time_cold_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix,
-                                                                   b_res, b_g, C, rcfg))
+    tb_ms = med(event_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix, b_res,
+                                                               b_g, C, rcfg), 50, 5))
+    cold[k_b] = cold_ms(lambda: getattr(mod, wins + "_bwd")(*bwd_args))
+    cold[k_tb] = cold_ms(lambda: getattr(mod, tiles + "_bwd")(b_inst, b_counts, b_pix,
+                                                              b_res, b_g, C, rcfg))
     trainer_m = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=mat, bg=bg, variant=variant)
     held = {"fused": [state], "materialized": [state]}
 
@@ -1877,9 +1639,8 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
                warp_rows_reduced=w_b)
     summary = {
         "raster": {**(SURFEL_RASTER if surfel else RASTER), "fused_gather": True},
-        "main_path": main_path, "render_launches": dict(zip((k_tf, k_tb, k_f, k_b),
-                                                            render_counts)),
-        "train_launches": dict(zip((k_tf, k_tb, k_f, k_b), train_counts)),
+        "main_path": main_path, "render_launches": dict(zip(kernels, render_counts)),
+        "train_launches": dict(zip(kernels, train_counts)),
         "buf_rows": b_buf.shape[0], **gathers,
         "render_ms_median": {k: med(v) for k, v in render_ms.items()},
         "render_ms_min_max": {k: [min(v), max(v)] for k, v in render_ms.items()},
@@ -1920,22 +1681,22 @@ def window_phases(dev, params, valid, mcfg, beams, frames, variant: str):
 
 
 @contextlib.contextmanager
-def probe(owner, name: str, counters=(), after=None):
+def probe(owner, name: str, kernels=(), after=None):
     """Wrap `owner.name` while the block runs: each call's host seconds
     (start and duration, `after()` included where it is given, e.g. a device
-    synchronize), its result, and how far each of `counters` (zero-argument
-    functions reading a launch count) moved during it."""
+    synchronize), its result, and the launches of each of `kernels` (short
+    names of `KERNELS`) during it."""
     orig = getattr(owner, name)
     calls = []
 
     def wrapped(*a, **k):
-        before = [c() for c in counters]
-        t0 = time.perf_counter()
-        out = orig(*a, **k)
-        if after is not None:
-            after()
-        calls.append({"start": t0, "s": time.perf_counter() - t0, "result": out,
-                      "launches": [c() - b for c, b in zip(counters, before)]})
+        with counting() as n:
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if after is not None:
+                after()
+            dt = time.perf_counter() - t0
+        calls.append({"start": t0, "s": dt, "result": out, "launches": [n[c] for c in kernels]})
         return out
 
     setattr(owner, name, wrapped)
@@ -1977,30 +1738,28 @@ def knn_oracle(dev, points, direct: bool = False):
     `gram_tol` (the sorted k smallest move by at most the largest error).
     With `direct`, `knn3_mean_sq_dist` (N3, direct differences) within
     DYN_KNN_TOL of the tree's value, timed once without a warm-up run. The
-    launches of that one call are counted (the counter set to 0 just before
-    and read just after). Then the kernel against its plain version on the
-    same points: N2's 3 nearest (`knn_sqdist`) each within `gram_tol` of the
-    tree's neighbour of that rank, N3 bit for bit; two launches bit for bit;
-    the kernel, plain and library times (`knn_times`) and the bound."""
+    launches of that one call are counted. Then the kernel against its plain
+    version on the same points: N2's 3 nearest (`knn_sqdist`) each within
+    `gram_tol` of the tree's neighbour of that rank, N3 bit for bit; two
+    launches bit for bit; the kernel, plain and library times (`knn_times`)
+    and the bound."""
     import numpy as np
     import torch
     from scipy.spatial import cKDTree
 
     from lidargs_torch.ops import knn
-    from lidargs_torch.ops import knn_kernel as nk
 
     fn = knn.knn3_mean_sq_dist if direct else knn.mean_sq_dist_3nn
-    counter = "knn3_launches" if direct else "knn_launches"
     pts = torch.from_numpy(points).to(dev)
     if not direct:
         fn(pts)                                 # warm-up
     torch.cuda.synchronize()
-    setattr(nk, counter, 0)
-    t0 = time.perf_counter()
-    got = fn(pts)
-    torch.cuda.synchronize()
-    knn_ms = (time.perf_counter() - t0) * 1e3
-    launches = getattr(nk, counter)
+    with counting() as n:
+        t0 = time.perf_counter()
+        got = fn(pts)
+        torch.cuda.synchronize()
+        knn_ms = (time.perf_counter() - t0) * 1e3
+    launches = n["N3" if direct else "N2"]
     if launches != 1:
         fail(f"{fn.__name__}: {launches} launches of its kernel in one call")
     got = got.cpu().numpy().astype(np.float64)
@@ -2180,9 +1939,6 @@ def cli_phases(dev):
     from lidargs_torch.data.waymo import WAYMO_TEST_IDX
     from lidargs_torch.lidar.pano import pano_to_lidar
     from lidargs_torch.models.field import voxelize_points
-    from lidargs_torch.ops import composite_kernel as ck
-    from lidargs_torch.ops import knn_kernel as nk
-    from lidargs_torch.ops import surfel_kernel as sk
     from lidargs_torch.train import cli, metrics
     from lidargs_torch.train.trainer import Trainer
 
@@ -2204,17 +1960,13 @@ def cli_phases(dev):
                    "--update_interval", str(half), "--test_iterations", str(CLI_ITERS),
                    "--save_iterations", str(CLI_ITERS), "--checkpoint_iterations", str(half),
                    "--eval_chamfer", "--log_every", str(CLI_LOG_EVERY)]
-    beam_counts = (lambda: ck.launches, lambda: ck.bwd_launches)
 
     # --- 20. the beam variant trains, evaluates, saves and profiles ---
-    n1_count = (lambda: nk.chamfer_launches,)
-    ck.launches = ck.bwd_launches = nk.chamfer_launches = nk.knn_launches = 0
-    with probe(Trainer, "step", beam_counts) as steps, \
+    with counting() as n, probe(Trainer, "step", ("K1", "K2")) as steps, \
             probe(cli, "run_eval") as evals, probe(cli, "measure_fps") as fps, \
-            probe(metrics, "_chamfer_metrics", n1_count) as chamfers:
+            probe(metrics, "_chamfer_metrics", ("N1",)) as chamfers:
         cli.main(argv + ["--dump_renders", "--profile_steps", str(CLI_PROFILE_STEPS)])
-    launches = {"K1": ck.launches, "K2": ck.bwd_launches, "N1": nk.chamfer_launches,
-                "N2": nk.knn_launches}
+    launches = {k: n[k] for k in ("K1", "K2", "N1", "N2")}
     per_step = {tuple(c["launches"]) for c in steps}
     if len(steps) != CLI_ITERS or per_step != {(1, 1)}:
         fail(f"CLI beam run: {len(steps)} steps launching (K1, K2) {per_step} times each")
@@ -2263,16 +2015,15 @@ def cli_phases(dev):
     b0 = torch.as_tensor(beams, dtype=torch.float32, device=dev)
     native_ms = {
         "points": len(init),
-        "voxelize_points_ms": float(np.median(time_ms(
+        "voxelize_points_ms": float(np.median(event_ms(
             lambda: voxelize_points(init_dev, float(CLI_VOXEL)), KNN_TIMED, 1))),
-        "pano_to_lidar_ms": float(np.median(time_ms(
+        "pano_to_lidar_ms": float(np.median(event_ms(
             lambda: pano_to_lidar(r0[5] * r0[3], b0), KNN_TIMED, 1)))}
     print(f"# cli oracle: 3-NN {knn}; voxels {voxels}; chamfer {chamfer}; native "
           f"counterparts {native_ms}", file=sys.stderr)
 
     # --- 22. resume from the checkpoint, then evaluate the snapshot alone ---
-    ck.launches = ck.bwd_launches = 0
-    with probe(Trainer, "step", beam_counts) as steps:
+    with probe(Trainer, "step", ("K1", "K2")) as steps:
         cli.main(argv + ["--start_checkpoint", str(half), "--test_iterations"])
     if len(steps) != CLI_ITERS - half or {tuple(c["launches"]) for c in steps} != {(1, 1)}:
         fail(f"CLI resume: {len(steps)} steps, launches {[c['launches'] for c in steps][:4]}")
@@ -2280,11 +2031,10 @@ def cli_phases(dev):
     if f"resumed from iteration {half}" not in log or f"iter {CLI_ITERS}: densify" not in log:
         fail("CLI resume: no resume or no densify in its log")
     resumed = cli_results(out)
-    nk.chamfer_launches = 0
-    with probe(cli, "run_eval") as evals, \
-            probe(metrics, "_chamfer_metrics", n1_count) as chamfers:
+    with counting() as n, probe(cli, "run_eval") as evals, \
+            probe(metrics, "_chamfer_metrics", ("N1",)) as chamfers:
         cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--eval_chamfer"])
-    eval_n1 = nk.chamfer_launches
+    eval_n1 = n["N1"]
     scored_eo = chamfer_launches("CLI eval-only", chamfers, len(evals), out)
     if scored_eo["N1"] != eval_n1:
         fail(f"CLI eval-only: {eval_n1} N1 launches, {scored_eo} in the chamfer frames")
@@ -2296,12 +2046,11 @@ def cli_phases(dev):
         fail(f"CLI eval-only: no chamfer metrics: {eval_only}")
 
     # --- 23. the surfel variant at its defaults ---
-    sk.launches = sk.bwd_launches = 0
-    with probe(Trainer, "step", (lambda: sk.launches, lambda: sk.bwd_launches)) as s_steps:
+    with counting() as n, probe(Trainer, "step", ("K5", "K6")) as s_steps:
         cli.main(base + ["-m", str(out_s), "--surfel", "--iterations", str(CLI_SURFEL_ITERS),
                          "--test_iterations", "--save_iterations", str(CLI_SURFEL_ITERS),
                          "--log_every", str(CLI_SURFEL_ITERS)])
-    s_launches = {"K5": sk.launches, "K6": sk.bwd_launches}
+    s_launches = {"K5": n["K5"], "K6": n["K6"]}
     per_step = {tuple(c["launches"]) for c in s_steps}
     if len(s_steps) != CLI_SURFEL_ITERS or per_step != {(1, 1)}:
         fail(f"CLI surfel run: {len(s_steps)} steps launching (K5, K6) {per_step} times each")
@@ -2419,10 +2168,8 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
     from torch.utils.flop_counter import FlopCounterMode
 
     from lidargs_torch.models import raydrop
-    from lidargs_torch.ops import composite_kernel as ck
     from lidargs_torch.train import cli
     from lidargs_torch.train import lpips as lp
-    from lidargs_torch.utils import profiling
 
     H, W = CLI_SCENE["H"], CLI_SCENE["W"]
     med = lambda xs: float(np.median(xs))
@@ -2430,11 +2177,11 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
     # --- 24. dump: the refiner's input, one K1 launch per rendered frame ---
     renders = out / "renders"
     shutil.rmtree(renders, ignore_errors=True)
-    ck.launches = 0
-    t0 = time.perf_counter()
-    cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--dump_renders"])
-    dump_s = time.perf_counter() - t0
-    k1 = ck.launches
+    with counting() as n:
+        t0 = time.perf_counter()
+        cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS), "--dump_renders"])
+        dump_s = time.perf_counter() - t0
+    k1 = n["K1"]
     names = sorted(p.name for p in renders.iterdir())
     frames = [n for n in names if n != "dir.npy"]
     n_train = sum(n.startswith("train_") for n in frames)
@@ -2473,7 +2220,7 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
             refine["unet_reproducible"] = unet_reproducible(model, hist, d, dev, *args)
         opt, sched = raydrop.refiner_optimizer(model)
         step = lambda: raydrop.refine_step(model, opt, sched, loss_fn, *args)
-        step_ms = time_ms(step, REFINE_TIMED, 3)
+        step_ms = event_ms(step, REFINE_TIMED, 3)
         prof = profiling.profile(step)
         with FlopCounterMode(display=False) as flops:
             step()
@@ -2484,7 +2231,7 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
             "step_samples": len(step_ms),
             # the products' operations (torch's flop counter), at FP32's peak
             "gflop_per_step": flops.get_total_flops() / 1e9,
-            "flop_bound_ms": flops.get_total_flops() / PEAK_FP32_OPS_PER_S * 1e3,
+            "flop_bound_ms": bound(0, flops.get_total_flops())["bound_ms"],
             "device_ms_per_step": prof.get("device_ms_per_frame"),
             "device_launches_per_step": prof.get("device_launches_per_frame"),
             "runtime_calls_per_step": prof.get("runtime_calls_per_frame"),
@@ -2498,19 +2245,18 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
     lp.save_lpips_params(str(lp_path), lp.random_lpips_params(0))
     evals = {"raydrop_acc_unrefined": unrefined["raydrop_acc"]}
     for arch in ("mlp", "unet"):
-        ck.launches = 0
-        with probe(cli, "run_eval") as runs:
+        with counting() as n, probe(cli, "run_eval") as runs:
             cli.main(base + ["-m", str(out), "--load_iteration", str(CLI_ITERS),
                              "--raydrop_refiner", str(out / f"refiner_{arch}.npz"),
                              "--lpips_weights", str(lp_path)])
-        if ck.launches != 2 * len(frames) + n_test:       # eval, FPS, PNGs
-            fail(f"eval with the {arch} refiner: K1 launched {ck.launches} times")
+        if n["K1"] != 2 * len(frames) + n_test:       # eval, FPS, PNGs
+            fail(f"eval with the {arch} refiner: K1 launched {n['K1']} times")
         res = json.loads((out / "results.json").read_text())
         for split, m in res.items():
             if not all(np.isfinite(m.get(k, np.nan)) for k in (
                     "intensity_lpips", "raydrop_acc", "intensity_psnr", "depth_rmse")):
                 fail(f"eval with the {arch} refiner and LPIPS: {split} {m}")
-        evals[arch] = {"eval_s": runs[-1]["s"], "k1_launches": ck.launches, "test": res["test"],
+        evals[arch] = {"eval_s": runs[-1]["s"], "k1_launches": n["K1"], "test": res["test"],
                        "raydrop_acc_train": res["train"]["raydrop_acc"]}
     fr = np.load(renders / "test_000.npy")
     a, b = np.clip(fr[0], 0.0, 1.0), fr[4] * fr[3]
@@ -2518,7 +2264,7 @@ def refine_phases(dev, base: list, out: Path, n_test: int, unrefined: dict) -> d
     with torch.no_grad():
         net = lp.lpips_net(params, dev)
         ta, tb = on(a), on(b)
-        lpips_ms = time_ms(lambda: lp.lpips_single(net, ta, tb), 10, 2)
+        lpips_ms = event_ms(lambda: lp.lpips_single(net, ta, tb), 10, 2)
         card_v = float(lp.lpips_single(net, ta, tb))
         net_cpu = lp.lpips_net(params, "cpu")
         cpu_v = float(lp.lpips_single(net_cpu, torch.from_numpy(a), torch.from_numpy(b)))
@@ -2661,22 +2407,19 @@ def graph_steps(trainer, state, frames, n: int, dev):
     (a clone of the final state, the losses, the K1/K2/K5/K6 launches)."""
     import torch
 
-    from lidargs_torch.ops import composite_kernel as ck
-    from lidargs_torch.ops import surfel_kernel as sk
     from lidargs_torch.train.trainer import clone_state
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    ck.launches = ck.bwd_launches = sk.launches = sk.bwd_launches = 0
     losses = []
-    for it in range(1, n + 1):
-        state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
-        losses.append(m.loss.total)
-        if it == n // 2:
-            if not trainer.should_densify(int(state.valid.sum()), it):
-                fail(f"phase 34: the densify cadence does not fire at step {it}")
-            state, _ = trainer.densify(state, gen, VOXEL)
-    launches = {"K1": ck.launches, "K2": ck.bwd_launches, "K5": sk.launches,
-                "K6": sk.bwd_launches}
+    with counting() as launched:
+        for it in range(1, n + 1):
+            state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
+            losses.append(m.loss.total)
+            if it == n // 2:
+                if not trainer.should_densify(int(state.valid.sum()), it):
+                    fail(f"phase 34: the densify cadence does not fire at step {it}")
+                state, _ = trainer.densify(state, gen, VOXEL)
+    launches = {k: launched[k] for k in ("K1", "K2", "K5", "K6")}
     return clone_state(state), [float(x) for x in losses], launches
 
 
@@ -2696,7 +2439,6 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
     from lidargs_torch.models.field import AnchorField
     from lidargs_torch.train import Trainer, init_train_state
     from lidargs_torch.train.graphs import RenderGraphs
-    from lidargs_torch.utils import profiling
 
     n = GRAPH_STEPS[name]
     extra = dict(dist_from=0, normal_from=0) if variant == "surfel" else {}
@@ -2750,10 +2492,10 @@ def graph_phase(dev, name: str, params, valid, mcfg, rcfg, frames, variant: str)
         sync_checked(lambda: graphed.render(g.params, g.valid, frames[0]),
                      f"a graphed {name} frame")
         frame_of = lambda tr_: (lambda: tr_.render(g.params, g.valid, frames[0]))
-        ms = {"graph_step": time_ms(step_of(graphed, "g"), GRAPH_TIMED, 3),
-              "eager_step": time_ms(step_of(eager, "e"), GRAPH_TIMED, 3),
-              "graph_frame": time_ms(frame_of(graphed), GRAPH_TIMED, 3),
-              "eager_frame": time_ms(frame_of(eager), GRAPH_TIMED, 3)}
+        ms = {"graph_step": event_ms(step_of(graphed, "g"), GRAPH_TIMED, 3),
+              "eager_step": event_ms(step_of(eager, "e"), GRAPH_TIMED, 3),
+              "graph_frame": event_ms(frame_of(graphed), GRAPH_TIMED, 3),
+              "eager_frame": event_ms(frame_of(eager), GRAPH_TIMED, 3)}
         prof = {"graph_step": profiling.profile(step_of(graphed, "g")),
                 "eager_step": profiling.profile(step_of(eager, "e")),
                 "graph_frame": profiling.profile(frame_of(graphed)),
@@ -2811,7 +2553,7 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
     `Trainer.step` without a live extent, each bit for bit from its own
     clone of one state; no row
     may synchronize in a replay and each row must launch the kernels it
-    reaches, by its launch counters and, on the card, by name in the trace
+    reaches, by the launcher's count and, on the card, by name in the trace
     of its replays."""
     import torch
 
@@ -2832,7 +2574,7 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
     # one in the host code around a replay
     for key, prog in programs.items():
         sync_checked(prog.run, f"phase 35: the {variant} row {key!r}")
-    # the launch counters count at capture what a replay launches; on the
+    # the launcher's count counts at capture what a replay launches; on the
     # card the trace of the replays must name the same kernels
     counted, traced = res["kernel_launches"], res["traced_kernels"]
 
@@ -2892,14 +2634,11 @@ def stage_phases(dev, params, valid, mcfg, beams, graphs: dict, b1: dict, k2: di
     and phase 7's first frame; the beam prefix deltas against
     `utils/roofline.py`'s speed of light at this run's visible count, with
     K1's and K2's bounds (phases 5 and 9) beside the composite, and phase
-    34's graphed frame and step beside the rows that match them. The launch
-    counters are left as they were."""
+    34's graphed frame and step beside the rows that match them."""
     from lidargs_torch.config import RasterConfig
-    from lidargs_torch.train.graphs import read_counters, write_counters
     from lidargs_torch.utils import roofline
 
     t0 = time.perf_counter()
-    counters = read_counters()
     frame = train_frames(dev, beams, 1)[0]
     rcfg = RasterConfig(**RASTER)
     out = {"beam": stage_phase(dev, "beam", params, valid, mcfg, rcfg, frame,
@@ -2918,7 +2657,6 @@ def stage_phases(dev, params, valid, mcfg, beams, graphs: dict, b1: dict, k2: di
     out["phase34"] = {v: {k: graphs[v].get(f"{k}_ms_median") for k in ("graph_frame",
                                                                      "graph_step")}
                       for v in ("beam", "surfel")}
-    write_counters(counters)
     out["seconds"] = time.perf_counter() - t0
     for v in ("beam", "surfel"):
         print(f"# phase 35 {v}: {json.dumps(out[v])}", file=sys.stderr)
@@ -2930,36 +2668,31 @@ def stage_phases(dev, params, valid, mcfg, beams, graphs: dict, b1: dict, k2: di
 # --- phases 27-30: data-parallel and multi-process training, the sharded render ---
 
 def count_plain_launches(setter=setattr) -> None:
-    """Route each kernel wrapper to its plain version, counting a launch as
-    the wrapper does (`setter(module, name, value)` makes each change): the
-    CPU rehearsal of this script (`tests/test_torch_smoke_bounds.py`) and
-    its fleets' ranks on the CPU, where no kernel launches."""
+    """Route each kernel wrapper to its plain version, counting a launch
+    under its kernel's symbol in the launcher's count as `cuda_build.launch`
+    does (`setter(module, name, value)` makes each change): the CPU
+    rehearsal of this script (`tests/test_torch_smoke_bounds.py`) and its
+    fleets' ranks on the CPU, where no kernel launches."""
     from lidargs_torch.ops import composite_kernel as ck
     from lidargs_torch.ops import front_kernel as fk
     from lidargs_torch.ops import knn
-    from lidargs_torch.ops import knn_kernel as nk
     from lidargs_torch.ops import surfel_kernel as sk
+    from lidargs_torch.utils import cuda_build
 
-    # (module, function, module of its counter, counter); the distances
-    # dispatch in `ops/knn.py`, their counters live in `ops/knn_kernel.py`
-    for mod, name, cmod, counter in ((ck, "composite_tiles", ck, "launches"),
-                                     (ck, "composite_tiles_bwd", ck, "bwd_launches"),
-                                     (ck, "composite_windows", ck, "windows_launches"),
-                                     (ck, "composite_windows_bwd", ck, "windows_bwd_launches"),
-                                     (sk, "surfel_composite_tiles", sk, "launches"),
-                                     (sk, "surfel_composite_tiles_bwd", sk, "bwd_launches"),
-                                     (sk, "surfel_composite_windows", sk, "windows_launches"),
-                                     (sk, "surfel_composite_windows_bwd", sk,
-                                      "windows_bwd_launches"),
-                                     (knn, "_chamfer_dir", nk, "chamfer_launches"),
-                                     (knn, "knn_sqdist", nk, "knn_launches"),
-                                     (knn, "knn3_mean_sq_dist", nk, "knn3_launches"),
-                                     (fk, "front_packed", fk, "launches")):
-        def counted(*a, plain=getattr(mod, name + "_plain"), cmod=cmod, counter=counter, **k):
-            setattr(cmod, counter, getattr(cmod, counter) + 1)
+    # (module, function, kernel); the distances dispatch in `ops/knn.py`
+    for mod, name, kernel in ((ck, "composite_tiles", "K1"), (ck, "composite_tiles_bwd", "K2"),
+                              (ck, "composite_windows", "K3"),
+                              (ck, "composite_windows_bwd", "K4"),
+                              (sk, "surfel_composite_tiles", "K5"),
+                              (sk, "surfel_composite_tiles_bwd", "K6"),
+                              (sk, "surfel_composite_windows", "K7"),
+                              (sk, "surfel_composite_windows_bwd", "K8"),
+                              (knn, "_chamfer_dir", "N1"), (knn, "knn_sqdist", "N2"),
+                              (knn, "knn3_mean_sq_dist", "N3"), (fk, "front_packed", "F1")):
+        def counted(*a, plain=getattr(mod, name + "_plain"), symbol=KERNELS[kernel], **k):
+            cuda_build.launches[symbol] += 1
             return plain(*a, **k)
         setter(mod, name, counted)
-        setter(cmod, counter, 0)
 
 
 def sync(dev) -> None:
@@ -3002,12 +2735,12 @@ def dp_graphed(dev):
     return None if dev.type == "cuda" else True
 
 
-def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: bool = True):
+def dp_train(trainer, state, frames, local, steps: int, dev, kernels, densify: bool = True):
     """`steps` data-parallel steps, each on the frames `local` of `frames`
     stacked, then one densify (unless not `densify`): (first step's state,
     final state (both cloned: a graphed step donates its state), densified
     state, densify summary, per-step records: host
-    ms (ending in a synchronize), kernel launches by `counters`, collective
+    ms (ending in a synchronize), the launches of each of `kernels`, collective
     calls and bytes, ms in the collectives, in the host copies and waiting
     (`parallel/collectives.py` `stats`), loss)."""
     import torch
@@ -3019,13 +2752,13 @@ def dp_train(trainer, state, frames, local, steps: int, dev, counters, densify: 
     batch = stack_frames([frames[i] for i in local])
     first, per_step = None, []
     for it in range(1, steps + 1):
-        before = [c() for c in counters]
         collectives.reset_stats()
-        t0 = time.perf_counter()
-        state, m = trainer.step(state, batch, it)
-        sync(dev)
-        per_step.append({"ms": (time.perf_counter() - t0) * 1e3,
-                         "launches": [c() - b for c, b in zip(counters, before)],
+        with counting() as n:
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, batch, it)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        per_step.append({"ms": ms, "launches": [n[k] for k in kernels],
                          "collective_calls": collectives.stats["calls"],
                          "collective_bytes": collectives.stats["bytes"],
                          "collective_ms": collectives.stats["collective_s"] * 1e3,
@@ -3208,12 +2941,11 @@ def dp_rank(cfg: dict, rank_args) -> dict:
                                 graphed=g) for g in (dp_graphed(dev), False))
     frames = train_frames(dev, beams, DP_BATCH)
     local = rt.local_indices(list(range(DP_BATCH)), mesh)
-    counters = (lambda: ck.launches, lambda: ck.bwd_launches)
     collectives.settle = True       # wait apart from the transfer (collectives.py)
     first, final, dense, densify, per_step = dp_train(trainer, state0, frames, local, N_STEPS,
-                                                      dev, counters)
+                                                      dev, ("K1", "K2"))
     _, e_final, e_dense, _, e_steps = dp_train(eager, state0, frames, local, N_STEPS, dev,
-                                               counters)
+                                               ("K1", "K2"))
     # every rank holds the same state, so each finds the same gap; a rerun
     # (hold_to_eager) would call the collectives on one rank alone
     rec.update(local=local, per_step=per_step, densify=densify, eager_per_step=e_steps,
@@ -3234,11 +2966,10 @@ def dp_rank(cfg: dict, rank_args) -> dict:
 
     render = lambda p: render_field_sharded(p, valid, frame0, mcfg, rcfg, bg, tmesh)
     ck.composite_tiles = k1
-    with torch.no_grad():
-        ck.launches = 0
+    with torch.no_grad(), counting() as n:
         out = render(params)
         sync(dev)
-        k1_fwd = ck.launches
+    k1_fwd = n["K1"]
     ck.composite_tiles = run_k1
     ms = []
     with torch.no_grad():
@@ -3250,12 +2981,12 @@ def dp_rank(cfg: dict, rank_args) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
     gather_ms = {k: collectives.stats[k + "_s"] * 1e3 for k in ("collective", "copy", "wait")}
     collectives.settle = False
-    ck.launches = ck.bwd_launches = 0
-    grads = render_grads(render, params)[1]
-    sync(dev)
+    with counting() as n:
+        grads = render_grads(render, params)[1]
+        sync(dev)
     rec["sharded"] = {"k1_launches": k1_fwd, "k1_tiles": tiles, "ms": ms,
                       "collective_ms_per_render": gather_ms,
-                      "grad_k1_launches": ck.launches, "grad_k2_launches": ck.bwd_launches}
+                      "grad_k1_launches": n["K1"], "grad_k2_launches": n["K2"]}
     rate = measure_dp_rate(rt.global_mesh(), mcfg, rcfg, OptConfig(start_stat=10 ** 9), H=H,
                            W=W, n_points=N_ANCHORS, steps=DP_RATE_STEPS, warmup=1,
                            voxel_size=0.5, runtime=rt)
@@ -3274,12 +3005,11 @@ def dp_rank(cfg: dict, rank_args) -> dict:
 def cli_rank(cfg: dict, rank_flags: list) -> dict:
     """Phase 30 on one rank: the training CLI with this rank's flags, each
     `DPTrainer.step` probed for its kernel launches."""
-    from lidargs_torch.ops import composite_kernel as ck
     from lidargs_torch.parallel import DPTrainer
     from lidargs_torch.parallel.runtime import shutdown_runtime
     from lidargs_torch.train import cli
 
-    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches)) as steps:
+    with probe(DPTrainer, "step", ("K1", "K2")) as steps:
         cli.main(cfg["argv"] + rank_flags)
     shutdown_runtime()
     gaps = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
@@ -3296,13 +3026,10 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
     from lidargs_torch.config import OptConfig, RasterConfig
     from lidargs_torch.lidar import stack_frames
     from lidargs_torch.models.field import AnchorField, render_field
-    from lidargs_torch.ops import composite_kernel as ck
-    from lidargs_torch.ops import surfel_kernel as sk
     from lidargs_torch.parallel import DPTrainer, make_mesh
     from lidargs_torch.parallel.runtime import Runtime, RuntimeConfig
     from lidargs_torch.train import Trainer, init_train_state
     from lidargs_torch.train.optim import lr_schedules, tree_leaves
-    from lidargs_torch.utils import profiling
 
     med = lambda xs: float(np.median(xs))
     ocfg = OptConfig(**OPT)
@@ -3311,7 +3038,6 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
     frames = train_frames(dev, beams, DP_BATCH)
     dp, eager = (DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg, mesh=make_mesh(), graphed=g)
                  for g in (dp_graphed(dev), False))
-    counters = (lambda: ck.launches, lambda: ck.bwd_launches)
 
     # --- 27a. DP_BATCH identical frames: one DP step equals one Trainer.step ---
     single, m_s = Trainer(mcfg=mcfg, ocfg=ocfg, rcfg=rcfg, bg=bg).step(state0, frames[0], 1)
@@ -3339,10 +3065,10 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
         fail(f"{DP_BATCH} identical frames against one step: {identical}")
 
     # --- 27b. DP_BATCH distinct frames: N_STEPS steps and one densify ---
-    ck.launches = ck.bwd_launches = 0
-    first, final, dense, densify, per_step = dp_train(dp, state0, frames, range(DP_BATCH),
-                                                      N_STEPS, dev, counters)
-    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    with counting() as n:
+        first, final, dense, densify, per_step = dp_train(dp, state0, frames, range(DP_BATCH),
+                                                          N_STEPS, dev, ("K1", "K2"))
+    launches = {"K1": n["K1"], "K2": n["K2"]}
     if any(s["launches"] != [DP_BATCH, DP_BATCH] for s in per_step):
         fail(f"one-process DP steps launched (K1, K2) {[s['launches'] for s in per_step]}")
     if not np.isfinite([s["loss"] for s in per_step]).all():
@@ -3358,7 +3084,7 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
     # --- 27d. graphed against eager: the same steps and densify, then steps
     # without the statistics from the densified state ---
     e_first, e_final, e_dense, e_densify, e_steps = dp_train(
-        eager, state0, frames, range(DP_BATCH), N_STEPS, dev, counters)
+        eager, state0, frames, range(DP_BATCH), N_STEPS, dev, ("K1", "K2"))
     batch = stack_frames(frames)
     g_nostats, g_losses = dp_nostats(dp, dense, batch)
     e_nostats, e_losses = dp_nostats(eager, e_dense, batch)
@@ -3367,7 +3093,8 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
                          and g_losses == e_losses),
         "densify_equal": densify == e_densify,
         "final": hold_to_eager("phase 27: the graphed DP step", final, e_final, lambda: dp_train(
-            eager, state0, frames, range(DP_BATCH), N_STEPS, dev, counters, densify=False)[1]),
+            eager, state0, frames, range(DP_BATCH), N_STEPS, dev, ("K1", "K2"),
+            densify=False)[1]),
         "nostats_after_densify": hold_to_eager(
             "phase 27: the graphed DP step without statistics", g_nostats, e_nostats,
             lambda: dp_nostats(eager, e_dense, batch)[0]),
@@ -3383,8 +3110,8 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
         return one_step
 
     sync_checked(step_of(dp, "g"), "a graphed one-process DP step")
-    ms = {"graph_step": time_ms(step_of(dp, "g"), TRAIN_TIMED, 3),
-          "eager_step": time_ms(step_of(eager, "e"), TRAIN_TIMED, 3)}
+    ms = {"graph_step": event_ms(step_of(dp, "g"), TRAIN_TIMED, 3),
+          "eager_step": event_ms(step_of(eager, "e"), TRAIN_TIMED, 3)}
     prof = {k: profiling.profile(step_of(tr_, k[0]))
             for k, tr_ in (("graph_step", dp), ("eager_step", eager))}
     # the pool: this trainer's (both statistics modes), then one mode's at
@@ -3399,15 +3126,15 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
     srcfg = RasterConfig(**SURFEL_RASTER)
     sdp, sdp_e = (DPTrainer(mcfg=mcfg, ocfg=ocfg, rcfg=srcfg, bg=bg, mesh=make_mesh(),
                             variant="surfel", graphed=g) for g in (dp_graphed(dev), False))
-    s_counters = (lambda: sk.launches, lambda: sk.bwd_launches)
-    sk.launches = sk.bwd_launches = 0
-    _, s_final, _, _, s_steps = dp_train(sdp, state0, frames, range(DP_BATCH), SURFEL_DP_STEPS,
-                                         dev, s_counters, densify=False)
+    s_kernels = ("K5", "K6")
+    with counting() as n:
+        _, s_final, _, _, s_steps = dp_train(sdp, state0, frames, range(DP_BATCH),
+                                             SURFEL_DP_STEPS, dev, s_kernels, densify=False)
     if any(s["launches"] != [DP_BATCH, DP_BATCH] for s in s_steps):
         fail(f"surfel DP steps launched (K5, K6) {[s['launches'] for s in s_steps]}")
-    s_launches = {"K5": sk.launches, "K6": sk.bwd_launches}
+    s_launches = {"K5": n["K5"], "K6": n["K6"]}
     _, se_final, _, _, se_steps = dp_train(sdp_e, state0, frames, range(DP_BATCH),
-                                           SURFEL_DP_STEPS, dev, s_counters, densify=False)
+                                           SURFEL_DP_STEPS, dev, s_kernels, densify=False)
     sg_nostats, sg_losses = dp_nostats(sdp, s_final, batch)
     se_nostats, se_losses = dp_nostats(sdp_e, se_final, batch)
     s_held = {"g": s_final, "e": s_final}
@@ -3417,8 +3144,8 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
             s_held[key] = tr_.step(s_held[key], batch, 1)[0]
         return one_step
 
-    s_ms = {"graph_step": time_ms(s_step_of(sdp, "g"), TRAIN_TIMED, 3),
-            "eager_step": time_ms(s_step_of(sdp_e, "e"), TRAIN_TIMED, 3)}
+    s_ms = {"graph_step": event_ms(s_step_of(sdp, "g"), TRAIN_TIMED, 3),
+            "eager_step": event_ms(s_step_of(sdp_e, "e"), TRAIN_TIMED, 3)}
     surfel = {
         "steps": SURFEL_DP_STEPS, "launches": s_launches,
         "losses": [s["loss"] for s in s_steps], "host_ms": [s["ms"] for s in s_steps],
@@ -3426,7 +3153,7 @@ def dp_phases(dev, params, valid, mcfg, rcfg, beams, frame0, train: dict):
                          and sg_losses == se_losses),
         "final": hold_to_eager("phase 27: the graphed surfel DP step", s_final, se_final,
                                lambda: dp_train(sdp_e, state0, frames, range(DP_BATCH),
-                                                SURFEL_DP_STEPS, dev, s_counters,
+                                                SURFEL_DP_STEPS, dev, s_kernels,
                                                 densify=False)[1]),
         "nostats": hold_to_eager("phase 27: the graphed surfel DP step without statistics",
                                  sg_nostats, se_nostats,
@@ -3580,17 +3307,14 @@ def cli_dp_phase(dev, base: list, work: Path) -> dict:
     import torch
 
     from lidargs_torch.data.scene import Scene
-    from lidargs_torch.ops import composite_kernel as ck
     from lidargs_torch.parallel import DPTrainer
     from lidargs_torch.train import cli
 
     one, fleet_out = work / "dp_one", work / "dp_fleet"
     common = ["--iterations", str(CLI_DP_ITERS), "--log_every", str(CLI_DP_ITERS)]
-    ck.launches = ck.bwd_launches = 0
     # each step ends in a synchronize: 6 steps would not fill the launch
     # queue, and the gaps would time the enqueue
-    with probe(DPTrainer, "step", (lambda: ck.launches, lambda: ck.bwd_launches),
-               after=lambda: sync(dev)) as steps:
+    with probe(DPTrainer, "step", ("K1", "K2"), after=lambda: sync(dev)) as steps:
         cli.main(base + ["-m", str(one), *common, "--data_parallel", "1", "--dp_batch",
                          str(DP_BATCH), "--test_iterations", "--save_iterations",
                          str(CLI_DP_ITERS)])
@@ -3748,7 +3472,6 @@ def train_subscene(dev, name: str, md) -> dict:
     from lidargs_torch.ops import composite_kernel as ck
     from lidargs_torch.ops.rasterize import cull_sorted_rows, tile_inputs
     from lidargs_torch.train import Trainer, init_train_state, loss_and_grads
-    from lidargs_torch.utils import profiling
 
     mcfg = ModelConfig(**{**MODEL, "anchor_capacity": DYN_CAPACITY[name]})
     rcfg = RasterConfig(**RASTER)
@@ -3769,20 +3492,20 @@ def train_subscene(dev, name: str, md) -> dict:
     # --- 32. the masked steps, a densify at half ---
     frames = md.train_frames
     losses, densify = [], None
-    ck.launches = ck.bwd_launches = 0
-    for it in range(1, DYN_STEPS + 1):
-        state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
-        losses.append(m.loss.total)
-        if it == DYN_STEPS // 2:
-            if not trainer.should_densify(int(state.valid.sum()), it):
-                fail(f"dynamic {name}: the densify cadence does not fire at step {it}")
-            n_before = int(state.valid.sum())
-            state, dstats = trainer.densify(state, torch.Generator(device=dev).manual_seed(0),
-                                            DYN_VOXEL[name])
-            densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
-                       "n_pruned": int(dstats.n_pruned),
-                       "n_anchors_after": int(state.valid.sum())}
-    launches = {"K1": ck.launches, "K2": ck.bwd_launches}
+    with counting() as n:
+        for it in range(1, DYN_STEPS + 1):
+            state, m = trainer.step(state, frames[(it - 1) % len(frames)], it)
+            losses.append(m.loss.total)
+            if it == DYN_STEPS // 2:
+                if not trainer.should_densify(int(state.valid.sum()), it):
+                    fail(f"dynamic {name}: the densify cadence does not fire at step {it}")
+                n_before = int(state.valid.sum())
+                state, dstats = trainer.densify(
+                    state, torch.Generator(device=dev).manual_seed(0), DYN_VOXEL[name])
+                densify = {"n_anchors_before": n_before, "n_grown": int(dstats.n_grown),
+                           "n_pruned": int(dstats.n_pruned),
+                           "n_anchors_after": int(state.valid.sum())}
+    launches = {"K1": n["K1"], "K2": n["K2"]}
     if launches != {"K1": DYN_STEPS, "K2": DYN_STEPS}:
         fail(f"dynamic {name}: {DYN_STEPS} steps launched {launches}")
     losses = torch.stack(losses).cpu().numpy()
@@ -3795,7 +3518,7 @@ def train_subscene(dev, name: str, md) -> dict:
     def one_step():
         held[0], _ = trainer.step(held[0], frame, DYN_STEPS + 1)
 
-    step_ms = time_ms(one_step, DYN_TIMED, 2)
+    step_ms = event_ms(one_step, DYN_TIMED, 2)
     prof = profiling.profile(one_step)
 
     # --- one masked step's K1 and K2 against the plain versions ---
@@ -3811,13 +3534,12 @@ def train_subscene(dev, name: str, md) -> dict:
                                ck.composite_tiles_plain(inst, counts, pix, C, rcfg), C)
 
     # --- 33. the test frames, one K1 launch each ---
-    ck.launches = 0
-    with torch.no_grad():
+    with torch.no_grad(), counting() as n:
         after = [masked_metrics(trainer.render(state.params, state.valid, f), f)
                  for f in md.test_frames]
-    launches["K1_test"] = ck.launches
-    if ck.launches != len(md.test_frames):
-        fail(f"dynamic {name}: {len(md.test_frames)} test renders launched K1 {ck.launches}")
+    launches["K1_test"] = n["K1"]
+    if n["K1"] != len(md.test_frames):
+        fail(f"dynamic {name}: {len(md.test_frames)} test renders launched K1 {n['K1']}")
     for a in after:
         if not (np.isfinite(a["depth_l1"]) and a["pixels"] > 0):
             fail(f"dynamic {name}: test frame metrics {after}")

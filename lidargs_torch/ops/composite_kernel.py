@@ -55,13 +55,6 @@ MAX_NPIX = 1024          # one thread per pixel; a backward kernel's block holds
 FWD_CHUNK = 64           # rows a shared-memory stage of the forward kernels holds
 FWD_SMEM = 48 * 1024     # bytes of shared memory a block gets without opting in
 
-# Launches of the CUDA kernels since the last reset (plain counts; the CPU
-# path does not add to them): K1, K2, K3 and K4.
-launches = 0
-bwd_launches = 0
-windows_launches = 0
-windows_bwd_launches = 0
-
 # the launch functions' arguments between the tensor pointers and the
 # stream: T, K, F, NPIX, C, alpha_min, alpha_clamp, transmittance_min
 _ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 3
@@ -244,7 +237,6 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
                     C: int, cfg: RasterConfig) -> torch.Tensor:
     """[T, K, F] instances + [T] counts + [T, 8, NPIX] pixel blocks ->
     [T, 8, NPIX]: K1 on a CUDA tensor, the plain version on a CPU tensor."""
-    global launches
     if inst.device.type == "cpu":
         return composite_tiles_plain(inst, counts, pix, C, cfg)
     if inst.device.type != "cuda":
@@ -258,7 +250,6 @@ def composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Tensor,
         return out
     cuda_build.launch("composite_fwd", "lidargs_composite_fwd", _ARGS, (inst, counts, pix, out),
                       (T, K, Fw, npix, C, *_consts(cfg)))
-    launches += 1
     return out
 
 
@@ -363,7 +354,6 @@ def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Ten
     [T, 8, NPIX] pixel blocks, the forward's output `res` and the output
     cotangent `g` (both [T, 8, NPIX]) -> dinst [T, K, F]. K2 on a CUDA
     tensor, the plain version on a CPU tensor."""
-    global bwd_launches
     if inst.device.type == "cpu":
         return composite_tiles_bwd_plain(inst, counts, pix, res, g, C, cfg)
     if inst.device.type != "cuda":
@@ -377,7 +367,6 @@ def composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: torch.Ten
         return dinst
     cuda_build.launch("composite_bwd", "lidargs_composite_bwd", _ARGS,
                       (inst, counts, pix, res, g, dinst), (T, K, Fw, npix, C, *_consts(cfg)))
-    bwd_launches += 1
     return dinst
 
 
@@ -412,7 +401,6 @@ def composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Ten
                       pix: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
     """[E, F] buffer + [T] starts and counts + [T, 8, NPIX] pixel blocks ->
     [T, 8, NPIX]: K3 on a CUDA tensor, the plain version on a CPU tensor."""
-    global windows_launches
     if buf.device.type == "cpu":
         return composite_windows_plain(buf, starts, counts, pix, C, cfg)
     if buf.device.type != "cuda":
@@ -426,7 +414,6 @@ def composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: torch.Ten
         return out
     cuda_build.launch("composite_fwd", "lidargs_composite_fwd_windows", _ARGS,
                       (buf, starts, counts, pix, out), (T, K, buf.shape[1], npix, C, *_consts(cfg)))
-    windows_launches += 1
     return out
 
 
@@ -447,7 +434,6 @@ def composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor, counts: torch
     """The VJP of `composite_windows`: -> dbuf [E, F], the gradient of each
     tile's rows at those rows and zero on every other row. K4 on a CUDA
     tensor (into a zeroed dbuf), the plain version on a CPU tensor."""
-    global windows_bwd_launches
     if buf.device.type == "cpu":
         return composite_windows_bwd_plain(buf, starts, counts, pix, res, g, C, cfg)
     if buf.device.type != "cuda":
@@ -462,7 +448,6 @@ def composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor, counts: torch
     cuda_build.launch("composite_bwd", "lidargs_composite_bwd_windows", _ARGS,
                       (buf, starts, counts, pix, res, g, dbuf),
                       (T, K, buf.shape[1], npix, C, *_consts(cfg)))
-    windows_bwd_launches += 1
     return dbuf
 
 

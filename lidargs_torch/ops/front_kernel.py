@@ -13,8 +13,8 @@ F1 computes no gradient: it serves the forward frame alone
 heads that share one input (`heads_fusable`) of HIDDEN units each, at most
 MAX_CHANNELS channels, no feature bank and no visible-anchor cap. The frame
 takes the packed path for those layouts alone, on the CPU too, so that the
-CPU tests hold the choice the card makes. `launches` counts F1's launches
-(a graph replay adds its captured ones, `train/graphs.py`).
+CPU tests hold the choice the card makes. F1's launches are counted under
+its symbol, `lidargs_front_fwd`, in `utils/cuda_build.py` `launches`.
 
 Layout:
   pk      [P, F] f32  packed rows (PackedCols), P = B * k, row a * k + j the
@@ -48,8 +48,6 @@ FRAME_INPUTS = ("w2s_rot", "w2s_trans", "center", "beams")
 # stream: B, k, fd, d_in, C, H, W, bx, by, then near, far, lowpass, margin,
 # col_pitch, inv_col, inv_bx, inv_by, sentinel
 _ARGS = [ctypes.c_int] * 9 + [ctypes.c_float] * 9
-
-launches = 0                # F1's launches
 
 
 def front_packed_plain(params: dict, valid: torch.Tensor, frame: LidarFrame,
@@ -160,7 +158,6 @@ def front_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
     """The forward beam front on the anchor rows of `params` / `valid`:
     (pk [P, F], depth [P], valid [P], n_valid). F1 on a CUDA tensor, the
     plain version on a CPU tensor."""
-    global launches
     if valid.device.type == "cpu":
         return front_packed_plain(params, valid, frame, mcfg, rcfg)
     if valid.device.type != "cuda":
@@ -186,5 +183,4 @@ def front_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
                _f32(np.float32(1.0) / np.float32(pitch)), _f32(np.float32(1.0) / np.float32(bx)),
                _f32(np.float32(1.0) / np.float32(by)), 4.0 * rcfg.far)
     cuda_build.launch("front_fwd", "lidargs_front_fwd", _ARGS, tensors, scalars)
-    launches += 1
     return pk, depth, vout, n_valid

@@ -13,10 +13,9 @@ contiguity and raises before the launch, computes the norms the kernel
 reads exactly as the plain version in `ops/knn.py` does, allocates the
 output with `torch.empty`, launches on PyTorch's current stream (no
 synchronization), raises on the launch's `cudaError_t` (a refused cluster
-launch too: nothing runs in its place), and adds one to its count.
-`ops/knn.py`'s public functions call them for a CUDA tensor and run the
-plain versions for a CPU tensor. The library is built with nvcc at the
-first launch (`utils/cuda_build.py`).
+launch too: nothing runs in its place). `ops/knn.py`'s public functions
+call them for a CUDA tensor and run the plain versions for a CPU tensor.
+The library is built with nvcc at the first launch (`utils/cuda_build.py`).
 
 All three take the point set packed (`pack_points`: (-2 p, |p|^2) rows for
 N1 and N2, (p, 0) rows for N3) and a launch plan (`launch_plan`): R query
@@ -42,12 +41,6 @@ GROUP = 8                 # packed rows a thread takes at once; a slice holds wh
 STAGE_ROWS = 256          # packed rows a shared-memory stage (csrc/knn.cu kStageRows)
 MAX_CLUSTER = 8           # blocks a cluster of N1: the portable cluster size
 TOPK_MAX_CLUSTER = 2      # of N2 and N3: each slice warms its k-lists up from +inf
-
-# Launches of the CUDA kernels since the last reset (plain counts; the CPU
-# path does not add to them): N1, N2 and N3.
-chamfer_launches = 0
-knn_launches = 0
-knn3_launches = 0
 
 
 def _on_card(name: str, x: torch.Tensor) -> None:
@@ -220,7 +213,6 @@ def chamfer_dir(a: torch.Tensor, a_valid: torch.Tensor, b: torch.Tensor,
                 b_valid: torch.Tensor) -> torch.Tensor:
     """N1: [Na] squared distance from each valid row of `a` to its nearest
     valid row of `b` (0 where a_i is invalid, +inf where no b_j is)."""
-    global chamfer_launches
     _on_card("chamfer_dir", a)
     check_points(a=a, b=b)
     check_masks(a, a_valid, "a_valid")
@@ -229,14 +221,12 @@ def chamfer_dir(a: torch.Tensor, a_valid: torch.Tensor, b: torch.Tensor,
     if a.shape[0] == 0:
         return out
     _launch_gram("lidargs_knn_chamfer", (a, (a * a).sum(-1), a_valid), b, out, valid=b_valid)
-    chamfer_launches += 1
     return out
 
 
 def knn_sqdist(q: torch.Tensor, p: torch.Tensor, kk: int) -> torch.Tensor:
     """N2: [Nq, kk] the kk smallest squared distances from each query row to
     the rows of `p` (the query itself included where it is one), ascending."""
-    global knn_launches
     _on_card("knn_sqdist", q)
     check_points(queries=q, points=p)
     check_k(kk, p.shape[0])
@@ -244,14 +234,12 @@ def knn_sqdist(q: torch.Tensor, p: torch.Tensor, kk: int) -> torch.Tensor:
     if q.shape[0] == 0:
         return out
     _launch_gram("lidargs_knn_gram_topk", (q, (q * q).sum(-1)), p, out, kk)
-    knn_launches += 1
     return out
 
 
 def knn3_mean_sq_dist(p: torch.Tensor) -> torch.Tensor:
     """N3: [N] each point's mean squared distance to its 3 nearest others,
     by direct differences (0 for N <= 1)."""
-    global knn3_launches
     _on_card("knn3_mean_sq_dist", p)
     check_points(points=p)
     n = p.shape[0]
@@ -262,5 +250,4 @@ def knn3_mean_sq_dist(p: torch.Tensor) -> torch.Tensor:
     packed = pack_points(p, plan, direct=True)
     cuda_build.launch("knn", "lidargs_knn3_direct", [ctypes.c_int] * 5, (p, packed, out),
                       (n, plan.slice_rows, plan.rows_per_thread, plan.row_blocks, plan.cluster))
-    knn3_launches += 1
     return out

@@ -45,13 +45,6 @@ from .surfel import pair_geometry, surfel_composite
 
 OUT_ROWS = 16
 
-# Launches of the CUDA kernels since the last reset (plain counts; the CPU
-# path does not add to them): K5, K6, K7 and K8.
-launches = 0
-bwd_launches = 0
-windows_launches = 0
-windows_bwd_launches = 0
-
 # the launch functions' arguments between the tensor pointers and the
 # stream: T, K, F, NPIX, C and the eight constants of `_consts`
 _ARGS = [ctypes.c_int] * 5 + [ctypes.c_float] * 8
@@ -90,7 +83,6 @@ def surfel_composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.
                            C: int, cfg: RasterConfig) -> torch.Tensor:
     """[T, K, F] surfels + [T] counts + [T, 8, NPIX] pixel blocks ->
     [T, 16, NPIX]: K5 on a CUDA tensor, the plain version on a CPU tensor."""
-    global launches
     if inst.device.type == "cpu":
         return surfel_composite_tiles_plain(inst, counts, pix, C, cfg)
     if inst.device.type != "cuda":
@@ -104,7 +96,6 @@ def surfel_composite_tiles(inst: torch.Tensor, counts: torch.Tensor, pix: torch.
         return out
     cuda_build.launch("surfel_fwd", "lidargs_surfel_fwd", _ARGS, (inst, counts, pix, out),
                       (T, K, Fw, npix, C, *_consts(cfg)))
-    launches += 1
     return out
 
 
@@ -248,7 +239,6 @@ def surfel_composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: to
     [T, 8, NPIX] pixel blocks, the forward's output `res` and the output
     cotangent `g` (both [T, 16, NPIX]) -> dinst [T, K, F]. K6 on a CUDA
     tensor, the plain version on a CPU tensor."""
-    global bwd_launches
     if inst.device.type == "cpu":
         return surfel_composite_tiles_bwd_plain(inst, counts, pix, res, g, C, cfg)
     if inst.device.type != "cuda":
@@ -262,7 +252,6 @@ def surfel_composite_tiles_bwd(inst: torch.Tensor, counts: torch.Tensor, pix: to
         return dinst
     cuda_build.launch("surfel_bwd", "lidargs_surfel_bwd", _ARGS,
                       (inst, counts, pix, res, g, dinst), (T, K, Fw, npix, C, *_consts(cfg)))
-    bwd_launches += 1
     return dinst
 
 
@@ -299,7 +288,6 @@ def surfel_composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: to
                              pix: torch.Tensor, C: int, cfg: RasterConfig) -> torch.Tensor:
     """[E, F] buffer + [T] starts and counts + [T, 8, NPIX] pixel blocks ->
     [T, 16, NPIX]: K7 on a CUDA tensor, the plain version on a CPU tensor."""
-    global windows_launches
     if buf.device.type == "cpu":
         return surfel_composite_windows_plain(buf, starts, counts, pix, C, cfg)
     if buf.device.type != "cuda":
@@ -313,7 +301,6 @@ def surfel_composite_windows(buf: torch.Tensor, starts: torch.Tensor, counts: to
         return out
     cuda_build.launch("surfel_fwd", "lidargs_surfel_fwd_windows", _ARGS,
                       (buf, starts, counts, pix, out), (T, K, buf.shape[1], npix, C, *_consts(cfg)))
-    windows_launches += 1
     return out
 
 
@@ -335,7 +322,6 @@ def surfel_composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor,
     """The VJP of `surfel_composite_windows`: -> dbuf [E, F], the gradient of
     each tile's rows at those rows and zero on every other row. K8 on a CUDA
     tensor (into a zeroed dbuf), the plain version on a CPU tensor."""
-    global windows_bwd_launches
     if buf.device.type == "cpu":
         return surfel_composite_windows_bwd_plain(buf, starts, counts, pix, res, g, C, cfg)
     if buf.device.type != "cuda":
@@ -350,7 +336,6 @@ def surfel_composite_windows_bwd(buf: torch.Tensor, starts: torch.Tensor,
     cuda_build.launch("surfel_bwd", "lidargs_surfel_bwd_windows", _ARGS,
                       (buf, starts, counts, pix, res, g, dbuf),
                       (T, K, buf.shape[1], npix, C, *_consts(cfg)))
-    windows_bwd_launches += 1
     return dbuf
 
 

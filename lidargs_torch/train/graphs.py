@@ -23,12 +23,12 @@ earlier graph's intermediates used, so a graph's outputs are valid only
 until another graph of the pool replays: every caller here clones them
 right after the replay (`clone_outputs`).
 
-The kernels' launch counters (`ops/composite_kernel.py`,
-`ops/surfel_kernel.py`, `ops/front_kernel.py`) move when a wrapper runs,
-which in a graph is at capture only. A program records the counters'
-change over its capture and adds it at every replay, so each run counts
-the launches it replays. The warm-up's launches are the capture's cost, as a compile is JAX's, and are
-not counted.
+The launcher's count of the kernels' launches (`utils/cuda_build.py`
+`launches`) moves when a wrapper launches, which in a graph is at capture
+only. A program keeps the count's change over its capture and adds it at
+every replay, so each run counts the launches it replays. The warm-up's
+launches are the capture's cost, as a compile is JAX's, and are not
+counted; a capture that fails leaves the count as it found it.
 
 `RenderGraphs` is the forward render as such programs: one per (params,
 valid) identity, pixel-mask key and live extent, with static frame buffers
@@ -63,6 +63,7 @@ card, and each eager frame rendered with it on a card, is counted
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Callable, Optional
 
@@ -71,31 +72,14 @@ import torch
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..models.field import anchor_rows, frame_render, render_fn, render_frame_packed
-from ..ops import composite_kernel, front_kernel, surfel_kernel
+from ..utils import cuda_build
 from ..utils.profiling import telemetry
 from .optim import tree_leaves
 
 WARMUP = 2                     # eager warm-up runs before a capture
-COUNTERS = ("launches", "bwd_launches", "windows_launches", "windows_bwd_launches")
-# each module with launch counters, and its counters
-_COUNTED = ((composite_kernel, COUNTERS), (surfel_kernel, COUNTERS),
-            (front_kernel, ("launches",)))
 FRAME_FIELDS = ("w2s_rot", "w2s_trans", "center", "beams", "gt_image", "uid", "pixel_mask")
 QUANTA = 16                    # the live extent moves in steps of a sixteenth of the capacity
 DROP_P = 0.5                   # a pixel whose ray-drop probability exceeds this is dropped
-
-
-def read_counters() -> tuple:
-    """The kernel launch counters of both composite modules, then F1's."""
-    return tuple(getattr(m, n) for m, names in _COUNTED for n in names)
-
-
-def write_counters(values) -> None:
-    """Set the launch counters, in `read_counters`' order."""
-    it = iter(values)
-    for m, names in _COUNTED:
-        for n in names:
-            setattr(m, n, next(it))
 
 
 def use_graphs(graphed: Optional[bool], device: torch.device) -> bool:
@@ -152,14 +136,14 @@ class StaticProgram:
         self.compute, self.commit = compute, commit
         self.graph = None
         self.outputs = None
-        self.delta = (0,) * len(read_counters())
+        self.delta = collections.Counter()      # the launches a replay counts
         with telemetry.span("capture"):
             if device.type == "cuda":
                 self._capture(device, pool)
         telemetry.captures += 1
 
     def _capture(self, device: torch.device, pool) -> None:
-        before = read_counters()
+        before = cuda_build.launches.copy()
         try:
             ambient = torch.cuda.current_stream(device)
             side = warmup_stream(device)
@@ -172,21 +156,22 @@ class StaticProgram:
             finally:
                 telemetry.warming = False
             ambient.wait_stream(side)
-            start = read_counters()
+            start = cuda_build.launches.copy()
             graph = torch.cuda.CUDAGraph()
             with (torch.cuda.device(device), cudnn_heuristics(),
                   torch.cuda.graph(graph, pool=pool)):
                 self.outputs = self.commit(self.compute())
-            self.delta = tuple(b - a for a, b in zip(start, read_counters()))
+            self.delta = cuda_build.launches - start
         finally:
-            write_counters(before)
+            cuda_build.launches.clear()
+            cuda_build.launches.update(before)
         self.graph = graph
 
     def run(self):
         if self.graph is None:
             return self.commit(self.compute())
         self.graph.replay()
-        write_counters(a + d for a, d in zip(read_counters(), self.delta))
+        cuda_build.launches.update(self.delta)
         return self.outputs
 
 

@@ -7,9 +7,15 @@ source is rebuilt and an unchanged one is loaded as it is. Nothing is built
 at import: the first CUDA call of a kernel's wrapper builds it, and
 `build()` builds several at once, one nvcc process per source, all started
 together.
+
+`launches` counts every launch that `launch` made, under its symbol: the
+one record of the port's kernel launches. A CUDA graph counts at capture
+only; `train/graphs.py` `StaticProgram` adds its capture's count at each
+replay.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -30,6 +36,7 @@ NVCC_FLAGS = [
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _entries: dict = {}
+launches: collections.Counter = collections.Counter()     # symbol -> launches made
 
 
 def _nvcc() -> str:
@@ -112,9 +119,10 @@ def entry(name: str, symbol: str, argtypes: list):
 def launch(name: str, symbol: str, scalar_types: list, tensors, scalars) -> None:
     """Launch `symbol` of `csrc/<name>.cu` on the current stream of the
     first tensor's device, with the tensors' data pointers, then `scalars`
-    (declared as `scalar_types`), then the stream. Raises if the launch
-    returns an error (a refused launch never runs, and a later synchronize
-    would not report it)."""
+    (declared as `scalar_types`), then the stream, and count it in
+    `launches`. Raises, counting nothing, if the launch returns an error (a
+    refused launch never runs, and a later synchronize would not report
+    it)."""
     fn, err_str = entry(name, symbol, [ctypes.c_void_p] * len(tensors) + scalar_types
                         + [ctypes.c_void_p])
     dev = tensors[0].device
@@ -123,3 +131,4 @@ def launch(name: str, symbol: str, scalar_types: list, tensors, scalars) -> None
         err = fn(*(t.data_ptr() for t in tensors), *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: {err_str(err).decode()}")
+    launches[symbol] += 1

@@ -89,21 +89,6 @@ _PLAIN_RESOURCES = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stac
                               r"Used (\d+) registers")
 
 
-def _time_ms(fn, iters: int, warmup: int) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    ev[0].record()
-    for i in range(iters):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]))
-
-
 def _bind(lib: Path, signature: tuple):
     """The launch function `signature` = (name, tensor pointers, ints, float
     constants) of `lib`, with its arguments declared (the stream last)."""
@@ -441,7 +426,7 @@ def _composite_calls(libs: dict, dev, stream, keep: list) -> tuple[dict, dict, d
 def main(argv) -> None:
     import torch
 
-    from . import cuda_build
+    from . import cuda_build, profiling
 
     labelled = [a for a in argv[1:] if "=" in a]
     sources = [a for a in argv[1:] if "=" not in a]
@@ -486,7 +471,8 @@ def main(argv) -> None:
     for turn in range(TURNS):
         for lab, name in (order if turn % 2 == 0 else order[::-1]):
             iters = (KNN_ITERS, KNN_WARMUP) if name.startswith("knn") else (ITERS, WARMUP)
-            ms[f"{lab}.{name}"].append(_time_ms(calls[(lab, name)], *iters))
+            times = profiling.event_ms(calls[(lab, name)], *iters)
+            ms[f"{lab}.{name}"].append(float(np.median(times)))
     same, failed = judge(outs, nvs)
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

@@ -12,9 +12,11 @@ Counterpart of `lidargs_tpu/utils/profiling.py`:
     device's clock inside the step's and the render's CUDA graphs
     (`csrc/stamp.cu`), the step's counters in a device ring read without a
     synchronize, and host spans on one timeline with them;
-  * profile(...): device ms and device launches a call from torch.profiler,
-    and time_in_turns(...): CUDA-event ms of several functions timed in
-    alternating order (the stage split and `chip_smoke.py` read both);
+  * profile(...): device ms and device launches a call from torch.profiler;
+    event_ms(...): the CUDA-event ms of each call of a function, after
+    warm-up calls, back to back or each alone on a cold L2 cache; and
+    time_in_turns(...): CUDA-event ms of several functions timed in
+    alternating order (the port's timing tools all time through these);
   * TensorBoardLogger and WandbLogger, which stay inactive when their
     package is absent.
 """
@@ -135,6 +137,39 @@ def profile(run, calls: int = 3) -> dict:
     return out
 
 
+def _span(fn, start=None) -> tuple:
+    """(start, end): CUDA events around one call of `fn` on the current
+    stream; `start` is one already recorded, else a new one is."""
+    if start is None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    fn()
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    return start, end
+
+
+def event_ms(fn, iters: int, warmup: int = 0, flush: bool = False) -> list:
+    """[ms]: the device time of each of `iters` calls of `fn` from CUDA
+    events, after `warmup` calls. The calls run back to back, each timed
+    from the event that ended the one before; with `flush`, each call runs
+    alone, waited for, after the card's 50 MB L2 cache is flushed (256 MB
+    written outside its span)."""
+    for _ in range(warmup):
+        fn()
+    scratch = torch.empty(2 ** 26, dtype=torch.float32, device="cuda") if flush else None
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(iters):
+        if flush:
+            scratch.zero_()
+        spans.append(_span(fn, None if flush or not spans else spans[-1][1]))
+        if flush:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in spans]
+
+
 def time_in_turns(runs: dict, n: int, warmup: int = 3) -> dict:
     """{key: [ms]}: CUDA-event ms of each of `runs`, timed in `n` rounds
     that call every run once, each between two events, in order on even
@@ -148,11 +183,7 @@ def time_in_turns(runs: dict, n: int, warmup: int = 3) -> dict:
     events = {k: [] for k in keys}
     for r in range(n):
         for k in (keys if r % 2 == 0 else keys[::-1]):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            runs[k]()
-            b.record()
-            events[k].append((a, b))
+            events[k].append(_span(runs[k]))
     torch.cuda.synchronize()
     return {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
 

@@ -1,22 +1,30 @@
-"""Speed of light of each render stage on the NVIDIA H100.
+"""Speed of light on the NVIDIA H100: of each render stage, and of each of
+the port's kernels on the inputs it was given.
 
-Counterpart of the JAX round's `tools/roofline.py`: the same bytes and
-operations for each stage, counted from the shapes alone, against the
-H100's peaks (the SXM part's data sheet, at its 700 W power limit):
+The H100's peaks (the SXM part's data sheet, at its 700 W power limit):
 
   * bytes moved / 3.35 TB/s (HBM3);
   * operations / 67 TFLOP/s (float32 outside the tensor cores).
 
-The JAX round's element-wise operations (`vpu`) and its decode GEMMs
-(`mxu`) run on the same float32 units here: the port keeps its products in
-full float32 (TF32 is off, `lidargs_torch/__init__.py`), so both count at
-the float32 rate. A stage's speed of light is the larger of the two times,
-and its row says which bounds it. Sorts count one pass over their keys, as
-in the JAX round: the printed multiple shows a sort's passes instead of
-hiding them in a generous bound. The composite keeps the JAX round's
-coarse count (every kept instance against every pixel of its tile, no
-credit for the walk's early exit); `chip_smoke.py` counts K1's and K2's
-finer bounds from the walk of each run's inputs.
+The port keeps its products in full float32 (TF32 is off,
+`lidargs_torch/__init__.py`), so every operation counts at the float32
+rate. A speed of light is the larger of the two times, and which of them
+it is says what bounds the work (`bound`).
+
+The stages (`build_stages`) are the JAX round's `tools/roofline.py`: the
+same bytes and operations for each stage, counted from the shapes alone;
+its element-wise operations (`vpu`) and its decode GEMMs (`mxu`) both count
+at the float32 rate. Sorts count one pass over their keys, as in the JAX
+round: the printed multiple shows a sort's passes instead of hiding them
+in a generous bound. The composite stage keeps the JAX round's coarse
+count (every kept instance against every pixel of its tile, no credit for
+the walk's early exit).
+
+The kernels' finer bounds count the work of one call's inputs: the
+pixel-instance pairs of the composites' walk (`walked_pairs`,
+`walked_surfel_pairs`) at the operations a pair (`OPS_*`), the rows read
+(`tile_bytes`), and the point pairs of the nearest-neighbour kernels
+(`knn_bound`).
 
 `main` prints the table; with `--stage-split <json>` (the output of
 `python -m lidargs_torch.utils.stage_split --prefix --json ...`) it groups
@@ -32,8 +40,46 @@ import argparse
 import json
 import sys
 
+import torch
+
+from ..ops.composite_kernel import FWD_CHUNK, warp_row_mask
+from ..ops.projection import PackedCols
+from ..ops.surfel import SurfelCols, pair_geometry
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32, CUDA cores
+
+# FP32 operations per pixel-instance pair of the beam composites K1-K4
+OPS_IN_RECT = 35               # per pixel-instance pair inside the parity rect
+OPS_OUT_RECT = 4               # the rect test alone
+OPS_APPLIED_BWD = 80           # K2 per applied pair: the forward recompute and the backward
+#                                chain, plus one add per gradient column (14 + C) for the
+#                                reduction; K2's other in-rect pairs cost the forward's count
+# FP32 operations per pixel-surfel pair, counted from csrc/surfel_common.cuh
+# and the kernels' loops (each add, multiply, divide, sqrt, compare or
+# select one; expf one):
+OPS_S_OUT_RECT = 5             # the valid flag and the four rect compares
+OPS_S_IN_RECT = 85             # those, surfel_pair (five 3-dot products, two divides,
+#                                the rho2d form, the selects), surfel_alpha, the tests
+#                                and the transmittance step
+OPS_S_FWD_APPLIED = 28         # + 2 C: K5's accumulators (w, features, depth, normal,
+#                                the distortion map and term, M1, M2, the median)
+OPS_S_BWD_APPLIED = 288        # + 4 C: K6 per applied pair: the replayed pair (85), the
+#                                chain (188 + 3 C) and one add per gradient column
+#                                (15 + C) for the reduction
+# FP32 operations per point pair of the nearest-neighbour kernels N1-N3
+# (csrc/knn.cu; each add, multiply, compare or select one): the Gram value
+# |p|^2 - 2 q.p is three multiplies and three adds (the -2 scales the staged
+# point once, not per pair), the direct one three subtracts, three
+# multiplies and two adds; one compare against the minimum or the k-th
+# smallest. The sorted insertion after a compare that wins is left out: it
+# runs O(k log N) times a row, not once a pair.
+OPS_GRAM_PAIR = 7
+OPS_DIRECT_PAIR = 9
+# per gaussian: the decode's element-wise operations and the projection
+# (F1 and the stages count both; F1's prefilter projects each anchor once)
+OPS_DECODE_ELEMENTWISE = 60
+OPS_PROJECT = 160
 
 # (delta name, prefix key of utils/stage_split.py, stages of build_stages):
 # the prefix split's deltas in pipeline order, each with the stages it holds
@@ -52,14 +98,170 @@ def fmt_us(s: float) -> str:
     return f"{s * 1e6:8.1f} us"
 
 
+def _times(n_bytes, n_ops) -> tuple:
+    """(seconds at the HBM peak, seconds at the float32 peak, the larger,
+    "bytes" or "operations": which of them it is)."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return t_mem, t_ops, max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
 def stage(name, bytes_moved=0.0, vpu_ops=0.0, mxu_flops=0.0, note=""):
     """One stage's counts and speed of light (seconds), and which of bytes
     and operations bounds it."""
-    t_mem = bytes_moved / HBM_BYTES_PER_S
-    t_ops = (vpu_ops + mxu_flops) / FP32_OPS_PER_S
+    *_, sol_s, by = _times(bytes_moved, vpu_ops + mxu_flops)
     return dict(name=name, bytes=bytes_moved, vpu=vpu_ops, mxu=mxu_flops,
-                ops=vpu_ops + mxu_flops, sol_s=max(t_mem, t_ops),
-                bound="bytes" if t_mem >= t_ops else "operations", note=note)
+                ops=vpu_ops + mxu_flops, sol_s=sol_s, bound=by, note=note)
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take for a function that must move
+    `n_bytes` and do `n_ops` FP32 operations: the larger of the two times
+    at the card's peak rates, in ms."""
+    tb, to, t, by = _times(n_bytes, n_ops)
+    return {"bytes": n_bytes, "bytes_ms": tb * 1e3, "ops": n_ops, "ops_ms": to * 1e3,
+            "bound_ms": t * 1e3, "bound_by": by}
+
+
+def knn_bound(kernel: str, n_q: int, n_p: int, pairs: int, kk: int = 1) -> dict:
+    """The bound of a nearest-neighbour kernel on `n_q` query rows and `n_p`
+    point rows that compares `pairs` point pairs (the valid ones for N1):
+    each input read once, each output written once (N1: both sets [N, 3]
+    float32 and their bool masks, [n_q] out; N2: both sets, [n_q, kk] out;
+    N3: one set of n_q = n_p points, [n_q] out), against `pairs` times the
+    operations a pair."""
+    if kernel == "N1":
+        n_bytes, ops = 13 * (n_q + n_p) + 4 * n_q, OPS_GRAM_PAIR
+    elif kernel == "N2":
+        n_bytes, ops = 12 * (n_q + n_p) + 4 * n_q * kk, OPS_GRAM_PAIR
+    elif kernel == "N3":
+        n_bytes, ops = 16 * n_q, OPS_DIRECT_PAIR
+    else:
+        raise ValueError(f"unknown kernel {kernel}")
+    return {**bound(n_bytes, ops * pairs), "pairs": pairs, "ops_per_pair": ops}
+
+
+def tile_bytes(counts, rows_walked: int, cols: int, pix, *elements: int) -> int:
+    """Bytes a composite function over tiles must move: `cols` columns (the
+    ones the function reads) of the `rows_walked` rows of the tiles' lists
+    that some pixel's walk reaches, the counts, the five rows of each pixel
+    block it reads (direction, column, row), and `elements` more f32
+    elements (the rows read of other inputs, the output written)."""
+    T, _, npix = pix.shape
+    return 4 * (rows_walked * cols + counts.numel() + T * 5 * npix + sum(elements))
+
+
+def warp_rows(pairs) -> int:
+    """(tile, warp of 32 pixels, row) triples in which some lane's pair is
+    set, of an [tiles, rows, NPIX] mask of pairs (the kernels' warps are 32
+    consecutive pixels of a tile, the last one padded). Of the applied
+    pairs: the row reductions a backward kernel runs; of the visited pairs:
+    the rows a warp walks; of the visited pairs inside the rect: those in
+    which a lane does more than the rect test."""
+    g, K, npix = pairs.shape
+    lanes = torch.nn.functional.pad(pairs.to(torch.uint8), (0, -npix % 32))
+    return int(lanes.view(g, K, -1, 32).amax(-1).sum())
+
+
+def masked_warp_rows(mask, visited) -> int:
+    """(tile, warp, row) visits of the forward kernels' masked walk: the
+    rows of an [tiles, rows, n_warps] `warp_row_mask` in each chunk of
+    FWD_CHUNK rows that the warp walks, which it does unless all its lanes
+    are done when the chunk lands, i.e. iff one of its lanes visits the
+    chunk's first row ([tiles, rows, NPIX] `visited`)."""
+    g, K, npix = visited.shape
+    lanes = torch.nn.functional.pad(visited.to(torch.uint8), (0, -npix % 32))
+    walks = lanes.view(g, K, -1, 32).amax(-1)[:, ::FWD_CHUNK]         # [g, chunks, n_warps]
+    walks = walks.repeat_interleave(FWD_CHUNK, dim=1)[:, :K].bool()
+    return int((mask & walks).sum())
+
+
+def walked_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
+    """Pixel-instance pairs that K1's sequential walk visits on these inputs
+    (each pixel's live rows up to and including its first transmittance
+    crossing), as (applied, other in rect, out of rect, rows, reducing warp
+    rows, warp rows visited, warp rows visited in rect, warp rows of the
+    masked walk): the pairs that pass and are blended (K2 runs its backward
+    chain and reduction on these alone), the other pairs inside the
+    instance's parity rect (the alpha arithmetic, then a failed test or the
+    crossing), the pairs outside it (the rect test alone), the rows of the
+    tiles' lists that some pixel visits (the rows the function must read),
+    the `warp_rows` of the applied pairs (K2's row reductions), of the
+    visited pairs (what a warp walks when it visits every row, as K2 does)
+    and of the visited pairs inside the rect, and the visits of K1's masked
+    walk (`masked_warp_rows`): at least the last, as it also counts the
+    masked rows of a chunk after the warp's last lane has stopped."""
+    T, K, _ = inst.shape
+    rc = PackedCols.rect(C).start
+    k = torch.arange(K, device=inst.device)[None, :, None]
+    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
+    for t0 in range(0, T, group):
+        r = inst[t0:t0 + group]
+        col = lambda i: r[:, :, i, None]                            # [g,K,1]
+        dirx, diry, dirz, px, py = (pix[t0:t0 + group, i, None, :] for i in range(5))
+        live = k < counts[t0:t0 + group, None, None]
+        in_rect = (live & (px >= col(rc)) & (px < col(rc + 1))
+                   & (py >= col(rc + 2)) & (py < col(rc + 3)))
+        dx, dy, dz = col(0) - dirx, col(1) - diry, col(2) - dirz
+        ddx = dx * col(3) + dy * col(4) + dz * col(5)
+        ddy = dx * col(6) + dy * col(7) + dz * col(8)
+        power = -0.5 * (col(9) * ddx * ddx + col(11) * ddy * ddy) - col(10) * ddx * ddy
+        alpha = (col(PackedCols.OPACITY) * torch.exp(power)).clamp_max(cfg.alpha_clamp)
+        passed = in_rect & (power <= 0.0) & (alpha >= cfg.alpha_min)
+        t_incl = torch.cumprod(torch.where(passed, 1.0 - alpha, 1.0), dim=1)
+        cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
+        visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
+        applied = visited & passed & (cross == 0)
+        n_app += int(applied.sum())
+        n_in += int((visited & in_rect).sum())
+        n_out += int((visited & ~in_rect).sum())
+        n_rows += int(visited.any(dim=2).sum())
+        n_warp += warp_rows(applied)
+        n_wvis += warp_rows(visited)
+        n_wrect += warp_rows(visited & in_rect)
+        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc)
+        n_wmask += masked_warp_rows(mask, visited)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
+
+
+def walked_surfel_pairs(inst, counts, pix, C: int, cfg, group: int = 16):
+    """Pixel-surfel pairs that K5's sequential walk visits on these inputs
+    (each pixel's live rows up to and including its first transmittance
+    crossing), as (applied, other past the valid and rect tests, stopped by
+    them, rows, reducing warp rows, warp rows visited, warp rows visited
+    past the valid and rect tests, warp rows of the masked walk): the pairs
+    blended (K5's accumulators and K6's chain run on these alone), the
+    other pairs that reach the pair geometry, the pairs that cost the cheap
+    tests alone, the rows of the tiles' lists that some pixel visits, the
+    `warp_rows` of the applied pairs (K6's row reductions), of the visited
+    pairs and of the visited pairs past the cheap tests, and the visits of
+    K5's masked walk (`masked_warp_rows`; its mask folds the valid flag in)."""
+    T, K, _ = inst.shape
+    rc, vf = SurfelCols.rect(C).start, SurfelCols.validf(C)
+    k = torch.arange(K, device=inst.device)[None, :, None]
+    n_app = n_in = n_out = n_rows = n_warp = n_wvis = n_wrect = n_wmask = 0
+    for t0 in range(0, T, group):
+        r = inst[t0:t0 + group]
+        col = lambda i: r[:, :, i, None]                            # [g,K,1]
+        dirx, diry, dirz, px, py = (pix[t0:t0 + group, i, None, :] for i in range(5))
+        live = k < counts[t0:t0 + group, None, None]
+        cheap = (live & (col(vf) > 0.0) & (px >= col(rc)) & (px < col(rc + 1))
+                 & (py >= col(rc + 2)) & (py < col(rc + 3)))
+        g = pair_geometry(r, dirx, diry, dirz, px, py, C, cfg)
+        passed = live & g.passed
+        t_incl = torch.cumprod(torch.where(passed, 1.0 - g.alpha, 1.0), dim=1)
+        cross = (passed & (t_incl < cfg.transmittance_min)).to(torch.int32)
+        visited = live & ((torch.cumsum(cross, 1) - cross) == 0)
+        applied = visited & passed & (cross == 0)
+        n_app += int(applied.sum())
+        n_in += int((visited & cheap).sum())
+        n_out += int((visited & ~cheap).sum())
+        n_rows += int(visited.any(dim=2).sum())
+        n_warp += warp_rows(applied)
+        n_wvis += warp_rows(visited)
+        n_wrect += warp_rows(visited & cheap)
+        mask = warp_row_mask(r, counts[t0:t0 + group], pix[t0:t0 + group], rc, vf)
+        n_wmask += masked_warp_rows(mask, visited)
+    return n_app, n_in - n_app, n_out, n_rows, n_warp, n_wvis, n_wrect, n_wmask
 
 
 def build_stages(args):
@@ -84,12 +286,12 @@ def build_stages(args):
     gemm_flops = 2.0 * C * (d_in * (4 * hid) + hid * outs)
     decode_bytes = C * (fd + outs + 4 * hid) * 4.0
     st.append(stage("mlp decode (4 heads, 2 GEMMs)", decode_bytes,
-                    vpu_ops=C * k * 60.0, mxu_flops=gemm_flops,
+                    vpu_ops=C * k * float(OPS_DECODE_ELEMENTWISE), mxu_flops=gemm_flops,
                     note=f"C={C} k={k}"))
 
     # projection/preprocess: C*k rows -> packed [V, F]
     st.append(stage("projection + pack", (C * k * 16 + C * k * F) * 4.0,
-                    vpu_ops=C * k * 160.0))
+                    vpu_ops=C * k * float(OPS_PROJECT)))
 
     # cull sort: C*k keys, one-pass data touch
     st.append(stage("cull+compact sort (C*k keys)", 2 * (C * k) * 8.0,

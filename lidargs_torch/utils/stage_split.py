@@ -26,8 +26,9 @@ reversed on odd ones, so that drift falls on all rows alike; each row's
 median is reported, and deltas as measured (a negative delta is noise and
 is shown as such). Beside each row: device ms and device launches from
 torch.profiler over 3 replays (`profiling.profile`), and the launches of
-the port's kernels K1-K8 that a replay makes, by their launch counters
-(counted at capture) and by name among the trace's device rows.
+the port's kernels (`KERNELS`) that a replay makes, by the launcher's count
+(`utils/cuda_build.py` `launches`, counted at capture) and, for K1-K8, by
+name among the trace's device rows.
 
 Without a mode flag the stages run standalone instead, eagerly, each timed
 alone with CUDA events: those times include each stage's own host launches
@@ -44,6 +45,7 @@ and never sum to the frame (the reason the prefixes exist).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -58,9 +60,9 @@ from ..models.field import (AnchorField, decode_visible, prefilter_anchors, proj
                             render_fn)
 from ..ops.projection import PackedCols, pack_splats
 from ..ops.rasterize import bin_instances_windows, gather_instances, render_packed_window
-from ..train.graphs import StaticProgram, read_counters
+from ..train.graphs import StaticProgram
 from ..train.trainer import init_train_state
-from . import profiling
+from . import cuda_build, profiling
 from .device import resolve_device
 from .prefixes import bins, cull, grad_prefixes, stage_prefixes, train_rows
 from .testing import shell_field
@@ -68,12 +70,18 @@ from .testing import shell_field
 H = 64
 WARMUP = 3                    # calls before a standalone stage's timed calls
 NOT_MEASURED = "not measured"
-# graphs.read_counters' order: composite_kernel's four counters, then surfel_kernel's
-# (F1's, last, is left out: no row here runs it)
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
-# the name of each kernel's template among a trace's device rows (K3/K4 and
-# K7/K8 are the window instances of K1/K2 and K5/K6)
-TRACE_NAMES = dict(zip(KERNELS, profiling.PORT_KERNELS[:2] * 2 + profiling.PORT_KERNELS[2:] * 2))
+# the port's kernels: each short name and the symbol that `cuda_build.launch`
+# counts its launches under
+KERNELS = {"K1": "lidargs_composite_fwd", "K2": "lidargs_composite_bwd",
+           "K3": "lidargs_composite_fwd_windows", "K4": "lidargs_composite_bwd_windows",
+           "K5": "lidargs_surfel_fwd", "K6": "lidargs_surfel_bwd",
+           "K7": "lidargs_surfel_fwd_windows", "K8": "lidargs_surfel_bwd_windows",
+           "F1": "lidargs_front_fwd", "N1": "lidargs_knn_chamfer",
+           "N2": "lidargs_knn_gram_topk", "N3": "lidargs_knn3_direct"}
+# the name of each composite kernel's template among a trace's device rows
+# (K3/K4 and K7/K8 are the window instances of K1/K2 and K5/K6)
+TRACE_NAMES = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"),
+                       profiling.PORT_KERNELS[:2] * 2 + profiling.PORT_KERNELS[2:] * 2))
 
 
 def card() -> str:
@@ -144,11 +152,20 @@ def reached(key: str, variant: str = "beam") -> tuple:
     return ()
 
 
+@contextlib.contextmanager
+def counting():
+    """A dict that the block's end fills with the launches of each of
+    KERNELS that the block counted (`cuda_build.launches`' change)."""
+    before, n = cuda_build.launches.copy(), {}
+    yield n
+    n.update((k, cuda_build.launches[s] - before[s]) for k, s in KERNELS.items())
+
+
 def kernel_launches(run) -> dict:
-    """The launches of K1-K8 that one `run()` counts."""
-    before = read_counters()
-    run()
-    return {k: a - b for k, a, b in zip(KERNELS, read_counters(), before)}
+    """The launches of each of KERNELS that one `run()` counts."""
+    with counting() as n:
+        run()
+    return n
 
 
 def measure(rows: dict, device, n: int):
@@ -158,8 +175,8 @@ def measure(rows: dict, device, n: int):
     `ms_max`, `device_ms`, `device_launches`, `trace_complete`,
     `trace_uneven` and `traced_kernels` (the port's kernels among the
     trace's device rows, a replay) from `profiling.profile` over 3 replays,
-    and `kernel_launches` (the launch counters of one run; a program counts
-    at capture what each replay launches). On the CPU every time is "not
+    and `kernel_launches` (the launches of one run; a program counts at
+    capture what each replay launches). On the CPU every time is "not
     measured" and each row runs once."""
     dev = torch.device(device)
     pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
@@ -195,15 +212,7 @@ def standalone(params, valid, frame, mcfg: ModelConfig, rcfg: RasterConfig, devi
         out = fn()
         if dev.type != "cuda":
             return NOT_MEASURED, out
-        for _ in range(WARMUP):
-            fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n, out
+        return float(np.mean(profiling.event_ms(fn, n, WARMUP))), out
 
     def project_and_pack(ng):
         splats = project_decoded(ng, frame, rcfg)

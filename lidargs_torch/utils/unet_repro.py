@@ -253,20 +253,12 @@ def _step_ms(frames: list, dev, iters: int = 10, warmup: int = 3) -> float:
     import torch
 
     from ..models import raydrop
+    from . import profiling
 
     model = raydrop.init_unet(torch.Generator().manual_seed(0), device=dev)
     opt, sched = raydrop.refiner_optimizer(model)
     step = lambda: raydrop.refine_step(model, opt, sched, raydrop.unet_loss, *frames[0])
-    for _ in range(warmup):
-        step()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
-    ev[0].record()
-    for i in range(iters):
-        step()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(iters)]))
+    return float(np.median(profiling.event_ms(step, iters, warmup)))
 
 
 def zero_leaf_rounding(dev, seeds: int) -> list:

@@ -34,6 +34,7 @@ from lidargs_tpu.ops.pallas_composite import _bwd_call, composite_tiles_pallas
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops.projection import PackedCols as PC
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import assert_close_up_to_flips, one_torch_thread
 from test_torch_composite_kernel import _kernel_inputs
 
@@ -186,10 +187,11 @@ def test_autograd_function_matches_jax_vjp():
     out_j, vjp = jax.vjp(lambda a: composite_tiles_pallas(a, counts, pix, C, jcfg), inst)
     (d_j,) = vjp(g)
     x = torch.from_numpy(inst).requires_grad_(True)
-    before = (ck.launches, ck.bwd_launches)
-    out_t = ck.CompositeTiles.apply(x, torch.from_numpy(counts), torch.from_numpy(pix), C, tcfg)
-    out_t.backward(torch.from_numpy(g))
-    assert (ck.launches, ck.bwd_launches) == before          # the CPU path launches nothing
+    with counting() as n:
+        out_t = ck.CompositeTiles.apply(x, torch.from_numpy(counts), torch.from_numpy(pix), C,
+                                        tcfg)
+        out_t.backward(torch.from_numpy(g))
+    assert not any(n.values())          # the CPU path launches nothing
     rows = list(range(C)) + [C + 1]
     assert_close_up_to_flips(out_t.detach().numpy()[:, rows], np.asarray(out_j)[:, rows],
                              1e-5, 2e-2, what="forward")
@@ -219,11 +221,11 @@ def test_cuda_bwd_kernel_matches_plain_on_card():
     args = [torch.from_numpy(a).to(dev) for a in (inst, counts, pix)]
     res_k = ck.composite_tiles(*args, C, tcfg)       # K1's own output
     g_t = torch.from_numpy(g).to(dev)
-    before = ck.bwd_launches
-    d1 = ck.composite_tiles_bwd(*args, res_k, g_t, C, tcfg)
-    d2 = ck.composite_tiles_bwd(*args, res_k, g_t, C, tcfg)
-    torch.cuda.synchronize()
-    assert ck.bwd_launches == before + 2
+    with counting() as n:
+        d1 = ck.composite_tiles_bwd(*args, res_k, g_t, C, tcfg)
+        d2 = ck.composite_tiles_bwd(*args, res_k, g_t, C, tcfg)
+        torch.cuda.synchronize()
+    assert n["K2"] == 2
     assert torch.equal(d1, d2)
     ref = ck.composite_tiles_bwd_plain(*args, res_k, g_t, C, tcfg)
     _compare_dinst(d1.cpu().numpy(), ref.cpu().numpy())

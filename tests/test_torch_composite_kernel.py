@@ -26,6 +26,7 @@ from lidargs_tpu.ops.pallas_composite import composite_tiles_pallas
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops import projection as tp
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
 
 
@@ -106,9 +107,9 @@ def test_wrapper_on_cpu_is_the_plain_version():
     _, inst, counts, pix = _kernel_inputs(0, 120, 8, 128, tile_capacity=64)
     args = [torch.from_numpy(x) for x in (inst, counts, pix)]
     cfg = TCfg(chunk=8, tile_capacity=64)
-    before = ck.launches
-    out = ck.composite_tiles(*args, C, cfg)
-    assert ck.launches == before           # the CPU path launches nothing
+    with counting() as n:
+        out = ck.composite_tiles(*args, C, cfg)
+    assert not any(n.values())             # the CPU path launches nothing
     np.testing.assert_array_equal(out.numpy(),
                                   ck.composite_tiles_plain(*args, C, cfg).numpy())
     meta = [a.to("meta") for a in args]
@@ -129,10 +130,10 @@ def test_cuda_kernel_matches_plain_on_card():
     dev = torch.device("cuda")
     args = [torch.from_numpy(x).to(dev) for x in (inst, counts, pix)]
     cfg = TCfg(chunk=8, tile_capacity=128)
-    before = ck.launches
-    out = ck.composite_tiles(*args, C, cfg)
-    torch.cuda.synchronize()
-    assert ck.launches == before + 1
+    with counting() as n:
+        out = ck.composite_tiles(*args, C, cfg)
+        torch.cuda.synchronize()
+    assert n["K1"] == 1
     ref = ck.composite_tiles_plain(*args, C, cfg)
     d = (out - ref).abs()
     feat = d[:, [0, 1, 3]]

@@ -20,14 +20,16 @@ with each program's function called in place of a replay. The tests:
     state passed in is left as it was; a state of another capacity is
     captured anew;
   * no tensor built from Python data and no value read back inside a step;
-  * the launch counters over capture and replays, with `torch.cuda`'s
+  * the launcher's count over capture and replays, with `torch.cuda`'s
     stream and graph calls replaced by stand-ins (`test_torch_graph.py`);
-    a failed capture of either program raises and leaves them as they were;
+    a failed capture of either program raises and leaves it as it was;
   * on a card (marker `cuda`, skipped here): graphed against eager, every
     leaf bit for bit.
 Sizes: `test_torch_graph.py`'s (16x256, feat 8, k = 2, 300 of 512 anchors)
 and `test_torch_parallel.py`'s for the JAX comparison (8x256, 200 of 256).
 """
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,12 +50,12 @@ from lidargs_torch.config import OptConfig as TO
 from lidargs_torch.config import RasterConfig as TR
 from lidargs_torch.lidar import stack_frames
 from lidargs_torch.models.field import AnchorField
-from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.parallel import DPTrainer
 from lidargs_torch.parallel.shard import apply_sums, local_sums
 from lidargs_torch.train import graphs
 from lidargs_torch.train import trainer as tt
 from lidargs_torch.train.optim import tree_map
+from lidargs_torch.utils import cuda_build
 from lidargs_torch.utils.params import train_state_from_jax
 from lidargs_torch.utils.testing import one_torch_thread, shell_field
 
@@ -167,26 +169,29 @@ def test_a_state_of_another_capacity_is_captured_anew():
 
 def _programs_on_a_fake_card(monkeypatch, capture=tg._Null):
     """Every StaticProgram captures as on a card, with `test_torch_graph.py`'s
-    stand-ins for the stream and graph calls; the wrappers counted."""
+    stand-ins for the stream and graph calls; the wrappers counted in a
+    fresh count, which this returns."""
     tg._fake_cuda(monkeypatch, capture)
     init = graphs.StaticProgram.__init__
     monkeypatch.setattr(graphs.StaticProgram, "__init__",
                         lambda self, compute, commit, device, pool=None:
                         init(self, compute, commit, torch.device("cuda"), pool))
     chip_smoke.count_plain_launches(monkeypatch.setattr)
+    launches = collections.Counter()
+    monkeypatch.setattr(cuda_build, "launches", launches)
+    return launches
 
 
 def test_launch_counters_count_each_replay(monkeypatch):
     """Program A holds both frames' K1 and K2 launches (its capture's, not
     its warm-up's); each step's replay adds them once, B adds none."""
-    _programs_on_a_fake_card(monkeypatch)
+    launches = _programs_on_a_fake_card(monkeypatch)
     make, state, batches = _setup("beam")
     tr = make(True)
     s = state
     for i in range(1, 4):
         s, _ = tr.step(s, batches[i % 2], 1)
-        assert (ck.launches, ck.bwd_launches) == (2 * i, 2 * i)
-        assert ck.windows_launches == ck.windows_bwd_launches == 0
+        assert launches == {"lidargs_composite_fwd": 2 * i, "lidargs_composite_bwd": 2 * i}
     assert len(tr._steps.programs) == 1
 
 
@@ -201,13 +206,13 @@ def test_a_failed_capture_raises_and_leaves_the_counters(monkeypatch, failing):
                 raise RuntimeError("operation not permitted when stream is capturing")
             return self
 
-    _programs_on_a_fake_card(monkeypatch, capture=Refused)
+    launches = _programs_on_a_fake_card(monkeypatch, capture=Refused)
     make, state, batches = _setup("beam")
     tr = make(True)
     with pytest.raises(RuntimeError, match="capturing"):
         tr.step(state, batches[0], 1)
     assert len(captures) == failing + 1
-    assert (ck.launches, ck.bwd_launches) == (0, 0) and not tr._steps.programs
+    assert not launches and not tr._steps.programs
 
 
 # frames of seed 3 reordered so that frame 0's count (181) is no smaller

@@ -45,6 +45,7 @@ from lidargs_torch.ops.projection import PackedCols, pack_splats
 from lidargs_torch.ops.rasterize import cull_packed, cull_sorted_rows, permutation_rows
 from lidargs_torch.train import graphs
 from lidargs_torch.utils.profiling import telemetry
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import (FRONT_TOL, front_agreement, one_torch_thread,
                                          sensor_poses, shell_field)
 
@@ -322,16 +323,15 @@ def test_f1_matches_the_torch_front_on_the_card(street):
     with torch.no_grad():
         anchor_vis = valid & field_splats(params, valid, frames[0], mcfg, rcfg)[2]
     culled = (~anchor_vis & valid).repeat_interleave(mcfg.n_offsets)
-    launches = front_kernel.launches
     for frame in frames:
-        with torch.no_grad():
+        with torch.no_grad(), counting() as n:
             got = front_kernel.front_packed(params, valid, frame, mcfg, rcfg)
             want = front_kernel.front_packed_plain(params, valid, frame, mcfg, rcfg)
+        assert n["F1"] == 1
         assert got[0].shape == want[0].shape == (ext * 6, 24)
         numbers = front_agreement(got, want, valid, C, culled if frame is frames[0] else None)
         assert not numbers["faults"], numbers
         assert numbers["valid_agree"] >= FRONT_TOL["agree"] and numbers["dead_rows"] > 0
-    assert front_kernel.launches == launches + len(frames)
 
 
 def _render_numbers(cell, got: list, want: list) -> dict:
@@ -391,11 +391,11 @@ def test_fused_fronts_counts_programs_and_eager_frames_on_the_card(street):
     bg = torch.zeros(2, device="cuda")
     telemetry.enable()
     graphed = graphs.RenderGraphs("beam", mcfg, rcfg, bg, graphed=True)
-    launches = front_kernel.launches
-    for f in frames:
-        graphed(inputs.params, inputs.valid, f)
+    with counting() as n:
+        for f in frames:
+            graphed(inputs.params, inputs.valid, f)
     assert telemetry.fused_fronts == 1            # one program, four replays
-    assert front_kernel.launches == launches + len(frames)
+    assert n["F1"] == len(frames)
     eager = graphs.RenderGraphs("beam", mcfg, rcfg, bg, graphed=False)
     for f in frames:
         eager(inputs.params, inputs.valid, f)

@@ -21,13 +21,18 @@ called in place of a replay. The tests:
     the total loss within 1e-3 relative, the accumulated proxy-gradient
     norms within 1e-2 relative norm (Adam's first step is a sign step, so
     later proxy gradients drift), their counts equal;
-  * the launch counters over capture and replays, with `torch.cuda`'s
-    stream and graph calls replaced by stand-ins that record them; a failed
-    capture raises; every capture warms up on one side stream;
+  * the launcher's count (`utils/cuda_build.py` `launches`): each launch
+    under its symbol, none for a launch that returns an error; over a
+    program's capture and replays, with `torch.cuda`'s stream and graph
+    calls replaced by stand-ins that record them; a failed capture raises;
+    every capture warms up on one side stream;
   * the scale regularizer's product, whose backward no longer reads back
     to the host, against `torch.prod`'s value and gradient bit for bit.
 16x256 range view, feat 8, k = 2, hidden 8, 300 of 512 anchors.
 """
+import collections
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,12 +46,11 @@ from lidargs_tpu.train import trainer as jt
 from lidargs_torch.config import ModelConfig, OptConfig, RasterConfig
 from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
 from lidargs_torch.models.field import AnchorField
-from lidargs_torch.ops import composite_kernel as ck
-from lidargs_torch.ops import front_kernel as fk
-from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.train import graphs
 from lidargs_torch.train import trainer as tt
+from lidargs_torch.utils import cuda_build
 from lidargs_torch.utils.params import train_state_from_jax
+from lidargs_torch.utils.stage_split import KERNELS
 from lidargs_torch.utils.testing import one_torch_thread, sensor_poses, shell_field
 from test_torch_surfel_train import MODEL as SMODEL
 from test_torch_surfel_train import ON as SON
@@ -271,34 +275,50 @@ def _fake_cuda(monkeypatch, capture=_Null):
     monkeypatch.setattr(torch.cuda, "graph", capture)
 
 
-def test_launch_counters_count_each_replay(monkeypatch):
-    """The counters move at capture only: the program records the capture's
-    change (and not the warm-up's) and adds it at each replay."""
+@pytest.mark.parametrize("symbol", sorted(KERNELS.values()))
+def test_the_launcher_counts_each_launch_under_its_symbol(monkeypatch, symbol):
+    """`cuda_build.launch` counts a launch under its symbol; a launch that
+    returns an error raises and counts nothing."""
     _fake_cuda(monkeypatch)
-    for m in (ck, sk):
-        for n in graphs.COUNTERS:
-            monkeypatch.setattr(m, n, 5)
-    monkeypatch.setattr(fk, "launches", 5)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: SimpleNamespace(cuda_stream=0))
+    launches = collections.Counter()
+    monkeypatch.setattr(cuda_build, "launches", launches)
+    errors = [0, 1]
+    monkeypatch.setattr(cuda_build, "entry", lambda name, sym, argtypes: (
+        lambda *args: errors.pop(0), lambda err: b"refused"))
+    x = torch.zeros(4)
+    cuda_build.launch("lib", symbol, [], (x,), ())
+    assert launches == {symbol: 1}
+    with pytest.raises(RuntimeError, match=f"{symbol} launch failed: refused"):
+        cuda_build.launch("lib", symbol, [], (x,), ())
+    assert launches == {symbol: 1} and not errors
+
+
+def test_launch_counters_count_each_replay(monkeypatch):
+    """The launcher's count moves at capture only: the program keeps the
+    capture's change (and not the warm-up's) and adds it at each replay,
+    for every kernel, N1-N3 among them."""
+    _fake_cuda(monkeypatch)
+    start = {KERNELS["K1"]: 5, KERNELS["K5"]: 5}
+    launches = collections.Counter(start)
+    monkeypatch.setattr(cuda_build, "launches", launches)
     calls = []
+    per_run = {KERNELS["K1"]: 1, KERNELS["K2"]: 1, KERNELS["K8"]: 2, KERNELS["F1"]: 1,
+               KERNELS["N1"]: 1}
 
     def compute():
         calls.append(1)
-        ck.launches += 1
-        ck.bwd_launches += 1
-        sk.windows_launches += 2
-        fk.launches += 1
+        launches.update(per_run)
         return torch.ones(3)
 
     prog = graphs.StaticProgram(compute, lambda out: out * 2, torch.device("cuda"))
     assert len(calls) == graphs.WARMUP + 1
-    assert graphs.read_counters() == (5,) * 9
-    assert prog.delta == (1, 1, 0, 0, 0, 0, 2, 0, 1)
+    assert launches == start and prog.delta == per_run
     for i in range(1, 4):
         out = prog.run()
         assert torch.equal(out, torch.full((3,), 2.0)) and prog.graph.replays == i
-        assert (ck.launches, ck.bwd_launches, sk.windows_launches) == (5 + i, 5 + i, 5 + 2 * i)
-        assert fk.launches == 5 + i
-        assert (ck.windows_launches, sk.launches) == (5, 5)
+        assert launches == {k: start.get(k, 0) + i * per_run.get(k, 0)
+                            for k in {*start, *per_run}}
     assert len(calls) == graphs.WARMUP + 1      # a replay does not run the function
 
 
@@ -331,13 +351,14 @@ def test_a_failed_capture_raises_and_leaves_the_counters(monkeypatch):
             raise RuntimeError("operation not permitted when stream is capturing")
 
     _fake_cuda(monkeypatch, capture=Refused)
-    monkeypatch.setattr(ck, "launches", 0)
+    launches = collections.Counter({KERNELS["K2"]: 3})
+    monkeypatch.setattr(cuda_build, "launches", launches)
 
     def compute():
-        ck.launches += 1
+        launches[KERNELS["K1"]] += 1
     with pytest.raises(RuntimeError, match="capturing"):
         graphs.StaticProgram(compute, lambda out: out, torch.device("cuda"))
-    assert ck.launches == 0
+    assert launches == {KERNELS["K2"]: 3}
 
 
 def test_prod_last_gives_torch_prods_gradient_bit_for_bit():

@@ -41,6 +41,7 @@ from lidargs_tpu.native import knn3_mean_sq_dist as native_knn3
 from lidargs_tpu.ops import knn as jk
 from lidargs_torch.ops import knn as tk
 from lidargs_torch.ops import knn_kernel as nk
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import one_torch_thread
 from test_torch_knn import _brute, _street_points, _tol
 
@@ -159,18 +160,18 @@ def test_public_functions_equal_the_plain_versions_on_the_cpu():
     a, b = _street_points(40, 320, 0.1), _street_points(41, 280, 0.1)
     av, bv = (torch.from_numpy(m) for m in _masks(42, 320, 280))
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    before = (nk.chamfer_launches, nk.knn_launches, nk.knn3_launches)
-    cd, d1, d2, _, _ = tk.chamfer_distance(ta, tb, pred_valid=av, gt_valid=bv)
-    assert torch.equal(d1, tk._chamfer_dir_plain(ta, av, tb, bv))
-    assert torch.equal(d2, tk._chamfer_dir_plain(tb, bv, ta, av))
-    assert torch.equal(tk._chamfer_dir(ta, av, tb, bv), d1)
-    for k, ex in ((4, False), (3, True)):
-        assert torch.equal(tk.knn_sqdist(ta, tb, k, exclude_self=ex),
-                           tk.knn_sqdist_plain(ta, tb, k, exclude_self=ex))
-    assert torch.equal(tk.mean_sq_dist_3nn(ta),
-                       tk.knn_sqdist_plain(ta, ta, 3, exclude_self=True).clamp_min(0).mean(1))
-    assert torch.equal(tk.knn3_mean_sq_dist(ta), tk.knn3_mean_sq_dist_plain(ta))
-    assert (nk.chamfer_launches, nk.knn_launches, nk.knn3_launches) == before
+    with counting() as launched:
+        cd, d1, d2, _, _ = tk.chamfer_distance(ta, tb, pred_valid=av, gt_valid=bv)
+        assert torch.equal(d1, tk._chamfer_dir_plain(ta, av, tb, bv))
+        assert torch.equal(d2, tk._chamfer_dir_plain(tb, bv, ta, av))
+        assert torch.equal(tk._chamfer_dir(ta, av, tb, bv), d1)
+        for k, ex in ((4, False), (3, True)):
+            assert torch.equal(tk.knn_sqdist(ta, tb, k, exclude_self=ex),
+                               tk.knn_sqdist_plain(ta, tb, k, exclude_self=ex))
+        assert torch.equal(tk.mean_sq_dist_3nn(ta),
+                           tk.knn_sqdist_plain(ta, ta, 3, exclude_self=True).clamp_min(0).mean(1))
+        assert torch.equal(tk.knn3_mean_sq_dist(ta), tk.knn3_mean_sq_dist_plain(ta))
+    assert not any(launched.values())
 
 
 def _good():
@@ -212,18 +213,18 @@ def test_wrappers_refuse_tensors_off_the_card():
     """A wrapper launches only on a CUDA tensor: a CPU or meta tensor raises
     before anything is built, and no launch is counted."""
     g = _good()
-    before = (nk.chamfer_launches, nk.knn_launches, nk.knn3_launches)
-    for dev in ("cpu", "meta"):
-        a, av, b, bv = (g[k].to(dev) for k in ("a", "av", "b", "bv"))
+    with counting() as launched:
+        for dev in ("cpu", "meta"):
+            a, av, b, bv = (g[k].to(dev) for k in ("a", "av", "b", "bv"))
+            with pytest.raises(ValueError, match="unsupported device"):
+                nk.chamfer_dir(a, av, b, bv)
+            with pytest.raises(ValueError, match="unsupported device"):
+                nk.knn_sqdist(a, b, 2)
+            with pytest.raises(ValueError, match="unsupported device"):
+                nk.knn3_mean_sq_dist(a)
         with pytest.raises(ValueError, match="unsupported device"):
-            nk.chamfer_dir(a, av, b, bv)
-        with pytest.raises(ValueError, match="unsupported device"):
-            nk.knn_sqdist(a, b, 2)
-        with pytest.raises(ValueError, match="unsupported device"):
-            nk.knn3_mean_sq_dist(a)
-    with pytest.raises(ValueError, match="unsupported device"):
-        tk.knn3_mean_sq_dist(torch.zeros(4, 3, device="meta"))
-    assert (nk.chamfer_launches, nk.knn_launches, nk.knn3_launches) == before
+            tk.knn3_mean_sq_dist(torch.zeros(4, 3, device="meta"))
+    assert not any(launched.values())
 
 
 H100_SMS = 132
@@ -370,11 +371,11 @@ def test_n1_matches_plain_on_card():
     a, b = _street_points(50, 3000, 0.1), _street_points(51, 2600, 0.1)
     av, bv = _masks(52, 3000, 2600)
     ta, tb, tav, tbv = (torch.from_numpy(x).to(dev) for x in (a, b, av, bv))
-    before = nk.chamfer_launches
-    cd, d1, d2, _, _ = tk.chamfer_distance(ta, tb, pred_valid=tav, gt_valid=tbv)
-    again = tk._chamfer_dir(ta, tav, tb, tbv)
-    torch.cuda.synchronize()
-    assert nk.chamfer_launches == before + 3 and torch.equal(d1, again)
+    with counting() as launched:
+        cd, d1, d2, _, _ = tk.chamfer_distance(ta, tb, pred_valid=tav, gt_valid=tbv)
+        again = tk._chamfer_dir(ta, tav, tb, tbv)
+        torch.cuda.synchronize()
+    assert launched["N1"] == 3 and torch.equal(d1, again)
     for got, (x, xv, y, yv) in ((d1, (ta, tav, tb, tbv)), (d2, (tb, tbv, ta, tav))):
         want = tk._chamfer_dir_plain(x, xv, y, yv).cpu().numpy()
         g, m = got.cpu().numpy(), xv.cpu().numpy()
@@ -393,12 +394,12 @@ def test_n2_matches_plain_on_card():
     pts = torch.from_numpy(_with_duplicates(_street_points(60, 5000), 61)).to(dev)
     tol = torch.from_numpy(_tol(pts.cpu().numpy(), pts.cpu().numpy())[:, None]).to(dev)
     for k, ex in ((1, False), (3, True), (8, False)):
-        before = nk.knn_launches
-        got = tk.knn_sqdist(pts, pts, k, exclude_self=ex)
-        again = tk.knn_sqdist(pts, pts, k, exclude_self=ex)
-        want = tk.knn_sqdist_plain(pts, pts, k, exclude_self=ex)
-        torch.cuda.synchronize()
-        assert nk.knn_launches == before + 2 and torch.equal(got, again)
+        with counting() as launched:
+            got = tk.knn_sqdist(pts, pts, k, exclude_self=ex)
+            again = tk.knn_sqdist(pts, pts, k, exclude_self=ex)
+            want = tk.knn_sqdist_plain(pts, pts, k, exclude_self=ex)
+            torch.cuda.synchronize()
+        assert launched["N2"] == 2 and torch.equal(got, again)
         assert bool(((got - want).abs() <= tol).all())
     with pytest.raises(ValueError, match="1..8"):
         tk.knn_sqdist(pts, pts, 9)
@@ -410,9 +411,9 @@ def test_n3_equals_plain_on_card():
     shared-memory stage, with duplicates, and on the sets of 1-5 points."""
     dev = _card()
     pts = torch.from_numpy(_with_duplicates(_street_points(70, 5000), 71)).to(dev)
-    before = nk.knn3_launches
-    got, again = tk.knn3_mean_sq_dist(pts), tk.knn3_mean_sq_dist(pts)
-    assert nk.knn3_launches == before + 2
+    with counting() as launched:
+        got, again = tk.knn3_mean_sq_dist(pts), tk.knn3_mean_sq_dist(pts)
+    assert launched["N3"] == 2
     assert torch.equal(got, again) and torch.equal(got, tk.knn3_mean_sq_dist_plain(pts))
     for n in range(1, 6):
         assert torch.equal(tk.knn3_mean_sq_dist(pts[:n]), tk.knn3_mean_sq_dist_plain(pts[:n]))
@@ -453,7 +454,6 @@ def test_refused_cluster_launch_raises_on_card(monkeypatch):
     pts = torch.from_numpy(_street_points(110, 500)).to(dev)
     bad = nk.LaunchPlan(4, 9, 1, 64)
     monkeypatch.setattr(nk, "launch_plan", lambda *a, **k: bad)
-    before = nk.knn_launches
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with counting() as launched, pytest.raises(RuntimeError, match="launch failed"):
         tk.knn_sqdist(pts, pts, 4)
-    assert nk.knn_launches == before
+    assert not any(launched.values())

@@ -1,6 +1,6 @@
-"""The pair counts behind the kernels' bounds in `chip_smoke.py`, a
-rehearsal of its whole run on the CPU, and the kernel A/B tool's command
-line.
+"""The pair counts behind the kernels' bounds (`utils/roofline.py`, which
+`chip_smoke.py` bounds each kernel with), a rehearsal of `chip_smoke.py`'s
+whole run on the CPU, and the kernel A/B tool's command line.
 
 `walked_pairs` counts, with tensor ops over whole tiles, the pixel-instance
 pairs that K1's sequential walk visits, split into applied pairs (K2's
@@ -17,9 +17,10 @@ flags. The counts are integers and must be equal.
 
 The rehearsal runs `chip_smoke.run` on the CPU at a tiny size, with the
 card-only helpers stubbed and each kernel wrapper (the tile and the window
-forms of both variants) replaced by its plain version that counts launches
-as the wrapper does: every phase's control flow, launch count check and
-comparison runs, and the last line is the contract's.
+forms of both variants, F1 and N1-N3) replaced by its plain version that
+counts its launches under the kernel's symbol as the launcher does: every
+phase's control flow, launch count check and comparison runs, and the last
+line is the contract's.
 """
 import json
 import re
@@ -124,7 +125,7 @@ def test_walked_pairs_counts_the_sequential_walk(case):
     _, inst, counts, pix = _kernel_inputs(seed, n, H, W, scale_px, **case)
     pix = np.ascontiguousarray(pix[:, :, ::3])                # 43 of each tile's pixels
     cfg = TCfg(**case)
-    got = chip_smoke.walked_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
+    got = roofline.walked_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
                                   torch.from_numpy(pix), C, cfg)
     want = _walk(inst, counts, pix, cfg)
     assert got == want
@@ -192,7 +193,7 @@ def test_walked_surfel_pairs_counts_the_sequential_walk(case):
     _, inst, counts, pix = _surfel_inputs(seed, n, H, W, **extra, **case)
     pix = np.ascontiguousarray(pix[:, :, ::3])                # 43 of each tile's pixels
     cfg = TCfg(**case)
-    got = chip_smoke.walked_surfel_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
+    got = roofline.walked_surfel_pairs(torch.from_numpy(inst), torch.from_numpy(counts),
                                          torch.from_numpy(pix), C, cfg)
     want = _walk_surfels(inst, counts, pix, cfg)
     assert got == want
@@ -215,20 +216,21 @@ def test_walked_surfel_pairs_counts_the_sequential_walk(case):
     ("N3", 300, 300, 300 * 299, 1, 16 * 300, 9),
 ])
 def test_knn_bound_counts_pairs_operations_and_bytes(kernel, n_q, n_p, pairs, kk, n_bytes, ops):
-    """The bound of N1-N3 in `chip_smoke.py`: the pairs times the operations
-    a pair over the FP32 peak, beside each input byte read once and each
-    output byte written once over the memory rate; the larger names it."""
-    b = chip_smoke.knn_bound(kernel, n_q, n_p, pairs, kk)
+    """The bound of N1-N3 (`utils/roofline.py` `knn_bound`): the pairs times
+    the operations a pair over the FP32 peak, beside each input byte read
+    once and each output byte written once over the memory rate; the larger
+    names it."""
+    b = roofline.knn_bound(kernel, n_q, n_p, pairs, kk)
     assert (b["pairs"], b["ops_per_pair"], b["bytes"], b["ops"]) == (pairs, ops, n_bytes,
                                                                     ops * pairs)
-    assert b["ops_ms"] == pytest.approx(ops * pairs / chip_smoke.PEAK_FP32_OPS_PER_S * 1e3)
-    assert b["bytes_ms"] == pytest.approx(n_bytes / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    assert b["ops_ms"] == pytest.approx(ops * pairs / roofline.FP32_OPS_PER_S * 1e3)
+    assert b["bytes_ms"] == pytest.approx(n_bytes / roofline.HBM_BYTES_PER_S * 1e3)
     assert b["bound_ms"] == max(b["ops_ms"], b["bytes_ms"]) and b["bound_by"] == "operations"
     # a frame of the street evaluation: 169,600 points a side, ~2.9 ms a direction
-    frame = chip_smoke.knn_bound("N1", 169_600, 169_600, 169_600 ** 2)
+    frame = roofline.knn_bound("N1", 169_600, 169_600, 169_600 ** 2)
     assert 2.9 < frame["bound_ms"] < 3.1
     with pytest.raises(ValueError, match="unknown kernel"):
-        chip_smoke.knn_bound("N4", 1, 1, 1)
+        roofline.knn_bound("N4", 1, 1, 1)
 
 
 def test_kernel_ab_needs_labelled_source_trees():
@@ -370,8 +372,8 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
     monkeypatch.setattr(chip_smoke, "render_cell", lambda: tiny_cell("beam-render-street"))
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, iters, warmup: [(fn(), 1.0)[1]])
-    monkeypatch.setattr(chip_smoke, "time_cold_ms", lambda fn, iters=20: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "event_ms",
+                        lambda fn, iters, warmup=0, flush=False: [(fn(), 1.0)[1]])
     monkeypatch.setattr(profiling, "profile",
                         lambda fn, calls=3: {"frames": calls, "device_ms_per_frame": "n/a"})
     monkeypatch.setattr(profiling, "time_in_turns",

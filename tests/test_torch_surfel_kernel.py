@@ -58,6 +58,7 @@ from lidargs_tpu.ops import surfel as js
 from lidargs_tpu.ops.pallas_surfel import OUT_ROWS, _bwd_call, surfel_composite_tiles
 from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import surfel_kernel as sk
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import assert_close_up_to_flips, make_scene, one_torch_thread
 from test_torch_composite_bwd import EDGE_KINDS, N_FRONT, _windows_of
 
@@ -306,11 +307,11 @@ def test_autograd_function_and_wrappers_on_cpu():
     _, tcfg, inst, counts, pix = _case(CASES[2])
     ti, tn, tp = _t(inst, counts, pix)
     x = ti.clone().requires_grad_(True)
-    before = (sk.launches, sk.bwd_launches)
-    out = sk.SurfelCompositeTiles.apply(x, tn, tp, C, tcfg)
-    g = torch.from_numpy(_cotangent(tuple(out.shape), 9))
-    out.backward(g)
-    assert (sk.launches, sk.bwd_launches) == before
+    with counting() as n:
+        out = sk.SurfelCompositeTiles.apply(x, tn, tp, C, tcfg)
+        g = torch.from_numpy(_cotangent(tuple(out.shape), 9))
+        out.backward(g)
+    assert not any(n.values())
     np.testing.assert_array_equal(out.detach().numpy(),
                                   sk.surfel_composite_tiles_plain(ti, tn, tp, C, tcfg).numpy())
     np.testing.assert_array_equal(
@@ -363,13 +364,13 @@ def test_cuda_kernels_match_plain_on_card():
     _, tcfg, inst, counts, pix = _case(CASES[1])
     dev = torch.device("cuda")
     args = [x.to(dev) for x in _t(inst, counts, pix)]
-    before = (sk.launches, sk.bwd_launches)
-    out = sk.surfel_composite_tiles(*args, C, tcfg)
-    g = torch.from_numpy(_cotangent(tuple(out.shape), 10)).to(dev)
-    d1 = sk.surfel_composite_tiles_bwd(*args, out, g, C, tcfg)
-    d2 = sk.surfel_composite_tiles_bwd(*args, out, g, C, tcfg)
-    torch.cuda.synchronize()
-    assert (sk.launches, sk.bwd_launches) == (before[0] + 1, before[1] + 2)
+    with counting() as n:
+        out = sk.surfel_composite_tiles(*args, C, tcfg)
+        g = torch.from_numpy(_cotangent(tuple(out.shape), 10)).to(dev)
+        d1 = sk.surfel_composite_tiles_bwd(*args, out, g, C, tcfg)
+        d2 = sk.surfel_composite_tiles_bwd(*args, out, g, C, tcfg)
+        torch.cuda.synchronize()
+    assert (n["K5"], n["K6"]) == (1, 2)
     assert torch.equal(d1, d2)
     _compare_out(out.cpu().numpy(), sk.surfel_composite_tiles_plain(*args, C, tcfg).cpu().numpy())
     ref = sk.surfel_composite_tiles_bwd_plain(*args, out, g, C, tcfg)

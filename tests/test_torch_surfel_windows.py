@@ -47,6 +47,7 @@ from lidargs_torch.config import RasterConfig as TCfg
 from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops import surfel as ts
 from lidargs_torch.ops import surfel_kernel as sk
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import make_scene, one_torch_thread
 from test_torch_surfel import _inputs
 from test_torch_surfel_kernel import _compare_dinst, _compare_out, _cotangent
@@ -158,11 +159,11 @@ def test_window_autograd_function_on_cpu():
     _, tcfg, buf, starts, counts, pix, _ = _case(1)
     tb, tst, tc, tp = _t(buf, starts, counts, pix)
     x = tb.clone().requires_grad_(True)
-    before = (sk.windows_launches, sk.windows_bwd_launches)
-    out = sk.SurfelCompositeWindows.apply(x, tst, tc, tp, C, tcfg)
-    g = torch.from_numpy(_cotangent(tuple(out.shape), 9))
-    out.backward(g)
-    assert (sk.windows_launches, sk.windows_bwd_launches) == before
+    with counting() as n:
+        out = sk.SurfelCompositeWindows.apply(x, tst, tc, tp, C, tcfg)
+        g = torch.from_numpy(_cotangent(tuple(out.shape), 9))
+        out.backward(g)
+    assert not any(n.values())
     assert torch.equal(out.detach(), sk.surfel_composite_windows_plain(tb, tst, tc, tp, C, tcfg))
     assert torch.equal(x.grad, sk.surfel_composite_windows_bwd_plain(
         tb, tst, tc, tp, out.detach(), g, C, tcfg))
@@ -218,13 +219,13 @@ def test_cuda_surfel_window_kernels_match_tile_kernels_on_card():
     dev = torch.device("cuda")
     tb, tst, tc, tp = [x.to(dev) for x in _t(buf, starts, counts, pix)]
     inst = ck.window_rows(tb, tst, tcfg.tile_capacity).contiguous()
-    before = (sk.windows_launches, sk.windows_bwd_launches)
-    out = sk.surfel_composite_windows(tb, tst, tc, tp, C, tcfg)
-    g = torch.from_numpy(_cotangent(tuple(out.shape), 10)).to(dev)
-    d1 = sk.surfel_composite_windows_bwd(tb, tst, tc, tp, out, g, C, tcfg)
-    d2 = sk.surfel_composite_windows_bwd(tb, tst, tc, tp, out, g, C, tcfg)
-    torch.cuda.synchronize()
-    assert (sk.windows_launches, sk.windows_bwd_launches) == (before[0] + 1, before[1] + 2)
+    with counting() as n:
+        out = sk.surfel_composite_windows(tb, tst, tc, tp, C, tcfg)
+        g = torch.from_numpy(_cotangent(tuple(out.shape), 10)).to(dev)
+        d1 = sk.surfel_composite_windows_bwd(tb, tst, tc, tp, out, g, C, tcfg)
+        d2 = sk.surfel_composite_windows_bwd(tb, tst, tc, tp, out, g, C, tcfg)
+        torch.cuda.synchronize()
+    assert (n["K7"], n["K8"]) == (1, 2)
     assert torch.equal(d1, d2)
     assert torch.equal(out, sk.surfel_composite_tiles(inst, tc, tp, C, tcfg))
     d_k6 = sk.surfel_composite_tiles_bwd(inst, tc, tp, out, g, C, tcfg)

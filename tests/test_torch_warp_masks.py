@@ -36,6 +36,7 @@ from lidargs_torch.ops import composite_kernel as ck
 from lidargs_torch.ops import surfel_kernel as sk
 from lidargs_torch.ops.projection import PackedCols as PC
 from lidargs_torch.ops.surfel import SurfelCols as S
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import one_torch_thread
 from test_torch_composite_bwd import _windows_of
 from test_torch_composite_kernel import _compare, _kernel_inputs
@@ -156,17 +157,17 @@ def test_cuda_forward_kernels_on_mask_edges(card, variant, tile_h):
     (K7) on windows of one buffer holding the same rows equal to it bit for
     bit."""
     inst, counts, pix, _, _, cfg = _edge_inputs(variant, tile_h)
-    mod, tiles, wins = ((sk, sk.surfel_composite_tiles, sk.surfel_composite_windows)
-                        if variant == "surfel" else
-                        (ck, ck.composite_tiles, ck.composite_windows))
+    names, tiles, wins = ((("K5", "K7"), sk.surfel_composite_tiles, sk.surfel_composite_windows)
+                          if variant == "surfel" else
+                          (("K1", "K3"), ck.composite_tiles, ck.composite_windows))
     ti, tc, tp = (torch.from_numpy(x).to(card) for x in (inst, counts, pix))
     buf, starts = _windows_of(ti, tc)
-    before = (mod.launches, mod.windows_launches)
-    out1 = tiles(ti, tc, tp, C, cfg)
-    out2 = tiles(ti, tc, tp, C, cfg)
-    outw = wins(buf, starts, tc, tp, C, cfg)
-    torch.cuda.synchronize()
-    assert (mod.launches, mod.windows_launches) == (before[0] + 2, before[1] + 1)
+    with counting() as n:
+        out1 = tiles(ti, tc, tp, C, cfg)
+        out2 = tiles(ti, tc, tp, C, cfg)
+        outw = wins(buf, starts, tc, tp, C, cfg)
+        torch.cuda.synchronize()
+    assert (n[names[0]], n[names[1]]) == (2, 1)
     assert torch.equal(out1, out2) and torch.equal(outw, out1)
     plain = (sk.surfel_composite_tiles_plain if variant == "surfel"
              else ck.composite_tiles_plain)(ti, tc, tp, C, cfg)

@@ -56,6 +56,7 @@ from lidargs_torch.ops import rasterize as tr
 from lidargs_torch.ops.projection import PackedCols, preprocess_gaussians
 from lidargs_torch.train import Trainer, init_train_state, loss_and_grads, measure_fps, run_eval
 from lidargs_torch.train.optim import tree_leaves
+from lidargs_torch.utils.stage_split import counting
 from lidargs_torch.utils.testing import (assert_close_up_to_flips, make_scene, one_torch_thread,
                                          sensor_poses, shell_field)
 from test_torch_rasterize import BASE, _bin_inputs, _jax_bin_inputs, _splats
@@ -230,10 +231,10 @@ def test_window_wrappers_on_cpu_and_checks():
     _, tcfg, buf, starts, counts, pix, _, g = _case(0)
     tb, ts, tc, tp = _t(buf, starts, counts, pix)
     x = tb.clone().requires_grad_(True)
-    before = (ck.windows_launches, ck.windows_bwd_launches)
-    out = ck.CompositeWindows.apply(x, ts, tc, tp, C, tcfg)
-    out.backward(torch.from_numpy(g))
-    assert (ck.windows_launches, ck.windows_bwd_launches) == before
+    with counting() as n:
+        out = ck.CompositeWindows.apply(x, ts, tc, tp, C, tcfg)
+        out.backward(torch.from_numpy(g))
+    assert not any(n.values())
     assert torch.equal(out.detach(), ck.composite_windows_plain(tb, ts, tc, tp, C, tcfg))
     assert torch.equal(x.grad, ck.composite_windows_bwd_plain(
         tb, ts, tc, tp, out.detach(), torch.from_numpy(g), C, tcfg))
@@ -369,12 +370,12 @@ def test_cuda_window_kernels_match_tile_kernels_on_card():
     tb, ts, tc, tp, tg = [x.to(dev) for x in _t(buf, starts, counts, pix, g)]
     K = tcfg.tile_capacity
     inst = ck.window_rows(tb, ts, K).contiguous()
-    before = (ck.windows_launches, ck.windows_bwd_launches)
-    out = ck.composite_windows(tb, ts, tc, tp, C, tcfg)
-    d1 = ck.composite_windows_bwd(tb, ts, tc, tp, out, tg, C, tcfg)
-    d2 = ck.composite_windows_bwd(tb, ts, tc, tp, out, tg, C, tcfg)
-    torch.cuda.synchronize()
-    assert (ck.windows_launches, ck.windows_bwd_launches) == (before[0] + 1, before[1] + 2)
+    with counting() as n:
+        out = ck.composite_windows(tb, ts, tc, tp, C, tcfg)
+        d1 = ck.composite_windows_bwd(tb, ts, tc, tp, out, tg, C, tcfg)
+        d2 = ck.composite_windows_bwd(tb, ts, tc, tp, out, tg, C, tcfg)
+        torch.cuda.synchronize()
+    assert (n["K3"], n["K4"]) == (1, 2)
     assert torch.equal(d1, d2)
     assert torch.equal(out, ck.composite_tiles(inst, tc, tp, C, tcfg))
     d_k2 = ck.composite_tiles_bwd(inst, tc, tp, out, tg, C, tcfg)

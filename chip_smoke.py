@@ -45,8 +45,10 @@ then:
      reductions K2 runs, `warp_rows`), and profiles a few steps;
  10. renders the same scene from the same poses through the surfel (2DGS)
      variant, `measure_fps(..., variant="surfel")` at the CLI's surfel
-     defaults (h1/K384/cap32), counting its launches, requiring one K5
-     launch per frame, finite outputs on every channel and occupancy > 0;
+     defaults (h1/K384/cap32), counting its launches, requiring one K5 and
+     one F2 launch per frame (the frame's front is F2, `models/field.py`
+     `render_surfel_packed`), finite outputs on every channel and
+     occupancy > 0;
  11. holds the tiled surfel render (K5) against the golden chunk scan
      (plain PyTorch) on a small scene, and K5 against its plain version on
      frame 0's main-path inputs, on every output row;
@@ -213,10 +215,11 @@ then:
      variant at h1/K384/cap32 through the train rows, each row one CUDA
      graph timed in turns (STAGE_TIMED rounds) and profiled; requires the
      full-frame row's output equal bit for bit to `RenderGraphs`' render
-     on the whole capacity (the rows' extent), or, for the beam frame, whose
-     front there is F1 (`render_frame_packed`), within the limits of
-     `beam-render-street`'s render check (`portbench/check.py`
-     `render_numbers`, `portbench/limits/`), the full-step row's state
+     on the whole capacity (the rows' extent), or, where that frame's front
+     is F1 or F2 (`render_frame_packed`, `render_surfel_packed`), within the
+     limits of the variant's render cell's check (`beam-render-street`,
+     `surfel-render-street`; `portbench/check.py` `render_numbers`,
+     `portbench/limits/`), the full-step row's state
      equal bit for bit to a graphed `Trainer.step` on the whole capacity
      from another clone of the same state, no row
      synchronizing with the card in a replay and a launch of each kernel
@@ -231,7 +234,9 @@ then:
      `front_agreement`, the card test's tolerances), one launch a call;
      times the wrapper (CUDA events, median of F1_TIMED, eager and as a
      graph), the plain version as a graph and F1's device ms
-     (torch.profiler), and computes F1's bound from this run's inputs.
+     (torch.profiler), and computes F1's bound from this run's inputs;
+ 37. the same for F2 (`surfel_front_packed`) against the torch surfel
+     front on `surfel-render-street`'s field (`surfel_front_agreement`).
 
 `Trainer`, `DPTrainer`, `measure_fps` and `run_eval` replay CUDA graphs on
 the card by default, so phases 1-2, 7-9, 12, 15-24, 27-28, 30-33 and
@@ -241,7 +246,7 @@ count is the change of the launcher's count (`utils/cuda_build.py`
 it counts.
 
 It prints a timing line, a `kernels` line (K1-K8, then the nearest-neighbour
-kernels N1-N3 of `csrc/knn.cu`, then F1), the card's name and power limit
+kernels N1-N3 of `csrc/knn.cu`, then F1 and F2), the card's name and power limit
 (`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`) and, as
 the last line, `{"ok": true, "device": {...}}`. Any failure exits non-zero
 before that line; without a CUDA device it exits non-zero at once.
@@ -357,7 +362,8 @@ from lidargs_torch.utils.roofline import HBM_BYTES_PER_S as PEAK_BYTES_PER_S  # 
 from lidargs_torch.utils.roofline import (OPS_APPLIED_BWD, OPS_DECODE_ELEMENTWISE,
                                           OPS_IN_RECT, OPS_OUT_RECT, OPS_PROJECT,
                                           OPS_S_BWD_APPLIED, OPS_S_FWD_APPLIED,
-                                          OPS_S_IN_RECT, OPS_S_OUT_RECT, bound, knn_bound,
+                                          OPS_S_IN_RECT, OPS_S_OUT_RECT, OPS_SURFEL_PROJECT,
+                                          bound, knn_bound,
                                           tile_bytes, walked_pairs, walked_surfel_pairs)
 from lidargs_torch.utils.stage_split import KERNELS, counting
 
@@ -430,9 +436,9 @@ GRAPH_TIMED = 20              # graphed and eager steps and frames timed after w
 GRAPH_VEHICLE = dict(anchors=1_339, capacity=4_096)
 GRAPH_CLI_CAPACITY = 2 ** 17  # the CLI's anchor capacity, for the graph pool's bytes
 STAGE_TIMED = 20              # phase 35's rounds in turns (each replays every row once)
-F1_SEED = 2 ** 31 + 77        # phase 36: the draw of beam-render-street's field
+F1_SEED = 2 ** 31 + 77        # phases 36-37: the draw of the render cells' fields
 F1_POSES = (0, 50, 100, 150)  # its novel poses held to the torch front
-F1_TIMED = 50                 # F1's wrapper: calls timed after 5 warm-ups
+F1_TIMED = 50                 # F1's and F2's wrappers: calls timed after 5 warm-ups
 DYN_VOXEL = {"background": 0.2, "vehicle": 0.1}
 DYN_CAPACITY = {"background": 65_536, "vehicle": 4_096}
 DYN_MIN_ANCHORS = {"background": 10_000, "vehicle": 200}
@@ -762,7 +768,7 @@ def run(dev) -> None:
     # --- build every kernel of the path ---
     t0 = time.perf_counter()
     libs = cuda_build.build(["composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
-                             "knn", "front_fwd"])
+                             "knn", "front_fwd", "surfel_front_fwd"])
     build_s = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".log").read_text().strip()
@@ -871,14 +877,17 @@ def run(dev) -> None:
           f"walk: {n_wmask}", file=sys.stderr)
     med = lambda xs: float(np.median(xs))
 
-    # --- 36. F1 against its plain version on the render cells' field, timed ---
-    f1 = f1_phase(dev, f1_launches)
+    # --- 36. F1 against its plain version on the beam render cell's field, timed ---
+    f1 = front_phase(dev, "beam", f1_launches)
 
     # --- 7-9. training, K2 against plain, timing ---
     train, k2 = train_phases(dev, params, valid, mcfg, rcfg, beams)
 
     # --- 10-14. the surfel variant: render, K5 against plain, training, K6 ---
     surfel, k5, k6 = surfel_phases(dev, params, valid, mcfg, beams, frames)
+
+    # --- 37. F2 against its plain version on the surfel render cell's field, timed ---
+    f2 = front_phase(dev, "surfel", surfel["f2_launches"])
 
     # --- 15-18. the fused-window gather of both variants: K3/K4, K7/K8 ---
     windows, k3, k4 = window_phases(dev, params, valid, mcfg, beams, frames, "beam")
@@ -939,7 +948,7 @@ def run(dev) -> None:
             launches_dynamic=dynamic["launches"]["K1"],
             max_abs_err=max(err_k1["feat_max"], err_k1["depth_max"]),
             mean_abs_err={"feat": err_k1["feat_mean"], "depth": err_k1["depth_mean"]},
-        ), k2, k3, k4, k5, k6, k7, k8, *n_entries, f1],
+        ), k2, k3, k4, k5, k6, k7, k8, *n_entries, f1, f2],
     }
     print(json.dumps({"timing": timing}))
     print(json.dumps(kernels))
@@ -949,40 +958,49 @@ def run(dev) -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev), "count": 1}}))
 
 
-def render_cell():
-    """The benchmark's re-simulation cell `beam-render-street`
-    (`portbench/registry.py`): phase 35's check limits, phase 36's field."""
+def render_cell(variant: str = "beam"):
+    """The benchmark's re-simulation cell of a variant, `beam-render-street`
+    or `surfel-render-street` (`portbench/registry.py`): phase 35's check
+    limits, phase 36's and 37's fields."""
     from portbench import registry
 
-    return registry.load_cell("beam-render-street")
+    return registry.load_cell(f"{variant}-render-street")
 
 
-def f1_phase(dev, f1_launches: int) -> dict:
-    """Phase 36: F1 on `beam-render-street`'s field (the benchmark's draw
-    from F1_SEED, at its live extent) against its plain version on the
-    poses F1_POSES, column by column (`front_agreement`), one launch a
-    call; F1's wrapper timed (CUDA events, median of F1_TIMED) eager and as
-    a graph, the plain version as a graph (median of 5), F1's device ms
-    from the profiler, and its bound from this run's inputs: the anchor
-    rows, heads, pose and beam table read once, the packed rows, depth,
-    valid and count written once; the heads' products and the per-gaussian
-    operations of the decode and the projection (the prefilter one
-    projection an anchor). Returns F1's entry of the kernels line, whose
-    `launches` are phase 1's (`f1_launches`)."""
+def front_phase(dev, variant: str, launches: int) -> dict:
+    """Phase 36 (F1, "beam") or 37 (F2, "surfel"): the kernel on its render
+    cell's field (the benchmark's draw from F1_SEED, at its live extent)
+    against its plain version on the poses F1_POSES, column by column
+    (`front_agreement`, `surfel_front_agreement`), one launch a call; the
+    wrapper timed (CUDA events, median of F1_TIMED) eager and as a graph,
+    the plain version as a graph (median of 5), the kernel's device ms from
+    the profiler, and its bound from this run's inputs: the anchor rows,
+    heads, pose and beam table read once, the rows, depth, valid and count
+    written once; the heads' products and the per-gaussian operations of
+    the decode and the projection or surfel preprocess (the prefilter one
+    projection an anchor). Returns the kernel's entry of the kernels line,
+    whose `launches` are phase 1's or phase 10's (`launches`)."""
     import numpy as np
     import torch
 
-    from lidargs_torch.models.field import anchor_rows, field_splats
+    from lidargs_torch.models.field import anchor_rows, field_splats, field_surfels
     from lidargs_torch.ops import front_kernel as fk
-    from lidargs_torch.ops.projection import PackedCols as PC
+    from lidargs_torch.ops.projection import PackedCols
+    from lidargs_torch.ops.surfel import SurfelCols
     from lidargs_torch.train import graphs
-    from lidargs_torch.utils.testing import front_agreement
+    from lidargs_torch.utils.testing import front_agreement, surfel_front_agreement
     from portbench import run
     from portbench.drive import port_configs, port_frame
     from portbench.scene import novel_poses
 
+    surfel = variant == "surfel"
+    phase, name = (37, "F2") if surfel else (36, "F1")
+    kernel, plain_fn = ((fk.surfel_front_packed, fk.surfel_front_packed_plain) if surfel
+                        else (fk.front_packed, fk.front_packed_plain))
+    agreement, front, cols = ((surfel_front_agreement, field_surfels, SurfelCols) if surfel
+                              else (front_agreement, field_splats, PackedCols))
     t0 = time.perf_counter()
-    cell = render_cell()
+    cell = render_cell(variant)
     inputs = run.make_inputs(cell, F1_SEED, dev)
     mcfg, rcfg, _ = port_configs(cell.config)
     B = graphs.extent_rule(graphs.live_mark(inputs.valid), inputs.valid.shape[0])
@@ -996,23 +1014,23 @@ def f1_phase(dev, f1_launches: int) -> dict:
     with torch.no_grad():
         for i, frame in zip(F1_POSES, frames):
             with counting() as n:
-                got = fk.front_packed(params, valid, frame, mcfg, rcfg)
-            if n["F1"] != 1:
-                fail(f"phase 36: {n['F1']} F1 launches in one call")
-            want = fk.front_packed_plain(params, valid, frame, mcfg, rcfg)
-            culled = (valid & ~field_splats(params, valid, frame, mcfg, rcfg)[2])
-            numbers = front_agreement(got, want, valid, C, culled.repeat_interleave(k))
+                got = kernel(params, valid, frame, mcfg, rcfg)
+            if n[name] != 1:
+                fail(f"phase {phase}: {n[name]} {name} launches in one call")
+            want = plain_fn(params, valid, frame, mcfg, rcfg)
+            culled = (valid & ~front(params, valid, frame, mcfg, rcfg)[2])
+            numbers = agreement(got, want, valid, C, culled.repeat_interleave(k))
             if numbers["faults"]:
-                fail(f"phase 36: F1 against its plain version, pose {i}: {numbers}")
+                fail(f"phase {phase}: {name} against its plain version, pose {i}: {numbers}")
             agree.append({"pose": i, **{n: v for n, v in numbers.items() if n != "faults"}})
-        f1 = lambda: fk.front_packed(params, valid, frames[0], mcfg, rcfg)
-        plain = lambda: fk.front_packed_plain(params, valid, frames[0], mcfg, rcfg)
-        eager_ms = float(np.median(event_ms(f1, F1_TIMED, 5)))
-        f1_graph = graphs.StaticProgram(f1, lambda o: o, dev).run
+        call = lambda: kernel(params, valid, frames[0], mcfg, rcfg)
+        plain = lambda: plain_fn(params, valid, frames[0], mcfg, rcfg)
+        eager_ms = float(np.median(event_ms(call, F1_TIMED, 5)))
+        call_graph = graphs.StaticProgram(call, lambda o: o, dev).run
         plain_graph = graphs.StaticProgram(plain, lambda o: o, dev).run
-        graph_ms = float(np.median(event_ms(f1_graph, F1_TIMED, 5)))
+        graph_ms = float(np.median(event_ms(call_graph, F1_TIMED, 5)))
         plain_ms = float(np.median(event_ms(plain_graph, 5, 1)))
-        prof = profiling.profile(f1_graph)
+        prof = profiling.profile(call_graph)
         plain_prof = profiling.profile(plain_graph)
     d_in = params["mlp_opacity"]["l1"]["w"].shape[0]
     P = B * k
@@ -1020,16 +1038,18 @@ def f1_phase(dev, f1_launches: int) -> dict:
                   for layer in ("l1", "l2") for part in ("w", "b"))
     n_frame = sum(getattr(frames[0], n).numel() for n in fk.FRAME_INPUTS)
     n_bytes = (4 * (sum(params[n].numel() for n in fk.ANCHOR_INPUTS) + n_heads + n_frame) + B
-               + P * (4 * PC.width(C) + 4 + 1) + 8)
+               + P * (4 * cols.width(C) + 4 + 1) + 8)
+    row_ops = OPS_SURFEL_PROJECT if surfel else OPS_PROJECT
     ops = (B * (2 * d_in * len(fk.HEADS) * fk.HIDDEN + 2 * fk.HIDDEN * sum(fk.head_widths(mcfg))
                 + OPS_PROJECT)
-           + P * (OPS_DECODE_ELEMENTWISE + OPS_PROJECT))
+           + P * (OPS_DECODE_ELEMENTWISE + row_ops))
     b = bound(n_bytes, ops)
+    source = "surfel_front_fwd" if surfel else "front_fwd"
+    replaces = ("none: XLA's front, lidargs_tpu/models/field.py:274 and :161"
+                + (", lidargs_tpu/ops/surfel.py:81" if surfel else ""))
     out = kernel_entry(
-        "front_fwd", "lidargs_torch/csrc/front_fwd.cu",
-        "none: XLA's front, lidargs_tpu/models/field.py:274 and :161", f1_launches,
-        graph_ms, plain_ms, b, anchors=B, rows=P,
-        max_abs_err=max(a["float_max_abs"] for a in agree),
+        source, f"lidargs_torch/csrc/{source}.cu", replaces, launches, graph_ms, plain_ms, b,
+        anchors=B, rows=P, max_abs_err=max(a["float_max_abs"] for a in agree),
         conic_rel_err=max(a["conic_rel_max"] for a in agree),
         valid_agree=min(a["valid_agree"] for a in agree),
         rect_agree=min(a["rect_agree"] for a in agree))
@@ -1039,7 +1059,7 @@ def f1_phase(dev, f1_launches: int) -> dict:
                bound_share=(b["bound_ms"] / prof["device_ms_per_frame"]
                             if isinstance(prof["device_ms_per_frame"], float) else None),
                seconds=time.perf_counter() - t0)
-    print(f"# phase 36 F1: {json.dumps({**out, 'agreement': agree})}", file=sys.stderr)
+    print(f"# phase {phase} {name}: {json.dumps({**out, 'agreement': agree})}", file=sys.stderr)
     return out
 
 
@@ -1240,9 +1260,10 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     with torch.no_grad(), counting() as n:
         res = measure_fps(params, valid, frames, mcfg, rcfg, bg, warmup=WARMUP, device=dev,
                           variant="surfel")
-    k5_launches = n["K5"]
-    if k5_launches != N_FRAMES:
-        fail(f"K5 launched {k5_launches} times for {N_FRAMES} surfel frames")
+    k5_launches, f2_launches = n["K5"], n["F2"]
+    if k5_launches != N_FRAMES or f2_launches != N_FRAMES:
+        fail(f"K5 launched {k5_launches} and F2 {f2_launches} times for {N_FRAMES} surfel "
+             "frames")
     for i, out in enumerate(res.outputs):
         shapes = {"color": (C, H, W), "depth": (H, W), "occ": (H, W), "final_T": (H, W),
                   "normal": (3, H, W), "median_depth": (H, W), "distortion": (H, W)}
@@ -1387,7 +1408,8 @@ def surfel_phases(dev, params, valid, mcfg, beams, frames):
     print(f"# K6 bound {b6['bound_ms']:.4f} ms ({b6['bound_by']}); (tile, warp, row) visits "
           f"that reduce: {w6} for {a6} applied pairs", file=sys.stderr)
     summary = {
-        "raster": SURFEL_RASTER, "main_path": main_path, "golden_small_err": err_gold,
+        "raster": SURFEL_RASTER, "main_path": main_path, "f2_launches": f2_launches,
+        "golden_small_err": err_gold,
         "k5_inputs": k5_inputs, "k5_err": err_k5, "k6_err": err_k6,
         "render_ms_per_frame_median": med(render_ms), "render_ms_per_frame_min": min(render_ms),
         "render_ms_per_frame_max": max(render_ms), "render_samples": len(render_ms),
@@ -2558,7 +2580,7 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
     import torch
 
     from lidargs_torch.config import OptConfig
-    from lidargs_torch.models.field import AnchorField, frame_render, render_frame_packed
+    from lidargs_torch.models.field import PACKED_FRAMES, AnchorField, frame_render
     from lidargs_torch.train import Trainer, init_train_state
     from lidargs_torch.train.graphs import RenderGraphs, clone_outputs
     from lidargs_torch.train.trainer import clone_state
@@ -2598,18 +2620,18 @@ def stage_phase(dev, variant: str, params, valid, mcfg, rcfg, frame, modes) -> d
     out = {"variant": variant, "raster": {k: getattr(rcfg, k) for k in (
                "tile_h", "tile_capacity", "max_tiles_per_gaussian", "max_visible")},
            "frame_row_bit_equal": bit_equal, "n_visible": int(frame_row.visible.sum())}
-    if frame_render(variant, params, mcfg, rcfg) is render_frame_packed:
-        # RenderGraphs' front is F1, the row's the torch front: the beam
-        # render check's numbers and limits instead
+    if frame_render(variant, params, mcfg, rcfg) in PACKED_FRAMES.values():
+        # RenderGraphs' front is F1 or F2, the row's the torch front: the
+        # variant's render check's numbers and limits instead
         from portbench import check
 
-        limits = render_cell().limits
-        out["frame_row_vs_f1"] = check.render_numbers(
+        limits = render_cell(variant).limits
+        out["frame_row_vs_packed"] = check.render_numbers(
             {0: (graphed.color, graphed.depth)}, {0: (frame_row.color, frame_row.depth)},
             rcfg.far, limits["far_atol"])
-        if not check.judge(out["frame_row_vs_f1"], limits["limits"]):
-            fail(f"phase 35: the {variant} full-frame row is off RenderGraphs' F1 render: "
-                 f"{out['frame_row_vs_f1']}")
+        if not check.judge(out["frame_row_vs_packed"], limits["limits"]):
+            fail(f"phase 35: the {variant} full-frame row is off RenderGraphs' one-kernel "
+                 f"front's render: {out['frame_row_vs_packed']}")
     elif not bit_equal:
         fail(f"phase 35: the {variant} full-frame row differs from RenderGraphs' render")
     if "train" in modes:
@@ -2688,7 +2710,8 @@ def count_plain_launches(setter=setattr) -> None:
                               (sk, "surfel_composite_windows", "K7"),
                               (sk, "surfel_composite_windows_bwd", "K8"),
                               (knn, "_chamfer_dir", "N1"), (knn, "knn_sqdist", "N2"),
-                              (knn, "knn3_mean_sq_dist", "N3"), (fk, "front_packed", "F1")):
+                              (knn, "knn3_mean_sq_dist", "N3"), (fk, "front_packed", "F1"),
+                              (fk, "surfel_front_packed", "F2")):
         def counted(*a, plain=getattr(mod, name + "_plain"), symbol=KERNELS[kernel], **k):
             cuda_build.launches[symbol] += 1
             return plain(*a, **k)

@@ -18,9 +18,10 @@ anchor lies below B (`train/graphs.py` `LiveExtent`), and the rows above
 are padding that the render masks.
 
 `render_frame_packed` is the forward beam frame whose front is one kernel
-(`ops/front_kernel.py` `front_packed`: F1 on a card); `frame_render` gives it
-for the layouts F1 takes (`front_kernel.takes`) and `render_fn`'s path for
-every other.
+(`ops/front_kernel.py` `front_packed`: F1 on a card), `render_surfel_packed`
+the surfel frame's (`surfel_front_packed`: F2 on a card); `frame_render`
+gives them for the layouts the kernels take (`front_kernel.takes`) and
+`render_fn`'s path for every other.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from ..ops import front_kernel
 from ..ops.projection import preprocess_gaussians, preprocess_gaussians_hv, unit_x, visible_filter
 from ..ops.rasterize import (RenderOut, cull_packed, permutation_rows, render_packed_window,
                              render_tiled, tiled_image)
-from ..ops.surfel import SurfelOut, preprocess_surfels, render_surfels
+from ..ops.surfel import SurfelCols, SurfelOut, preprocess_surfels, render_surfels, surfel_image
 from ..utils.device import resolve_device
 from .mlp import apply_mlp, init_mlp
 
@@ -442,13 +443,37 @@ def render_frame_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
     return out, None, None
 
 
+def render_surfel_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                         mcfg: ModelConfig, rcfg: RasterConfig, bg: torch.Tensor,
+                         mean_proxy: Optional[torch.Tensor] = None):
+    """The forward surfel frame with its front as one kernel:
+    `surfel_front_packed` (F2 on a card) -> the cull sort on its depth and
+    count (`cull_packed`) -> `surfel_image` (K5, or K7 with `fused_gather`).
+    Returns (SurfelOut, None, None): no NeuralGaussians and no gradient. On
+    the CPU its output is `render_field_surfel`'s, bit for bit. Takes the
+    layouts of `front_kernel.takes` and no proxy."""
+    if mean_proxy is not None:
+        raise ValueError("render_surfel_packed is the forward frame: it takes no mean proxy")
+    pk, depth, visible, n_valid = front_kernel.surfel_front_packed(params, valid, frame, mcfg,
+                                                                   rcfg)
+    C = mcfg.color_channel
+    pkv, n_dropped = cull_packed(pk, depth, n_valid, rcfg, C, SurfelCols)
+    out = surfel_image(pkv, frame.beams, frame.W, bg, rcfg, C, visible, n_dropped)
+    return out, None, None
+
+
+PACKED_FRAMES = {"beam": render_frame_packed, "surfel": render_surfel_packed}
+
+
 def frame_render(variant: str, params: dict, mcfg: ModelConfig, rcfg: RasterConfig):
-    """The forward frame of a variant for this layout: `render_frame_packed`
-    for the beam variant where F1 takes the layout (`front_kernel.takes`),
-    else `render_fn`'s."""
-    if variant == "beam" and front_kernel.takes(params, mcfg, rcfg):
-        return render_frame_packed
-    return render_fn(variant)
+    """The forward frame of a variant for this layout: its packed frame
+    (`PACKED_FRAMES`: `render_frame_packed`, `render_surfel_packed`) where
+    the one-kernel fronts take the layout (`front_kernel.takes`), else
+    `render_fn`'s."""
+    render = render_fn(variant)
+    if front_kernel.takes(params, mcfg, rcfg):
+        return PACKED_FRAMES[variant]
+    return render
 
 
 def render_fn(variant: str):

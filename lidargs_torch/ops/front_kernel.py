@@ -1,26 +1,34 @@
-"""The forward beam front as one kernel: F1 and its plain version.
+"""The forward fronts as one kernel each: F1 (beam) and F2 (surfel), and
+their plain versions.
 
 `front_packed` is the front of a re-simulated beam frame, prefilter ->
 decode -> projection -> pack, on the anchor rows it is given. On a CUDA
 tensor it launches the hand-written kernel F1 (`csrc/front_fwd.cu`, built
 with nvcc for sm_90a at the first call and loaded with ctypes); on a CPU
 tensor it runs its plain version, `pack_splats(field_splats(...)[0])`, the
-torch path itself. There is no fallback from one to the other: a CUDA input
-F1 cannot take raises (`check_front_inputs`).
+torch path itself. `surfel_front_packed` is the surfel frame's front,
+prefilter -> decode -> surfel preprocess: F2 (`csrc/surfel_front_fwd.cu`)
+on a CUDA tensor, `field_surfels(...)[0]` on a CPU tensor. The two kernels
+share the prefilter, the decode and the walk (`csrc/front_decode.cuh`) and
+differ in the row they write. There is no fallback from a kernel to its
+plain version: a CUDA input the kernels cannot take raises
+(`check_front_inputs`).
 
-F1 computes no gradient: it serves the forward frame alone
-(`models/field.py` `render_frame_packed`), for the layouts `takes` names:
-heads that share one input (`heads_fusable`) of HIDDEN units each, at most
-MAX_CHANNELS channels, no feature bank and no visible-anchor cap. The frame
-takes the packed path for those layouts alone, on the CPU too, so that the
-CPU tests hold the choice the card makes. F1's launches are counted under
-its symbol, `lidargs_front_fwd`, in `utils/cuda_build.py` `launches`.
+F1 and F2 compute no gradient: they serve the forward frame alone
+(`models/field.py` `render_frame_packed`, `render_surfel_packed`), for the
+layouts `takes` names: heads that share one input (`heads_fusable`) of
+HIDDEN units each, at most MAX_CHANNELS channels, no feature bank and no
+visible-anchor cap. The frame takes the packed path for those layouts
+alone, on the CPU too, so that the CPU tests hold the choice the card
+makes. The launches are counted under each kernel's symbol,
+`lidargs_front_fwd` and `lidargs_surfel_front_fwd`, in
+`utils/cuda_build.py` `launches`.
 
 Layout:
-  pk      [P, F] f32  packed rows (PackedCols), P = B * k, row a * k + j the
-                      j-th gaussian of anchor a
+  pk      [P, F] f32  rows, P = B * k, row a * k + j the j-th gaussian of
+                      anchor a: PackedCols (F1) or SurfelCols (F2)
   depth   [P]    f32  range, 4 * far on invalid rows (the cull sort's key)
-  valid   [P]    bool survives culling (RenderOut.visible)
+  valid   [P]    bool survives culling (RenderOut.visible, SurfelOut.visible)
   n_valid []     i64  the count of valid rows
 """
 from __future__ import annotations
@@ -37,6 +45,7 @@ from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
 from ..utils import cuda_build
 from .projection import PackedCols, pack_splats
+from .surfel import SurfelCols
 
 HEADS = ("mlp_opacity", "mlp_color", "mlp_raydrop", "mlp_cov")
 ANCHOR_INPUTS = ("anchor", "offset", "feat", "scaling", "rotation")
@@ -48,6 +57,8 @@ FRAME_INPUTS = ("w2s_rot", "w2s_trans", "center", "beams")
 # stream: B, k, fd, d_in, C, H, W, bx, by, then near, far, lowpass, margin,
 # col_pitch, inv_col, inv_bx, inv_by, sentinel
 _ARGS = [ctypes.c_int] * 9 + [ctypes.c_float] * 9
+# F2's: F1's, then the surfel centre's divergence margin
+_SURFEL_ARGS = _ARGS + [ctypes.c_float]
 
 
 def front_packed_plain(params: dict, valid: torch.Tensor, frame: LidarFrame,
@@ -60,6 +71,17 @@ def front_packed_plain(params: dict, valid: torch.Tensor, frame: LidarFrame,
     return pack_splats(sp), sp.depth, sp.valid, sp.valid.sum()
 
 
+def surfel_front_packed_plain(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                              mcfg: ModelConfig, rcfg: RasterConfig):
+    """The plain version of F2, the torch path: (`field_surfels`' packed
+    rows, their depth column, valid and valid count)."""
+    from ..models.field import field_surfels
+
+    pk = field_surfels(params, valid, frame, mcfg, rcfg)[0]
+    vis = pk[:, SurfelCols.validf(mcfg.color_channel)] > 0.0
+    return pk, pk[:, SurfelCols.DEPTH], vis, vis.sum()
+
+
 def head_widths(mcfg: ModelConfig) -> tuple:
     """The second layers' widths of the four heads, in HEADS' order."""
     k = mcfg.n_offsets
@@ -67,11 +89,12 @@ def head_widths(mcfg: ModelConfig) -> tuple:
 
 
 def refusal(params: dict, mcfg: ModelConfig, rcfg: RasterConfig) -> Optional[str]:
-    """Why `front_packed` does not compute this layout's front, or None
-    where it does: the four heads read one input (`heads_fusable`), each of
-    HIDDEN units, C in 1..MAX_CHANNELS, no feature bank, no visible-anchor
-    cap. The one place that decides it: `models/field.py` `frame_render`
-    chooses the packed frame by it, `check_front_inputs` refuses by it."""
+    """Why `front_packed` and `surfel_front_packed` do not compute this
+    layout's front, or None where they do: the four heads read one input
+    (`heads_fusable`), each of HIDDEN units, C in 1..MAX_CHANNELS, no
+    feature bank, no visible-anchor cap. The one place that decides it, for
+    both kernels: `models/field.py` `frame_render` chooses the packed frame
+    by it, `check_front_inputs` refuses by it."""
     from ..models.field import heads_fusable
 
     cap = rcfg.visible_anchor_cap
@@ -89,21 +112,22 @@ def refusal(params: dict, mcfg: ModelConfig, rcfg: RasterConfig) -> Optional[str
 
 
 def takes(params: dict, mcfg: ModelConfig, rcfg: RasterConfig) -> bool:
-    """Whether `front_packed` computes this layout's front (`refusal`)."""
+    """Whether `front_packed` and `surfel_front_packed` compute this
+    layout's front (`refusal`)."""
     return refusal(params, mcfg, rcfg) is None
 
 
 def check_front_inputs(params: dict, valid: torch.Tensor, frame: LidarFrame,
                        mcfg: ModelConfig, rcfg: RasterConfig) -> int:
-    """Raise on inputs F1 cannot take; return the heads' input width d_in.
-    F1 takes a layout of `takes`, contiguous float32 anchor rows [B, ...]
+    """Raise on inputs F1 and F2 cannot take; return the heads' input width
+    d_in. They take a layout of `takes`, contiguous float32 anchor rows [B, ...]
     and a bool [B] `valid` on one card, heads shaped as the layout says
     (d_in = feat_dim + 3, +1 with the distance), a beam table of at least 2
     rows (as `render_field` needs too) and the frame's pose on the same
     card."""
     why = refusal(params, mcfg, rcfg)
     if why is not None:
-        raise ValueError(f"F1 does not take this layout: {why}")
+        raise ValueError(f"F1 and F2 do not take this layout: {why}")
     dev = valid.device
     B = valid.shape[0]
     k, fd = mcfg.n_offsets, mcfg.feat_dim
@@ -160,18 +184,46 @@ def front_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
     plain version on a CPU tensor."""
     if valid.device.type == "cpu":
         return front_packed_plain(params, valid, frame, mcfg, rcfg)
+    return _launch("front_fwd", "lidargs_front_fwd", _ARGS, PackedCols, (), params, valid,
+                   frame, mcfg, rcfg)
+
+
+def surfel_front_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
+                        mcfg: ModelConfig, rcfg: RasterConfig):
+    """The forward surfel front on the anchor rows of `params` / `valid`:
+    (pk [P, F] in SurfelCols, depth [P], valid [P], n_valid). F2 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if valid.device.type == "cpu":
+        return surfel_front_packed_plain(params, valid, frame, mcfg, rcfg)
+    return _launch("surfel_front_fwd", "lidargs_surfel_front_fwd", _SURFEL_ARGS, SurfelCols,
+                   (rcfg.surfel_ray_divergence_angle,), params, valid, frame, mcfg, rcfg)
+
+
+def _launch(source: str, symbol: str, scalar_types: list, cols, extra: tuple, params: dict,
+            valid: torch.Tensor, frame: LidarFrame, mcfg: ModelConfig, rcfg: RasterConfig):
+    """F1 or F2 (`symbol` of `csrc/<source>.cu`) on the rows [0, B), rows
+    of `cols`' width; `extra` the scalars after F1's."""
     if valid.device.type != "cuda":
-        raise ValueError(f"front_packed: unsupported device {valid.device}")
+        raise ValueError(f"{symbol}: unsupported device {valid.device}")
+    outs, tensors, scalars = launch_args(params, valid, frame, mcfg, rcfg, cols)
+    if valid.shape[0] > 0:
+        cuda_build.launch(source, symbol, scalar_types, tensors, scalars + extra)
+    return outs
+
+
+def launch_args(params: dict, valid: torch.Tensor, frame: LidarFrame, mcfg: ModelConfig,
+                rcfg: RasterConfig, cols=PackedCols):
+    """The outputs (pk of `cols`' width, depth, valid, n_valid zeroed), the
+    tensors and F1's scalars of a launch of F1 or F2, after
+    `check_front_inputs`."""
     d_in = check_front_inputs(params, valid, frame, mcfg, rcfg)
     dev = valid.device
     B, k, C = valid.shape[0], mcfg.n_offsets, mcfg.color_channel
     P = B * k
-    pk = torch.empty((P, PackedCols.width(C)), dtype=torch.float32, device=dev)
+    pk = torch.empty((P, cols.width(C)), dtype=torch.float32, device=dev)
     depth = torch.empty((P,), dtype=torch.float32, device=dev)
     vout = torch.empty((P,), dtype=torch.bool, device=dev)
     n_valid = torch.zeros((), dtype=torch.int64, device=dev)
-    if B == 0:
-        return pk, depth, vout, n_valid
     heads = [params[h][layer][part] for h in HEADS for layer, part in
              (("l1", "w"), ("l1", "b"), ("l2", "w"), ("l2", "b"))]
     tensors = ([params[n] for n in ANCHOR_INPUTS] + [valid] + heads
@@ -182,5 +234,4 @@ def front_packed(params: dict, valid: torch.Tensor, frame: LidarFrame,
                rcfg.near, rcfg.far, rcfg.lowpass, 2.0 * rcfg.ray_divergence_angle, pitch,
                _f32(np.float32(1.0) / np.float32(pitch)), _f32(np.float32(1.0) / np.float32(bx)),
                _f32(np.float32(1.0) / np.float32(by)), 4.0 * rcfg.far)
-    cuda_build.launch("front_fwd", "lidargs_front_fwd", _ARGS, tensors, scalars)
-    return pk, depth, vout, n_valid
+    return (pk, depth, vout, n_valid), tensors, scalars

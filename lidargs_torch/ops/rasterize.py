@@ -347,18 +347,19 @@ def cull_sorted_rows(splats: Splats, cfg: RasterConfig):
 
 
 def cull_packed(pk: torch.Tensor, depth: torch.Tensor, n_valid: torch.Tensor,
-                cfg: RasterConfig, C: int):
-    """`cull_sorted_rows` of packed rows [P, F] of C channels, given their
-    depth [P] and count of valid rows: the first min(max_visible, P) rows in
-    depth order and the count of valid rows beyond max_visible. The packed
-    rows are where the front ends (its stamp carries the valid rows and the
-    rows it processed)."""
+                cfg: RasterConfig, C: int, cols=PackedCols):
+    """`cull_sorted_rows` of packed rows [P, F] of C channels in `cols`'
+    layout (PackedCols, or `surfel.py`'s SurfelCols), given their depth [P]
+    and count of valid rows: the first min(max_visible, P) rows in depth
+    order and the count of valid rows beyond max_visible. The packed rows
+    are where the front ends (its stamp carries the valid rows and the rows
+    it processed)."""
     P = pk.shape[0]
     V = min(cfg.max_visible, P)
     (pk,) = telemetry.boundary("front", "raster_bwd", pk, values=(n_valid,), rows=P)
     sel = torch.sort(depth, stable=True).indices
     pkv = permutation_rows(pk, sel, V)                          # [V, F]
-    vvalid = pkv[:, PackedCols.validf(C)] > 0.0
+    vvalid = pkv[:, cols.validf(C)] > 0.0
     n_dropped = n_valid - vvalid.sum()
     return pkv, n_dropped
 

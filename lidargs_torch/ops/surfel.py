@@ -36,8 +36,7 @@ from ..config import RasterConfig
 from ..utils.profiling import telemetry
 from .composite import pixel_rays
 from .projection import _project_rows, quat_to_rotmat, unit_x
-from .rasterize import (_pix_blocks, _tile_pixels, bin_instances, permutation_rows,
-                        window_inputs)
+from .rasterize import _pix_blocks, _tile_pixels, bin_instances, cull_packed, window_inputs
 
 _TWO_PI = 2.0 * math.pi
 
@@ -360,18 +359,13 @@ def surfel_composite(
 def cull_sorted_surfels(pk: torch.Tensor, cfg: RasterConfig, C: int):
     """Cull + compact + depth presort in ONE stable sort: the first
     min(max_visible, P) packed rows in depth order ([V, F]) and the count of
-    valid surfels beyond max_visible. Invalid rows carry the same 4*far
-    sentinel depth, so stability keeps the JAX package's row order. The
-    packed rows are where the front ends (its stamp carries the valid rows
-    and the rows it processed)."""
-    V = min(cfg.max_visible, pk.shape[0])
-    vf = SurfelCols.validf(C)
-    n_valid = (pk[:, vf] > 0.0).sum()
-    (pk,) = telemetry.boundary("front", "raster_bwd", pk, values=(n_valid,), rows=pk.shape[0])
-    sel = torch.sort(pk[:, SurfelCols.DEPTH], stable=True).indices
-    pkv = permutation_rows(pk, sel, V)
-    n_dropped = n_valid - (pkv[:, vf] > 0.0).sum()
-    return pkv, n_dropped
+    valid surfels beyond max_visible (`cull_packed` on the rows' own depth
+    column and valid count). Invalid rows carry the same 4*far sentinel
+    depth, so stability keeps the JAX package's row order. The packed rows
+    are where the front ends (its stamp carries the valid rows and the rows
+    it processed)."""
+    n_valid = (pk[:, SurfelCols.validf(C)] > 0.0).sum()
+    return cull_packed(pk, pk[:, SurfelCols.DEPTH], n_valid, cfg, C, SurfelCols)
 
 
 def surfel_tile_inputs(pkv: torch.Tensor, beams: torch.Tensor, W: int, cfg: RasterConfig,
@@ -402,14 +396,26 @@ def render_surfels(
     golden: bool = False,
 ) -> SurfelOut:
     """Tiled surfel render (golden=True: one whole-image list through the
-    chunk scan, the test oracle). With `cfg.fused_gather` the tiles read
-    windows of one sorted buffer (K7 and K8 on the card) instead of
-    [T, K, F] lists (K5 and K6)."""
+    chunk scan, the test oracle): the cull (`cull_sorted_surfels`), then
+    `surfel_image`."""
+    pkv, n_dropped = cull_sorted_surfels(pk, cfg, C)
+    return surfel_image(pkv, beams, W, bg, cfg, C, pk[:, SurfelCols.validf(C)] > 0.0, n_dropped,
+                        golden)
+
+
+def surfel_image(pkv: torch.Tensor, beams: torch.Tensor, W: int, bg: torch.Tensor,
+                 cfg: RasterConfig, C: int, visible: torch.Tensor, n_dropped,
+                 golden: bool = False) -> SurfelOut:
+    """The render of the culled, depth-ordered packed surfels `pkv` [V, F]:
+    the tiles' composite and the image. With `cfg.fused_gather` the tiles
+    read windows of one sorted buffer (K7 and K8 on the card) instead of
+    [T, K, F] lists (K5 and K6); golden=True runs one whole-image list
+    through the chunk scan. `visible` [P] and `n_dropped` pass through to
+    the SurfelOut."""
     from .surfel_kernel import SurfelCompositeTiles, SurfelCompositeWindows
 
     H = beams.shape[0]
-    dev = pk.device
-    pkv, n_dropped = cull_sorted_surfels(pk, cfg, C)
+    dev = pkv.device
     if golden:
         V = pkv.shape[0]
         gy, gx, th, tw = 1, 1, H, W
@@ -453,7 +459,7 @@ def render_surfels(
         normal=asmc(nrm),
         median_depth=asm1(med),
         distortion=asm1(dist),
-        visible=pk[:, SurfelCols.validf(C)] > 0.0,
+        visible=visible,
         n_dropped=n_dropped,
         n_overflow=n_overflow,
     )

@@ -55,11 +55,12 @@ warm-up runs stamp nothing. Each program made is counted
 (`telemetry.captures`) under a host span `capture`, and the extent of the
 last program built is `telemetry.extent`.
 
-A beam frame's front is one kernel (`models/field.py` `render_frame_packed`,
-F1 on a card) where F1 takes the layout (`frame_render`,
-`ops/front_kernel.py` `takes`). Each render program made with it on a
-card, and each eager frame rendered with it on a card, is counted
-(`telemetry.fused_fronts`); on the CPU its front is the plain version.
+A frame's front is one kernel (`models/field.py` `render_frame_packed`, F1
+on a card, and `render_surfel_packed`, F2) where the kernels take the
+layout (`frame_render`, `ops/front_kernel.py` `takes`). Each render
+program made with either on a card, and each eager frame rendered with
+either on a card, is counted (`telemetry.fused_fronts`); on the CPU their
+front is the plain version.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ import torch
 
 from ..config import ModelConfig, RasterConfig
 from ..lidar.frames import LidarFrame
-from ..models.field import anchor_rows, frame_render, render_fn, render_frame_packed
+from ..models.field import PACKED_FRAMES, anchor_rows, frame_render, render_fn
 from ..utils import cuda_build
 from ..utils.profiling import telemetry
 from .optim import tree_leaves
@@ -258,8 +259,8 @@ class RenderGraphs:
     `valid` a densify rewrites in place), else the live extent of `valid`
     (`LiveExtent`). `graphed` as `use_graphs` reads it: False (or None on
     the CPU) renders eagerly, on the same rows. The frame is
-    `frame_render`'s for the params' layout: the beam variant's front as
-    one kernel where it takes the layout. `refine(color, depth) ->
+    `frame_render`'s for the params' layout: the front as one kernel where
+    it takes the layout. `refine(color, depth) ->
     color`, where given, replaces each frame's [intensity, raydrop] inside
     the program (`refine_frame`); without it the program is the field's
     render alone."""
@@ -303,9 +304,10 @@ class RenderGraphs:
     def render_for(self, params: dict, device: torch.device):
         """The frame's render for `params`' layout (`frame_render`),
         counted in `telemetry.fused_fronts` where its front runs as one
-        kernel, F1 on a card: once a program, or once an eager frame."""
+        kernel, F1 or F2 on a card: once a program, or once an eager
+        frame."""
         render = frame_render(self.variant, params, self.mcfg, self.rcfg)
-        if render is render_frame_packed and device.type == "cuda":
+        if render in PACKED_FRAMES.values() and device.type == "cuda":
             telemetry.fused_fronts += 1
         return render
 

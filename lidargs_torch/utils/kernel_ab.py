@@ -4,7 +4,8 @@
 
 For each `csrc` directory it builds the sources of `KERNELS` that the tree
 has (K1 `composite_fwd.cu`, K2 `composite_bwd.cu`, K5 `surfel_fwd.cu`, K6
-`surfel_bwd.cu`, N1-N3 `knn.cu`), or only the SOURCEs named, with the
+`surfel_bwd.cu`, N1-N3 `knn.cu`, F1 `front_fwd.cu`, F2
+`surfel_front_fwd.cu`), or only the SOURCEs named, with the
 package's nvcc flags (all trees at once), writes each library's SASS and
 resource usage (`cuobjdump -sass -res-usage`) to OUT_DIR/<label>.<source>.sass
 and reads the registers and spill bytes of each kernel instance from the
@@ -25,7 +26,10 @@ distance inputs are the procedural street of `chip_smoke.py`'s CLI phases
 (`make_street_dataset`, seed 0, 50 frames of 64x2650, written under
 OUT_DIR and deleted after): N1 from test frame 0's points to test frame 1's
 (~160k a side, every row valid), N2 the 4 smallest and N3 the exact 3-NN
-on the 500k init cloud. A tree whose `knn.cu` takes the packed point set
+on the 500k init cloud. F1 and F2 take the shell field's anchor rows and
+heads at frame 0's pose (F1 at the beam tiling, F2 at the surfel one), their
+count zeroed in each timed call, and are judged on their rows, depth, valid
+and count. A tree whose `knn.cu` takes the packed point set
 runs N1 and N2 under the package's launch plan (`ops/knn_kernel.py`
 `launch_plan`), the packing in the timed call, and with each cluster size
 of `KNN_CLUSTERS`; a tree of the first design (point rows and norms, one
@@ -73,7 +77,10 @@ KERNELS = {"composite_fwd": (("lidargs_composite_fwd", 4, 5, 3),),
            "surfel_fwd": (("lidargs_surfel_fwd", 4, 5, 8),),
            "surfel_bwd": (("lidargs_surfel_bwd", 6, 5, 8),),
            "knn": (("lidargs_knn_chamfer", 5, 5, 0), ("lidargs_knn_gram_topk", 4, 6, 0),
-                   ("lidargs_knn3_direct", 3, 5, 0))}
+                   ("lidargs_knn3_direct", 3, 5, 0)),
+           "front_fwd": (("lidargs_front_fwd", 30, 9, 9),),
+           "surfel_front_fwd": (("lidargs_surfel_front_fwd", 30, 9, 10),)}
+COMPOSITES = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd")
 # the first design's knn interface: the point rows and their norms
 KNN_ROWS = (("lidargs_knn_chamfer", 6, 2, 0), ("lidargs_knn_gram_topk", 5, 3, 0))
 # the first design of N3: the point rows, one row a thread
@@ -423,6 +430,52 @@ def _composite_calls(libs: dict, dev, stream, keep: list) -> tuple[dict, dict, d
     return calls, outs, nvs, shapes
 
 
+FRONTS = {"front_fwd": "beam", "surfel_front_fwd": "surfel"}     # source -> variant
+
+
+def _front_calls(libs: dict, dev, stream) -> tuple[dict, dict, dict]:
+    """({(label, kernel): launch}, {(label, kernel): (pk, depth, valid,
+    n_valid)}, {kernel: input sizes}) of F1 and F2 for every tree that has
+    their sources: the shell field of the composite inputs (`shell_field`,
+    N_ANCHORS of the capacity) at frame 0's pose, F1 at the beam tiling, F2
+    at the surfel one. Each launch zeroes the count first."""
+    import torch
+
+    from ..config import ModelConfig, RasterConfig
+    from ..lidar import LidarFrame, uniform_beam_inclinations
+    from ..ops import front_kernel as fk
+    from ..ops.projection import PackedCols
+    from ..ops.surfel import SurfelCols
+    from .testing import sensor_poses, shell_field
+
+    mcfg = ModelConfig(**MODEL)
+    params, valid = shell_field(mcfg, N_ANCHORS, seed=0, device=dev)
+    frame = LidarFrame.from_lidar2world(sensor_poses(1, seed=1)[0],
+                                        uniform_beam_inclinations(2.4, 20.9, H),
+                                        np.zeros((3, H, W), np.float32), device=dev)
+    calls, outs, shapes = {}, {}, {}
+    for name, variant in FRONTS.items():
+        surfel = variant == "surfel"
+        rcfg = RasterConfig(**(SURFEL_RASTER if surfel else RASTER))
+        extra = (rcfg.surfel_ray_divergence_angle,) if surfel else ()
+        for lab, built in libs.items():
+            if name not in built:
+                continue
+            fn = _bind(built[name], KERNELS[name][0])
+            o, tensors, scalars = fk.launch_args(params, valid, frame, mcfg, rcfg,
+                                                 SurfelCols if surfel else PackedCols)
+            shapes[name] = {"anchors": valid.shape[0], "rows": o[0].shape[0],
+                            "cols": o[0].shape[1]}
+
+            def call(fn=fn, tensors=tensors, scalars=scalars + extra, n_valid=o[3]):
+                n_valid.zero_()
+                return fn(*(t.data_ptr() for t in tensors), *scalars, stream)
+
+            calls[(lab, name)] = call
+            outs[(lab, name)] = o
+    return calls, outs, shapes
+
+
 def main(argv) -> None:
     import torch
 
@@ -454,8 +507,12 @@ def main(argv) -> None:
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     calls, outs, nvs, shapes, keep = {}, {}, {}, {}, []
-    if any(n in built for built in libs.values() for n in KERNELS if n != "knn"):
+    if any(n in built for built in libs.values() for n in COMPOSITES):
         calls, outs, nvs, shapes = _composite_calls(libs, dev, stream, keep)
+    if any(n in built for built in libs.values() for n in FRONTS):
+        f_calls, f_outs, shapes["fronts"] = _front_calls(libs, dev, stream)
+        calls.update(f_calls)
+        outs.update(f_outs)
     if any("knn" in built for built in libs.values()):
         k_calls, k_outs, shapes["knn"] = _knn_calls(libs, trees, dev, stream,
                                                        out_dir / "street")
@@ -473,6 +530,8 @@ def main(argv) -> None:
             iters = (KNN_ITERS, KNN_WARMUP) if name.startswith("knn") else (ITERS, WARMUP)
             times = profiling.event_ms(calls[(lab, name)], *iters)
             ms[f"{lab}.{name}"].append(float(np.median(times)))
+    outs = {key: torch.cat([t.reshape(-1).double() for t in o]) if isinstance(o, tuple) else o
+            for key, o in outs.items()}
     same, failed = judge(outs, nvs)
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

@@ -501,7 +501,8 @@ class Telemetry:
     under a span `capture`), `extent` the anchor rows of the last step or
     render program built (its live extent), `fused_fronts` the render
     programs made, and eager frames rendered, whose front ran as one kernel
-    (`ops/front_kernel.py` `front_packed`'s F1, on a card). `enable()` switches on (and
+    (`ops/front_kernel.py`: `front_packed`'s F1 or `surfel_front_packed`'s
+    F2, on a card). `enable()` switches on (and
     measures each card's clock offset), `disable()` off; a `Trainer` call
     that finds a profiler running switches it on (`notice`). Nothing is read
     from a card until `summary`, which synchronizes once and leaves out the

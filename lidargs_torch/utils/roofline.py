@@ -77,9 +77,12 @@ OPS_S_BWD_APPLIED = 288        # + 4 C: K6 per applied pair: the replayed pair (
 OPS_GRAM_PAIR = 7
 OPS_DIRECT_PAIR = 9
 # per gaussian: the decode's element-wise operations and the projection
-# (F1 and the stages count both; F1's prefilter projects each anchor once)
+# (F1 and the stages count both; F1's and F2's prefilter projects each anchor
+# once), and the surfel preprocess (F2: the rotation 45, the axes and centre
+# 60, the normal 40, the projected extent 90, the rect 65)
 OPS_DECODE_ELEMENTWISE = 60
 OPS_PROJECT = 160
+OPS_SURFEL_PROJECT = 300
 
 # (delta name, prefix key of utils/stage_split.py, stages of build_stages):
 # the prefix split's deltas in pipeline order, each with the stages it holds

@@ -76,7 +76,8 @@ KERNELS = {"K1": "lidargs_composite_fwd", "K2": "lidargs_composite_bwd",
            "K3": "lidargs_composite_fwd_windows", "K4": "lidargs_composite_bwd_windows",
            "K5": "lidargs_surfel_fwd", "K6": "lidargs_surfel_bwd",
            "K7": "lidargs_surfel_fwd_windows", "K8": "lidargs_surfel_bwd_windows",
-           "F1": "lidargs_front_fwd", "N1": "lidargs_knn_chamfer",
+           "F1": "lidargs_front_fwd", "F2": "lidargs_surfel_front_fwd",
+           "N1": "lidargs_knn_chamfer",
            "N2": "lidargs_knn_gram_topk", "N3": "lidargs_knn3_direct"}
 # the name of each composite kernel's template among a trace's device rows
 # (K3/K4 and K7/K8 are the window instances of K1/K2 and K5/K6)

@@ -14,6 +14,7 @@ from ..config import ModelConfig, RasterConfig
 from ..lidar.beams import uniform_beam_inclinations
 from ..models.field import init_field_params
 from ..ops.projection import PackedCols, Splats, preprocess_gaussians, unit_x
+from ..ops.surfel import SurfelCols
 from .device import resolve_device
 
 
@@ -146,22 +147,49 @@ def front_agreement(got: tuple, want: tuple, valid: torch.Tensor, C: int,
     given, marks rows of live anchors the prefilter culls, held to the same
     columns on `agree` of them. F1's own valid and depth columns equal its
     valid and depth outputs; its pad columns are 0."""
+    P = PackedCols
+    return _agreement(got, want, valid, C, culled, P, P.MEAN, P.CONIC,
+                      range(P.FEAT0, P.FEAT0 + C))
+
+
+def surfel_front_agreement(got: tuple, want: tuple, valid: torch.Tensor, C: int,
+                           culled=None) -> dict:
+    """`front_agreement` for F2 against the torch surfel front
+    (`surfel_front_packed_plain`), in SurfelCols: every float column but
+    the rect within FRONT_TOL on the rows whose valid and rect agree; the
+    rows of dead (and `culled`) anchors exact but for the decode's columns
+    (Tu, Tv, the normal, the features, the rect), their Tw unit x."""
+    S = SurfelCols
+    decoded = [*range(S.TU.start, S.TV.stop), *range(S.NORMAL.start, S.NORMAL.stop),
+               *range(S.FEAT0, S.FEAT0 + C)]
+    return _agreement(got, want, valid, C, culled, S, S.TW, slice(0, 0), decoded)
+
+
+def _agreement(got: tuple, want: tuple, valid: torch.Tensor, C: int, culled, cols,
+               unit: slice, conic: slice, decoded) -> dict:
+    """The numbers and faults of `front_agreement` for rows of `cols`'
+    layout: `unit` the columns that are unit x on dead rows, `conic` the
+    columns held to rtol of their diagonal's scale (none: an empty slice),
+    `decoded` the columns that dead rows take from the decode."""
     (pk, depth, vis, n_valid), (pk0, depth0, vis0, n0) = got, want
     rtol, atol, agree = FRONT_TOL["rtol"], FRONT_TOL["atol"], FRONT_TOL["agree"]
-    vf, rect, conic = PackedCols.validf(C), PackedCols.rect(C), PackedCols.CONIC
-    feat = range(PackedCols.FEAT0, PackedCols.FEAT0 + C)
+    vf, rect = cols.validf(C), cols.rect(C)
     floats = [c for c in range(vf) if c not in range(rect.start, rect.stop)
               and c not in range(conic.start, conic.stop)]
-    exact = [c for c in floats if c not in feat] + list(range(conic.start, conic.stop)) + [vf]
+    exact = ([c for c in floats if c not in decoded] + list(range(conic.start, conic.stop))
+             + [vf])
     same_valid = vis == vis0
     same_rect = (pk[:, rect] == pk0[:, rect]).all(1)
     rows = same_valid & same_rect
     a, b = pk[rows][:, floats].double(), pk0[rows][:, floats].double()
     d = (a - b).abs()
     live = rows & vis0
-    c0 = pk0[live][:, conic].double()
-    scale = torch.maximum(c0[:, 0].abs(), c0[:, 2].abs())[:, None]
-    conic_rel = (pk[live][:, conic].double() - c0).abs() / scale
+    if conic.stop > conic.start:
+        c0 = pk0[live][:, conic].double()
+        scale = torch.maximum(c0[:, 0].abs(), c0[:, 2].abs())[:, None]
+        conic_rel = (pk[live][:, conic].double() - c0).abs() / scale
+    else:
+        conic_rel = torch.zeros(0, dtype=torch.float64)
     k = pk.shape[0] // max(valid.shape[0], 1)
     dead = (~valid).repeat_interleave(k)
     unit_x_rows = unit_x(3, torch.float32, pk.device).expand(int(dead.sum()), 3)
@@ -174,11 +202,11 @@ def front_agreement(got: tuple, want: tuple, valid: torch.Tensor, C: int,
         "float_max_abs": float(d.max()) if d.numel() else 0.0,
         "conic_rel_max": float(conic_rel.max()) if conic_rel.numel() else 0.0,
         "own_columns": bool(torch.equal(pk[:, vf] > 0, vis)
-                            and torch.equal(pk[:, PackedCols.DEPTH], depth)),
+                            and torch.equal(pk[:, cols.DEPTH], depth)),
         "pad_zero": bool((pk[:, vf + 1:] == 0).all()),
         "dead_rows": int(dead.sum()),
         "dead_rows_exact": bool(torch.equal(pk[dead][:, exact], pk0[dead][:, exact])
-                                and torch.equal(pk[dead][:, PackedCols.MEAN], unit_x_rows)),
+                                and torch.equal(pk[dead][:, unit], unit_x_rows)),
     }
     if culled is not None and bool(culled.any()):
         out["culled_agree"] = float((pk[culled][:, exact] == pk0[culled][:, exact]).all(1)

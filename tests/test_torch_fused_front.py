@@ -13,10 +13,11 @@ On the CPU (16x256 range view, feat 8, k = 2, hidden 32, 300 of 512 anchors):
   * the path (`front_kernel.takes`): the cells' layout takes the packed
     render; a feature bank, appearance rows, unfused heads, a visible-anchor
     cap, 64 hidden units and 5 channels take `render_field`; the surfel
-    variant its own render;
+    variant likewise its packed render (`render_surfel_packed`, F2's
+    frame: `tests/test_torch_surfel_front.py`) or `render_field_surfel`;
   * `telemetry.fused_fronts` counts nothing on the CPU, whose packed front
-    is the plain version, counts a frame whose front runs on a card, and
-    appears in the summary;
+    is the plain version, counts a frame whose front runs on a card (F1
+    or F2), and appears in the summary;
   * `check_front_inputs` takes the cells' layout (32 hidden units) and
     refuses what F1 cannot take.
 
@@ -39,7 +40,7 @@ from lidargs_torch.config import ModelConfig, RasterConfig
 from lidargs_torch.lidar import LidarFrame, uniform_beam_inclinations
 from lidargs_torch.models.field import (anchor_rows, field_splats, frame_render,
                                         init_field_params, render_field, render_field_surfel,
-                                        render_frame_packed)
+                                        render_frame_packed, render_surfel_packed)
 from lidargs_torch.ops import front_kernel
 from lidargs_torch.ops.projection import PackedCols, pack_splats
 from lidargs_torch.ops.rasterize import cull_packed, cull_sorted_rows, permutation_rows
@@ -162,7 +163,8 @@ def test_the_path_follows_the_layout(name):
     params, valid = _field(mcfg, n_cameras)
     assert frame_render("beam", params, mcfg, rcfg) is want
     assert front_kernel.takes(params, mcfg, rcfg) == (want is render_frame_packed)
-    assert frame_render("surfel", params, mcfg, rcfg) is render_field_surfel
+    assert frame_render("surfel", params, mcfg, rcfg) is (
+        render_surfel_packed if want is render_frame_packed else render_field_surfel)
     bg = torch.zeros(mcfg.color_channel)
     render = graphs.RenderGraphs("beam", mcfg, rcfg, bg, graphed=True)
     out = render(params, valid, _frames(1)[0])
@@ -209,14 +211,16 @@ def test_fused_fronts_counts_programs_and_eager_frames():
     assert graphed.render_for(params, torch.device("cuda")) is render_frame_packed
     assert telemetry.fused_fronts == 1
     surfel = graphs.RenderGraphs("surfel", mcfg, rcfg, torch.zeros(2), graphed=True)
-    assert surfel.render_for(params, torch.device("cuda")) is render_field_surfel
+    assert surfel.render_for(params, torch.device("cpu")) is render_surfel_packed
     assert telemetry.fused_fronts == 1
+    assert surfel.render_for(params, torch.device("cuda")) is render_surfel_packed
+    assert telemetry.fused_fronts == 2
     # a step's render programs, and the summary reports the count
     tr = graphs.RenderGraphs("beam", mcfg, rcfg, torch.zeros(2), graphed=True)
     with telemetry.scope(valid.device):
         tr(params, valid, frames[0])
     s = telemetry.summary("render")
-    assert s["fused_fronts"] == telemetry.fused_fronts == 1
+    assert s["fused_fronts"] == telemetry.fused_fronts == 2
     telemetry.disable()
     telemetry.enable()                            # switching on starts the count afresh
     assert telemetry.fused_fronts == 0

@@ -17,7 +17,7 @@ flags. The counts are integers and must be equal.
 
 The rehearsal runs `chip_smoke.run` on the CPU at a tiny size, with the
 card-only helpers stubbed and each kernel wrapper (the tile and the window
-forms of both variants, F1 and N1-N3) replaced by its plain version that
+forms of both variants, F1, F2 and N1-N3) replaced by its plain version that
 counts its launches under the kernel's symbol as the launcher does: every
 phase's control flow, launch count check and comparison runs, and the last
 line is the contract's.
@@ -366,12 +366,13 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
                  # graphs' bookkeeping on the CPU), a 100-anchor vehicle-style field
                  GRAPH_STEPS={"beam": 4, "surfel": 4, "masked": 4}, GRAPH_TIMED=2,
                  GRAPH_VEHICLE=dict(anchors=100, capacity=256), GRAPH_CLI_CAPACITY=1024,
-                 # phase 36: two of the tiny cell's six poses
+                 # phases 36-37: two of the tiny cells' six poses
                  F1_POSES=(0, 3))
     for name, value in sizes.items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke, "card", lambda: "CPU rehearsal")
-    monkeypatch.setattr(chip_smoke, "render_cell", lambda: tiny_cell("beam-render-street"))
+    monkeypatch.setattr(chip_smoke, "render_cell",
+                        lambda variant="beam": tiny_cell(f"{variant}-render-street"))
     monkeypatch.setattr(chip_smoke, "event_ms",
                         lambda fn, iters, warmup=0, flush=False: [(fn(), 1.0)[1]])
     monkeypatch.setattr(profiling, "profile",
@@ -402,12 +403,14 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert [k["name"] for k in kernels] == [
         "composite_fwd", "composite_bwd", "composite_fwd_windows", "composite_bwd_windows",
         "surfel_fwd", "surfel_bwd", "surfel_fwd_windows", "surfel_bwd_windows",
-        "knn_chamfer", "knn_gram_topk", "knn3_direct", "front_fwd"]
+        "knn_chamfer", "knn_gram_topk", "knn3_direct", "front_fwd", "surfel_front_fwd"]
     assert [k["launches"] for k in kernels[:8]] == [3, 2] * 4
-    f1 = kernels[11]                            # one launch a frame of phase 1, held in phase 36
-    assert f1["launches"] == 3 and f1["source"] == "lidargs_torch/csrc/front_fwd.cu"
-    assert f1["rows"] == 6 * f1["anchors"] > 0 and f1["bound_ms"] > 0
-    assert f1["valid_agree"] == f1["rect_agree"] == 1.0 and f1["max_abs_err"] == 0.0
+    # one launch a frame of phase 1 (F1) and phase 10 (F2), held in phases 36 and 37
+    for front, source in zip(kernels[11:], ("front_fwd", "surfel_front_fwd")):
+        assert front["launches"] == 3 and front["source"] == f"lidargs_torch/csrc/{source}.cu"
+        assert front["rows"] == 6 * front["anchors"] > 0 and front["bound_ms"] > 0
+        assert front["valid_agree"] == front["rect_agree"] == 1.0
+        assert front["max_abs_err"] == 0.0
     assert all(k["source"] == "lidargs_torch/csrc/knn.cu" for k in kernels[8:11])
     assert [k["replaces"] for k in kernels[8:11]] == [
         "lidargs_tpu/ops/knn.py:60", "lidargs_tpu/ops/knn.py:22",
@@ -454,7 +457,7 @@ def test_smoke_run_rehearses_on_the_cpu(monkeypatch, capsys):
     assert cli["beam"]["launches"]["K2"] == 4 and cli["beam"]["launches"]["K1"] > 4
     assert [k.get("launches_cli") for k in kernels] == [
         cli["beam"]["launches"]["K1"], 4, None, None, cli["surfel"]["launches"]["K5"], 2,
-        None, None, None, None, None, None]
+        None, None, None, None, None, None, None]
     assert cli["knn_oracle"]["points"] == 3000 and cli["knn_oracle"]["max_err_over_tol"] <= 1
     assert cli["chamfer_oracle"]["max_err_over_tol"] <= 1
     # N1-N3: two N1 launches a chamfer frame with both clouds (phase 20's two
